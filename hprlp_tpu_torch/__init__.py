@@ -1,0 +1,20 @@
+"""hprlp_tpu_torch -- the HPR-LP solver on PyTorch and CUDA.
+
+A port of hprlp_tpu (JAX/XLA/Pallas, the reference) to PyTorch, with the
+sparse matrix-vector product as a hand-written CUDA kernel for Hopper
+(ops/spmv.py, csrc/spmv.cu).  It imports neither JAX nor hprlp_tpu.
+
+Standard form (reference: include/HPRLP.h:57-62):
+    minimize    c'x        s.t.   AL <= A x <= AU,   l <= x <= u
+"""
+
+from .params import Parameters
+from .problem import LpProblem
+from .results import Results
+from .model import Model, solve
+from .solver.loop import solve_problem
+
+__version__ = "0.1.0"
+
+__all__ = ["Parameters", "LpProblem", "Results", "Model", "solve",
+           "solve_problem", "__version__"]

@@ -1,0 +1,149 @@
+"""Pins the port's copies of JAX-package code to their originals, and the
+port's import boundary (no JAX, no hprlp_tpu, no Triton at import)."""
+
+import ast
+import dataclasses
+import importlib.util
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+
+import hprlp_tpu.constants as jconst
+import hprlp_tpu.params as jparams
+import hprlp_tpu.problem as jproblem
+import hprlp_tpu.results as jresults
+import hprlp_tpu_torch.constants as tconst
+import hprlp_tpu_torch.params as tparams
+import hprlp_tpu_torch.problem as tproblem
+import hprlp_tpu_torch.results as tresults
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "hprlp_tpu_torch")
+
+
+def _fields(cls):
+    out = []
+    for f in dataclasses.fields(cls):
+        default = (f.default_factory() if f.default_factory
+                   is not dataclasses.MISSING else f.default)
+        out.append((f.name, f.type, repr(default)))
+    return out
+
+
+@pytest.mark.parametrize("pair", [
+    (jparams.Parameters, tparams.Parameters),
+    (jresults.Results, tresults.Results),
+    (jproblem.LpProblem, tproblem.LpProblem),
+], ids=["Parameters", "Results", "LpProblem"])
+def test_dataclass_copies_match(pair):
+    assert _fields(pair[1]) == _fields(pair[0])
+
+
+def test_parameters_validate_matches():
+    for kw in ({}, {"spmv_backend": "xla"}, {"precision": "bad"},
+               {"check_iter": 1}, {"stop_tol": 0.0},
+               {"refine_stage_precision": "f16"}):
+        outs = []
+        for P in (jparams.Parameters, tparams.Parameters):
+            p = P(**kw)
+            try:
+                p.validate()
+                outs.append(("ok", p.spmv_backend))
+            except ValueError as e:
+                outs.append(("err", str(e)))
+        assert outs[0] == outs[1], kw
+
+
+def test_constants_match():
+    names = [n for n in vars(tconst) if n.isupper()]
+    assert names
+    for n in names:
+        assert getattr(tconst, n) == getattr(jconst, n), n
+
+
+def test_lp_problem_behaviour_matches():
+    rng = np.random.default_rng(3)
+    A = sp.random(20, 30, density=0.3, random_state=rng).tocsr()
+    x = rng.uniform(-1, 1, 30)
+    args = (A, A @ x - 1, np.full(20, 1e21), x - 1, x + 1,
+            rng.normal(size=30))
+    pj = jproblem.LpProblem.from_arrays(*args, obj_constant=2.0)
+    pt = tproblem.LpProblem.from_arrays(*args, obj_constant=2.0)
+    for k in ("AL", "AU", "l", "u", "c"):
+        np.testing.assert_array_equal(getattr(pt, k), getattr(pj, k))
+    assert (pt.A != pj.A).nnz == 0
+    z = rng.normal(size=30)
+    for y in (rng.normal(size=20), np.abs(rng.normal(size=20))):
+        np.testing.assert_equal(pt.kkt_error(x, y, z), pj.kkt_error(x, y, z))
+    with pytest.raises(ValueError, match="AL > AU"):
+        tproblem.LpProblem.from_arrays(A, np.ones(20), np.zeros(20),
+                                       x - 1, x + 1, np.ones(30))
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_under_test", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_py_function(name):
+    """benchmarks/run.py's generator, taken from its source (importing the
+    script would reconfigure JAX's compile cache for this process)."""
+    with open(os.path.join(ROOT, "benchmarks", "run.py")) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    ns = {"np": np, "sp": sp, "LpProblem": jproblem.LpProblem}
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), "run.py", "exec"),
+         ns)
+    return ns[name]
+
+
+@pytest.mark.parametrize("name,args", [
+    ("random_lp", (300, 500, 7, 2)),
+    ("assignment_problem", (8,)),
+])
+def test_chip_smoke_generators_match_benchmarks(name, args):
+    pj = _run_py_function(name)(*args)
+    pt = getattr(_load_chip_smoke(), name)(*args)
+    assert pt.name == pj.name
+    assert (pt.A != pj.A).nnz == 0
+    for k in ("AL", "AU", "l", "u", "c"):
+        np.testing.assert_array_equal(getattr(pt, k), getattr(pj, k))
+
+
+def test_import_leaves_out_jax_triton_and_the_jax_package():
+    code = ("import sys, hprlp_tpu_torch, hprlp_tpu_torch.convert, "
+            "hprlp_tpu_torch.ops.spmv, hprlp_tpu_torch.solver.loop; "
+            "bad = [m for m in ('jax', 'triton', 'hprlp_tpu') "
+            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PORT):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "hprlp_tpu"), (path, mod)
