@@ -2,18 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the CSR SpMV kernel from the checkout's sources, holds it against
-its plain PyTorch version at the main path's shapes, then drives the main
-path (hprlp_tpu_torch.solve) on three LPs:
+Builds the kernels from the checkout's sources, holds each against its
+plain PyTorch version at its path's shapes, drives the main path
+(hprlp_tpu_torch.solve) on three LPs, then the SpMV variant studies:
 
   1. toolchain   nvidia-smi name/power limit, torch, CUDA, nvcc, Triton
-  2. build       the kernel library (nvcc, sm_90a), with its build time
-  3. kernel      f32 and f64 kernel against spmv_reference on A and A^T of
-                 random_lp(65536, 131072, 20, seed=2), with timings
+  2. build       both kernel libraries (nvcc, sm_90a, one process per
+                 source, started together), with their build times
+  3. kernel      f32 and f64 CSR kernel against spmv_reference on A and A^T
+                 of random_lp(65536, 131072, 20, seed=2), with timings, the
+                 bound and torch.mv on a sparse CSR tensor (cuSPARSE) as
+                 the library yardstick
   4. main f32    solve of that LP at stop_tol=1e-4 (auto -> f32 on CUDA)
   5. main f64    assignment_problem(64) at 1e-8 (auto -> f64), objective
                  against scipy's linear_sum_assignment
   6. real size   random_lp(262144, 524288, 40, seed=4), 10.5M nnz, at 1e-4
+  7. variants    the four prof_* studies (hprlp_tpu_torch/prof/) on the
+                 bench LP (A, A^T) and on phase 6's LP (A), every variant
+                 against its plain version and the exact ones against A @ x
 
 Any failure raises (exit code != 0).  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -24,57 +30,22 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import scipy.sparse as sp
 import torch
 
+from hprlp_tpu_torch.prof.problems import (assignment_problem, make_problem,
+                                           random_lp)
+from hprlp_tpu_torch.prof.timing import card as card_name
+from hprlp_tpu_torch.prof.timing import eager_ms, spmv_bound, time_ms
+
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-
-def random_lp(m, n, nnz_per_row, seed=0, name=""):
-    """Copy of benchmarks/run.py::random_lp (pinned by a CPU test)."""
-    from hprlp_tpu_torch.problem import LpProblem
-
-    rng = np.random.default_rng(seed)
-    rows = np.repeat(np.arange(m), nnz_per_row)
-    cols = rng.integers(0, n, size=m * nnz_per_row)
-    vals = rng.normal(size=m * nnz_per_row)
-    A = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
-    A.sum_duplicates()
-    x_feas = rng.uniform(-1.0, 1.0, n)
-    Ax = A @ x_feas
-    return LpProblem.from_arrays(A, Ax - 1.0, Ax + 1.0, x_feas - 2.0,
-                                 x_feas + 2.0, rng.normal(size=n),
-                                 name=name or f"random{m}x{n}")
-
-
-def assignment_problem(n=64, seed=0):
-    """Copy of benchmarks/run.py::assignment_problem (pinned by a CPU
-    test): LP relaxation of an n x n assignment problem."""
-    from hprlp_tpu_torch.problem import LpProblem
-
-    rng = np.random.default_rng(seed)
-    cost = rng.uniform(0.0, 1.0, (n, n))
-    rows, cols, vals = [], [], []
-    for i in range(n):          # row-sum constraints
-        for j in range(n):
-            rows.append(i)
-            cols.append(i * n + j)
-            vals.append(1.0)
-    for j in range(n):          # col-sum constraints
-        for i in range(n):
-            rows.append(n + j)
-            cols.append(i * n + j)
-            vals.append(1.0)
-    A = sp.coo_matrix((vals, (rows, cols)), shape=(2 * n, n * n)).tocsr()
-    ones = np.ones(2 * n)
-    return LpProblem.from_arrays(A, ones, ones, np.zeros(n * n),
-                                 np.ones(n * n), cost.ravel(),
-                                 name=f"assignment{n}")
 
 
 def phase(n, text):
@@ -86,50 +57,16 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def time_ms(fn, reps=50):
-    """Device time of one fn() call: reps calls captured in a CUDA graph
-    and replayed between two CUDA events, so host launch gaps are out."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def eager_ms(fn, reps=50):
-    """Time per call of reps back-to-back eager calls (host launch gaps
-    included), by CUDA events."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def library_call(M, x):
+    """torch.mv on a sparse CSR tensor (cuSPARSE), the yardstick of the
+    CSR kernels: timed here, never called by the port."""
+    S = torch.sparse_csr_tensor(M.indptr, M.indices, M.vals,
+                                (M.nrows, M.ncols))
+    return lambda: torch.mv(S, x)
 
 
 def toolchain():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     from hprlp_tpu_torch.ops.spmv import _nvcc
 
     nvcc = subprocess.run([_nvcc(), "--version"], capture_output=True,
@@ -166,16 +103,21 @@ def kernel_check(card):
             err = float((y - y_ref).abs().max())
             check(err <= rtol * scale,
                   f"{tag} {mat_name}: max abs err {err} > {rtol} * {scale}")
+            bound_ms, bound_by = spmv_bound(M, dtype)
             rec[mat_name] = {
                 "err": err, "scale": scale,
                 "ms": time_ms(lambda: csr_spmv(M, x)),
                 "plain_ms": time_ms(lambda: spmv_reference(M, x)),
-                "eager_ms": eager_ms(lambda: csr_spmv(M, x))}
+                "library_ms": time_ms(library_call(M, x)),
+                "eager_ms": eager_ms(lambda: csr_spmv(M, x)),
+                "bound_ms": bound_ms, "bound_by": bound_by}
         records[tag] = rec
         phase(3, f"{tag}: " + "; ".join(
             f"{k} ({lp.A.nnz} nnz) max_abs_err={v['err']:.3e} "
             f"(<= {rtol:g}*{v['scale']:.3e}) kernel={v['ms']:.4f} ms "
-            f"plain={v['plain_ms']:.4f} ms (graph replay; eager kernel "
+            f"plain={v['plain_ms']:.4f} ms library={v['library_ms']:.4f} ms "
+            f"bound={v['bound_ms']:.4f} ms ({v['bound_by']}, "
+            f"{v['bound_ms'] / v['ms']:.1%}) (graph replay; eager kernel "
             f"{v['eager_ms']:.4f} ms)" for k, v in rec.items())
             + f" [{card}]")
     return records
@@ -201,6 +143,135 @@ def run_solve(n, problem, params, card):
     return res, kkt, launches
 
 
+def build_kernels():
+    """Build every kernel library at once, one nvcc process per source.
+    Returns {source: (library, seconds, nvcc -Xptxas -v output)}."""
+    from hprlp_tpu_torch.ops import spmv, spmv_variants
+
+    sources = (spmv.SOURCE, spmv_variants.SOURCE)
+    logs = {src: [] for src in sources}
+
+    def one(src):
+        t0 = time.perf_counter()
+        lib = spmv.build(src, logs[src])
+        return lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(one, sources)))
+    return {src: (*built[src], "".join(logs[src])) for src in sources}
+
+
+def ptxas_summary(log):
+    """One line per kernel from nvcc -Xptxas -v: registers and spills."""
+    kernels, order, name = {}, [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            if name not in kernels:
+                kernels[name] = []
+                order.append(name)
+        elif name and ("spill" in line or "Used" in line):
+            kernels[name].append(line.split(":", 1)[-1].strip())
+    pretty = dict(zip(order, order))
+    if order and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(order),
+                             capture_output=True, text=True).stdout
+        pretty = {k: v.replace("(anonymous namespace)::", "").split("(")[0]
+                  .removeprefix("void ")
+                  for k, v in zip(order, out.splitlines())}
+    return [f"{pretty[k]}: {'; '.join(kernels[k])}" for k in order]
+
+
+# Each family's headline variant (exact) for the kernels' JSON record, and
+# the Pallas study it replaces (make_kernel; spmv_loop; pallas_call).
+HEADLINE = {"ablate": "full", "multi_acc": "n_acc=1", "flush": "full",
+            "segsum": "full"}
+REPLACES = {
+    "ablate": ("benchmarks/prof_lane_ablate.py:44", ":90", ":115"),
+    "multi_acc": ("benchmarks/prof_dual_acc.py:32", ":60", ":87"),
+    "flush": ("benchmarks/prof_flush_variants.py:46", ":97", ":122"),
+    "segsum": ("benchmarks/prof_kernel_variants.py:39", ":121", ":152"),
+}
+
+
+def variants_phase(card, built, huge_problem):
+    """Phase 7: the variant-study path at the bench LP (A, A^T) and at
+    phase 6's LP (A).  Returns the four families' JSON records."""
+    from hprlp_tpu_torch.ops import spmv_variants as sv
+    from hprlp_tpu_torch.prof import (prof_dual_acc, prof_flush_variants,
+                                      prof_kernel_variants, prof_lane_ablate,
+                                      study)
+
+    lib, secs, log = built[sv.SOURCE]
+    phase(7, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s "
+             f"(beside the CSR kernel's build)")
+    for line in ptxas_summary(log):
+        phase(7, f"ptxas {line}")
+    sizes = {"bench": study.device_matrices(make_problem()),
+             "huge": {"A": study.device_matrices(huge_problem)["A"]}}
+    modules = (prof_lane_ablate, prof_dual_acc, prof_flush_variants,
+               prof_kernel_variants)
+
+    for wrapper in sv.WRAPPERS.values():
+        wrapper.launches = 0
+    timings = {(m.FAMILY, size): m.run(mats)
+               for m in modules for size, mats in sizes.items()}
+    launches = {fam: w.launches for fam, w in sv.WRAPPERS.items()}
+
+    library = {}
+    for size, mats in sizes.items():
+        for mat, M in mats.items():
+            library[size, mat] = time_ms(library_call(M, study.study_x(M)))
+            phase(7, f"{size} {mat}: torch.mv on sparse CSR (cuSPARSE) "
+                     f"{library[size, mat] * 1e3:.3f} us [{card}]")
+    records, failed = [], []
+    for m in modules:
+        fam = m.FAMILY
+        checks = []
+        for size, mats in sizes.items():
+            got = study.check(fam, mats, m.VARIANTS)
+            checks += [dict(c, size=size) for c in got]
+            for line in study.report(timings[fam, size], got, card, size):
+                phase(7, line)
+        failed += [f"{fam}/{c['size']}/{c['matrix']}/{c['variant']}"
+                   for c in checks if not c["ok"]]
+        check(launches[fam] > 0, f"phase 7: {fam} was never launched")
+        head = HEADLINE[fam]
+        M = sizes["bench"]["A"]
+        x = study.study_x(M)
+        t = {(r["matrix"], r["variant"], size): r
+             for (f, size), recs in timings.items() if f == fam for r in recs}
+        bench_a = t["A", head, "bench"]
+        variants = {}
+        for name in m.VARIANTS:
+            v = sv.variant(fam, name)
+            errs = [c for c in checks if c["variant"] == name]
+            variants[name] = {
+                "kind": v.kind,
+                "ms": {f"{size}_{mat}": t[mat, name, size]["ms"]
+                       for size, mats in sizes.items() for mat in mats},
+                "max_abs_err": max(c["err"] for c in errs),
+                "tol_abs": min(c["tol"] * c["scale"] for c in errs)}
+        records.append({
+            "name": f"spmv_{fam}", "route": "cuda",
+            "source": os.path.relpath(sv.SOURCE, HERE),
+            "replaces": REPLACES[fam][0],
+            "also_replaces": "spmv_loop " + REPLACES[fam][1]
+                             + ", pallas_call " + REPLACES[fam][2],
+            "launches": launches[fam], "headline_variant": head,
+            "max_abs_err": variants[head]["max_abs_err"],
+            "ms": bench_a["ms"],
+            "plain_ms": time_ms(lambda: sv.plain(fam, M, x, head)),
+            "bound_ms": bench_a["bound_ms"], "bound_by": bench_a["bound_by"],
+            "library_ms": library["bench", "A"], "variants": variants})
+    phase(7, "launches on the study path: " + ", ".join(
+        f"{k}={v}" for k, v in launches.items()))
+    check(not failed, f"phase 7: outside tolerance: {failed}")
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -217,10 +288,9 @@ def main():
 
     card = toolchain()
 
-    t0 = time.perf_counter()
-    lib = spmv_mod.build()
-    phase(2, f"built {os.path.relpath(lib, HERE)} in "
-             f"{time.perf_counter() - t0:.2f} s")
+    built = build_kernels()
+    lib, secs, _ = built[spmv_mod.SOURCE]
+    phase(2, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s")
 
     rec = kernel_check(card)
 
@@ -241,10 +311,13 @@ def main():
     phase(5, f"linear_sum_assignment={exact:.10e} rel_err={rel:.3e}")
     check(rel < 1e-6, f"phase 5: objective off by {rel}")
 
+    prob6 = random_lp(262144, 524288, 40, seed=4)
     res6, kkt6, l32b = run_solve(
-        6, random_lp(262144, 524288, 40, seed=4),
-        Parameters(stop_tol=1e-4, verbose=False, max_iter=50_000), card)
+        6, prob6, Parameters(stop_tol=1e-4, verbose=False, max_iter=50_000),
+        card)
     check(kkt6 < 1e-3, f"phase 6: host f64 KKT {kkt6}")
+
+    variant_records = variants_phase(card, built, prob6)
 
     src = os.path.relpath(spmv_mod.SOURCE, HERE)
     kernels = []
@@ -260,7 +333,11 @@ def main():
             "launches": launches,
             "max_abs_err": max(a["err"], at["err"]),
             "ms": a["ms"], "plain_ms": a["plain_ms"],
-            "ms_AT": at["ms"], "plain_ms_AT": at["plain_ms"]})
+            "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+            "library_ms": a["library_ms"],
+            "ms_AT": at["ms"], "plain_ms_AT": at["plain_ms"],
+            "bound_ms_AT": at["bound_ms"], "library_ms_AT": at["library_ms"]})
+    kernels += variant_records
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ the top of the CUDA source).
 
 The library is compiled with nvcc on first use into `_build/` next to this
 package (one file per source hash) and loaded with ctypes; nothing is built
-or imported from a GPU toolchain when this module is imported.
+or imported from a GPU toolchain when this module is imported.  `build`
+takes any source of the package's `csrc/`, so the variant-study kernels
+(ops/spmv_variants.py) build by the same rule.
 """
 
 from __future__ import annotations
@@ -39,36 +41,43 @@ def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = os.path.join(cuda_home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin); the CSR "
-                           "SpMV kernel cannot be built")
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin); the CUDA "
+                           "kernels cannot be built")
     return path
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
+def library_path(source: str = SOURCE) -> str:
+    """Where `source` builds to: one file per source (and flags) hash."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libhprlp_spmv_{digest.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR,
+                        f"libhprlp_{stem}_{digest.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernel library if this source has not been built yet.
-    Returns the library path.  Raises if nvcc fails."""
-    out = library_path()
+def build(source: str = SOURCE, ptxas_log: list | None = None) -> str:
+    """Compile `source` (a CUDA file with a plain C interface) into a
+    shared library if it has not been built yet.  Returns the library
+    path.  Raises if nvcc fails.  With a list as `ptxas_log`, nvcc also
+    reports each kernel's registers and spills (-Xptxas -v) and its output
+    is appended there."""
+    out = library_path(source)
     if os.path.exists(out):
         return out
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, SOURCE]
+    cmd = [nvcc, *NVCC_FLAGS,
+           *(("-Xptxas", "-v") if ptxas_log is not None else ()),
+           "-o", tmp, source]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
+        if ptxas_log is not None:
+            ptxas_log.append(proc.stdout + proc.stderr)
         os.replace(tmp, out)  # atomic: a concurrent build sees all or none
     finally:
         if os.path.exists(tmp):
@@ -98,9 +107,11 @@ def threads_per_row(nnz: int, nrows: int) -> int:
     return _THREADS_PER_ROW[-1]
 
 
-def _check(A, x: torch.Tensor) -> None:
+def check_csr_args(A, x: torch.Tensor) -> None:
+    """The checks every CSR kernel wrapper makes before a launch."""
     if not x.is_cuda:
-        raise ValueError(f"csr_spmv needs a CUDA tensor, got {x.device}")
+        raise ValueError(f"the CUDA kernels need a CUDA tensor, got "
+                         f"{x.device}")
     for name, t in (("indptr", A.indptr), ("indices", A.indices),
                     ("vals", A.vals)):
         if t.device != x.device:
@@ -124,7 +135,7 @@ def _check(A, x: torch.Tensor) -> None:
 def csr_spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x on the card.  A: CsrMatrix-like (indptr, indices, vals,
     nrows, ncols, nnz).  Raises on a bad argument or a refused launch."""
-    _check(A, x)
+    check_csr_args(A, x)
     lib = _library()
     y = torch.empty(A.nrows, dtype=x.dtype, device=x.device)
     fn = (lib.hprlp_csr_spmv_f32 if x.dtype == torch.float32

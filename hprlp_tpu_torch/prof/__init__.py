@@ -1,0 +1,6 @@
+"""The port's measurement entry points: the SpMV variant studies
+(prof_*.py, counterparts of benchmarks/prof_*.py), their shared path
+(study.py), timing and byte model (timing.py), and the benchmarks' seeded
+LP generators (problems.py).  They need a CUDA device to run; importing
+them needs none.
+"""

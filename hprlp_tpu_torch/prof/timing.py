@@ -1,0 +1,82 @@
+"""Kernel timing on the card, and the SpMV's least time (its bound).
+
+`time_ms` is device time by CUDA-graph replay between CUDA events;
+`eager_ms` adds the host's launch gaps.  `spmv_bytes`/`spmv_bound_ms` give
+the least time one y = A x can take on an H100 SXM: the larger of its
+bytes over the HBM rate and its operations over the vector-unit peak
+(NVIDIA's data sheet; both assume the 700 W power limit).
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+# Non-tensor-core peaks: 67 TFLOP/s in f32, 34 TFLOP/s in f64.
+FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def time_ms(fn, reps: int = 50) -> float:
+    """Device time of one fn() call: reps calls captured in a CUDA graph
+    and replayed between two CUDA events, so host launch gaps are out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def eager_ms(fn, reps: int = 50) -> float:
+    """Time per call of reps back-to-back eager calls (host launch gaps
+    included), by CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def spmv_bytes(A, dtype: torch.dtype) -> int:
+    """Bytes one y = A x must move: values, column indices (int32), indptr
+    (int32), x and y, each once."""
+    v = torch.empty((), dtype=dtype).element_size()
+    return A.nnz * (v + 4) + (A.nrows + 1) * 4 + A.ncols * v + A.nrows * v
+
+
+def spmv_bound(A, dtype: torch.dtype) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time of one y = A x, and whether
+    its bytes or its 2 * nnz operations set it."""
+    bytes_ms = spmv_bytes(A, dtype) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * A.nnz / FLOPS_PER_S[dtype] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return out.stdout.strip().splitlines()[0]

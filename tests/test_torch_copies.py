@@ -118,9 +118,42 @@ def test_chip_smoke_generators_match_benchmarks(name, args):
         np.testing.assert_array_equal(getattr(pt, k), getattr(pj, k))
 
 
+@pytest.mark.parametrize("name,args", [
+    ("random_lp", (300, 500, 7, 2)),
+    ("assignment_problem", (8,)),
+    ("make_problem", ()),
+])
+def test_prof_problem_generators_match_originals(name, args, monkeypatch):
+    """hprlp_tpu_torch/prof/problems.py against benchmarks/run.py and
+    bench.py (make_problem at a cut size, with the same constants)."""
+    import bench
+
+    import hprlp_tpu_torch.prof.problems as tprob
+
+    if name == "make_problem":
+        assert (tprob.M, tprob.N, tprob.NNZ_PER_ROW, tprob.SEED) == \
+            (bench.M, bench.N, bench.NNZ_PER_ROW, bench.SEED)
+        for mod in (bench, tprob):
+            monkeypatch.setattr(mod, "M", 300)
+            monkeypatch.setattr(mod, "N", 500)
+        pj = bench.make_problem()
+    else:
+        pj = _run_py_function(name)(*args)
+    pt = getattr(tprob, name)(*args)
+    assert pt.name == pj.name
+    assert pt.A.shape == pj.A.shape and (pt.A != pj.A).nnz == 0
+    for k in ("AL", "AU", "l", "u", "c"):
+        np.testing.assert_array_equal(getattr(pt, k), getattr(pj, k))
+
+
 def test_import_leaves_out_jax_triton_and_the_jax_package():
     code = ("import sys, hprlp_tpu_torch, hprlp_tpu_torch.convert, "
-            "hprlp_tpu_torch.ops.spmv, hprlp_tpu_torch.solver.loop; "
+            "hprlp_tpu_torch.ops.spmv, hprlp_tpu_torch.solver.loop, "
+            "hprlp_tpu_torch.ops.spmv_variants, "
+            "hprlp_tpu_torch.prof.prof_lane_ablate, "
+            "hprlp_tpu_torch.prof.prof_dual_acc, "
+            "hprlp_tpu_torch.prof.prof_flush_variants, "
+            "hprlp_tpu_torch.prof.prof_kernel_variants; "
             "bad = [m for m in ('jax', 'triton', 'hprlp_tpu') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -229,7 +229,7 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(spmv_mod.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", "/nonexistent-cuda")
     monkeypatch.setattr(spmv_mod, "library_path",
-                        lambda: "/nonexistent-cuda/lib.so")
+                        lambda source=None: "/nonexistent-cuda/lib.so")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         spmv_mod.build()
 
