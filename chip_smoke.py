@@ -7,16 +7,20 @@ plain PyTorch version at its path's shapes, drives the main path
 (hprlp_tpu_torch.solve) on three LPs, then the SpMV variant studies:
 
   1. toolchain   nvidia-smi name/power limit, torch, CUDA, nvcc, Triton
-  2. build       both kernel libraries (nvcc, sm_90a, one process per
+  2. build       the three kernel libraries (nvcc, sm_90a, one process per
                  source, started together), with their build times
-  3. kernel      f32 and f64 CSR kernel against spmv_reference on A and A^T
-                 of random_lp(65536, 131072, 20, seed=2), with timings, the
-                 bound and torch.mv on a sparse CSR tensor (cuSPARSE) as
-                 the library yardstick
-  4. main f32    solve of that LP at stop_tol=1e-4 (auto -> f32 on CUDA)
+  3. kernel      the tiled SpMV (main path) and the CSR kernel (previous
+                 design), f32 and f64, on A and A^T of random_lp(65536,
+                 131072, 20, seed=2) and random_lp(262144, 524288, 40,
+                 seed=4): each against its plain version, the tiled one
+                 also for bitwise-identical repeats; timings of both, of
+                 the tiled kernel's stages and of torch.mv on a sparse CSR
+                 tensor (cuSPARSE, the library yardstick), the bound, and
+                 the tiles' build time
+  4. main f32    solve of the first LP at stop_tol=1e-4 (auto -> f32)
   5. main f64    assignment_problem(64) at 1e-8 (auto -> f64), objective
                  against scipy's linear_sum_assignment
-  6. real size   random_lp(262144, 524288, 40, seed=4), 10.5M nnz, at 1e-4
+  6. real size   solve of the second LP (10.5M nnz) at 1e-4
   7. variants    the four prof_* studies (hprlp_tpu_torch/prof/) on the
                  bench LP (A, A^T) and on phase 6's LP (A), every variant
                  against its plain version and the exact ones against A @ x
@@ -82,55 +86,106 @@ def toolchain():
     return card
 
 
-def kernel_check(card):
+def kernel_check(card, problems):
+    """Phase 3 on A and A^T of each problem, in f32 and f64.  Returns
+    {(size, dtype tag, matrix): record}."""
     from hprlp_tpu_torch.ops.device_problem import build_device_problem
-    from hprlp_tpu_torch.ops.spmv import csr_spmv, spmv_reference
+    from hprlp_tpu_torch.ops.spmv import (MAIN_STAGE, TILED_STAGES,
+                                          csr_spmv, max_active_clusters,
+                                          spmv_reference, tiled_spmv)
+    from hprlp_tpu_torch.ops.tiles import build_tiles, tiled_spmv_reference
 
-    problem = random_lp(65536, 131072, 20, seed=2)
     rng = np.random.default_rng(0)
     records = {}
-    for dtype, rtol, tag in ((torch.float32, 1e-5, "f32"),
-                             (torch.float64, 1e-12, "f64")):
-        lp, _ = build_device_problem(problem, dtype=dtype, device="cuda")
-        rec = {}
-        for mat_name, M in (("A", lp.A), ("AT", lp.AT)):
-            x = torch.as_tensor(rng.normal(size=M.ncols), device="cuda"
-                                ).to(dtype)
-            y = csr_spmv(M, x)
-            y_ref = spmv_reference(M, x)
-            torch.cuda.synchronize()
-            scale = float(y_ref.abs().max())
-            err = float((y - y_ref).abs().max())
-            check(err <= rtol * scale,
-                  f"{tag} {mat_name}: max abs err {err} > {rtol} * {scale}")
-            bound_ms, bound_by = spmv_bound(M, dtype)
-            rec[mat_name] = {
-                "err": err, "scale": scale,
-                "ms": time_ms(lambda: csr_spmv(M, x)),
-                "plain_ms": time_ms(lambda: spmv_reference(M, x)),
-                "library_ms": time_ms(library_call(M, x)),
-                "eager_ms": eager_ms(lambda: csr_spmv(M, x)),
-                "bound_ms": bound_ms, "bound_by": bound_by}
-        records[tag] = rec
-        phase(3, f"{tag}: " + "; ".join(
-            f"{k} ({lp.A.nnz} nnz) max_abs_err={v['err']:.3e} "
-            f"(<= {rtol:g}*{v['scale']:.3e}) kernel={v['ms']:.4f} ms "
-            f"plain={v['plain_ms']:.4f} ms library={v['library_ms']:.4f} ms "
-            f"bound={v['bound_ms']:.4f} ms ({v['bound_by']}, "
-            f"{v['bound_ms'] / v['ms']:.1%}) (graph replay; eager kernel "
-            f"{v['eager_ms']:.4f} ms)" for k, v in rec.items())
-            + f" [{card}]")
+    for size, problem in problems.items():
+        for dtype, rtol, tag in ((torch.float32, 1e-5, "f32"),
+                                 (torch.float64, 1e-12, "f64")):
+            lp, _ = build_device_problem(problem, dtype=dtype, device="cuda")
+            for mat_name, M in (("A", lp.A), ("AT", lp.AT)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                T = build_tiles(M)
+                torch.cuda.synchronize()
+                tiles_s = time.perf_counter() - t0
+                x = torch.as_tensor(rng.normal(size=M.ncols), device="cuda"
+                                    ).to(dtype)
+                y = tiled_spmv(T, x)
+                y_again = tiled_spmv(T, x)
+                y_ref = tiled_spmv_reference(T, x)
+                y_csr = csr_spmv(M, x)
+                y_csr_ref = spmv_reference(M, x)
+                torch.cuda.synchronize()
+                scale = float(y_ref.abs().max())
+                err = float((y - y_ref).abs().max())
+                err_csr = float((y_csr - y_csr_ref).abs().max())
+                what = f"{size} {tag} {mat_name}"
+                check(err <= rtol * scale, f"{what}: tiled max abs err "
+                      f"{err} > {rtol} * {scale}")
+                check(torch.equal(y, y_again),
+                      f"{what}: two tiled launches differ")
+                check(err_csr <= rtol * scale, f"{what}: CSR max abs err "
+                      f"{err_csr} > {rtol} * {scale}")
+                # The stages: each x path on the main tiles, and x staged
+                # per block on tiles of one strip group (row blocks only).
+                one_group = build_tiles(M, strip_groups=1)
+                runs = [(stage, T, stage) for stage in TILED_STAGES]
+                runs.append(("block_x_one_group", one_group, "block_x"))
+                stages = {}
+                for name, tiles, stage in runs:
+                    y_s = tiled_spmv(tiles, x, stage)
+                    torch.cuda.synchronize()
+                    e = float((y_s - y_ref).abs().max())
+                    check(e <= rtol * scale, f"{what}: stage {name} max "
+                          f"abs err {e}")
+                    stages[name] = time_ms(
+                        lambda t=tiles, st=stage: tiled_spmv(t, x, st))
+                bound_ms, bound_by = spmv_bound(M, dtype)
+                rec = {
+                    "err": err, "scale": scale, "err_csr": err_csr,
+                    "nnz": M.nnz, "tiles_s": tiles_s,
+                    "strips": T.n_strips, "strip_width": T.strip_width,
+                    "groups": T.n_groups, "chunks": T.n_chunks,
+                    "blocks": T.n_blocks, "smem": T.smem_bytes,
+                    "clusters8": max_active_clusters(T, "cluster8_x"),
+                    "ms": stages[MAIN_STAGE],
+                    "plain_ms": time_ms(lambda: tiled_spmv_reference(T, x)),
+                    "csr_ms": time_ms(lambda: csr_spmv(M, x)),
+                    "csr_plain_ms": time_ms(lambda: spmv_reference(M, x)),
+                    "library_ms": time_ms(library_call(M, x)),
+                    "eager_ms": eager_ms(lambda: tiled_spmv(T, x)),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "stages": stages}
+                records[size, tag, mat_name] = rec
+                phase(3, f"{what} ({M.nnz} nnz): tiles of {T.n_strips} "
+                         f"strips of {T.strip_width} in {T.n_groups} groups x "
+                         f"{T.n_chunks} row chunks, {T.smem_bytes} B shared, "
+                         f"built in {tiles_s:.3f} s; "
+                         f"max_abs_err={err:.3e} (<= {rtol:g}*{scale:.3e}), "
+                         f"repeat bitwise-identical; tiled={rec['ms']:.5f} ms "
+                         f"({rec['bound_ms'] / rec['ms']:.1%} of bound "
+                         f"{bound_ms:.5f} ms, {bound_by}) plain="
+                         f"{rec['plain_ms']:.5f} csr={rec['csr_ms']:.5f} "
+                         f"(err {err_csr:.3e}) csr_plain="
+                         f"{rec['csr_plain_ms']:.5f} library="
+                         f"{rec['library_ms']:.5f} eager_tiled="
+                         f"{rec['eager_ms']:.5f} [{card}]")
+                phase(3, f"{what} stages (ms, graph replay): " + ", ".join(
+                    f"{k}={v:.5f}" for k, v in stages.items())
+                    + f"; {rec['clusters8']} clusters of 8 fit at once")
     return records
 
 
 def run_solve(n, problem, params, card):
     import hprlp_tpu_torch as hp
-    from hprlp_tpu_torch.ops.spmv import csr_spmv
+    from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
 
     csr_spmv.launches = 0
+    tiled_spmv.launches = 0
     res = hp.solve(problem.A, problem.AL, problem.AU, problem.l, problem.u,
                    problem.c, params, obj_constant=problem.obj_constant)
-    launches = csr_spmv.launches
+    launches = tiled_spmv.launches
+    check(csr_spmv.launches == 0, f"phase {n}: the solve launched the CSR "
+          f"kernel {csr_spmv.launches} times")
     kkt = problem.kkt_error(res.x, res.y, res.z)["kkt"]
     its = res.iter / res.time if res.time > 0 else float("nan")
     phase(n, f"{problem.name}: status={res.status} iter={res.iter} "
@@ -138,7 +193,7 @@ def run_solve(n, problem, params, card):
              f"power={res.power_time:.3f}s solve={res.time:.3f}s "
              f"it/s={its:.1f} launches={launches} "
              f"primal_obj={res.primal_obj:.10e} kkt_f64={kkt:.3e} [{card}]")
-    check(launches > 0, f"phase {n}: the CSR kernel was never launched")
+    check(launches > 0, f"phase {n}: the tiled kernel was never launched")
     check(res.status == "OPTIMAL", f"phase {n}: status {res.status}")
     return res, kkt, launches
 
@@ -148,7 +203,7 @@ def build_kernels():
     Returns {source: (library, seconds, nvcc -Xptxas -v output)}."""
     from hprlp_tpu_torch.ops import spmv, spmv_variants
 
-    sources = (spmv.SOURCE, spmv_variants.SOURCE)
+    sources = (spmv.TILED_SOURCE, spmv.SOURCE, spmv_variants.SOURCE)
     logs = {src: [] for src in sources}
 
     def one(src):
@@ -289,13 +344,23 @@ def main():
     card = toolchain()
 
     built = build_kernels()
-    lib, secs, _ = built[spmv_mod.SOURCE]
-    phase(2, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s")
+    for src in (spmv_mod.TILED_SOURCE, spmv_mod.SOURCE):
+        lib, secs, log = built[src]
+        phase(2, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s")
+    for line in ptxas_summary(built[spmv_mod.TILED_SOURCE][2]):
+        phase(2, f"ptxas {line}")
 
-    rec = kernel_check(card)
+    prob4 = random_lp(65536, 131072, 20, seed=2)
+    prob6 = random_lp(262144, 524288, 40, seed=4)
+    rec = kernel_check(card, {"bench": prob4, "huge": prob6})
+    for mat in ("A", "AT"):
+        r = rec["huge", "f32", mat]
+        check(r["ms"] < r["csr_ms"], f"phase 3: the tiled kernel "
+              f"({r['ms']} ms) is not faster than the CSR kernel "
+              f"({r['csr_ms']} ms) at sparse_huge {mat} f32")
 
     res4, kkt4, l32a = run_solve(
-        4, random_lp(65536, 131072, 20, seed=2),
+        4, prob4,
         Parameters(stop_tol=1e-4, verbose=False, max_iter=100_000), card)
     check(kkt4 < 1e-3, f"phase 4: host f64 KKT {kkt4}")
 
@@ -311,7 +376,6 @@ def main():
     phase(5, f"linear_sum_assignment={exact:.10e} rel_err={rel:.3e}")
     check(rel < 1e-6, f"phase 5: objective off by {rel}")
 
-    prob6 = random_lp(262144, 524288, 40, seed=4)
     res6, kkt6, l32b = run_solve(
         6, prob6, Parameters(stop_tol=1e-4, verbose=False, max_iter=50_000),
         card)
@@ -319,24 +383,50 @@ def main():
 
     variant_records = variants_phase(card, built, prob6)
 
-    src = os.path.relpath(spmv_mod.SOURCE, HERE)
+    def shapes(tag, keys):
+        return {f"{size}_{mat}": {k: rec[size, tag, mat][k] for k in keys}
+                for size in ("bench", "huge") for mat in ("A", "AT")}
+
     kernels = []
     for tag, launches, replaces, also in (
             ("f32", l32a + l32b, "hprlp_tpu/ops/pallas_spmv.py:67",
-             "hprlp_tpu/ops/pallas_spmv.py:272"),
+             "thin_spmv hprlp_tpu/ops/pallas_spmv.py:272"),
             ("f64", l64, "hprlp_tpu/ops/pallas_spmv.py:178",
-             "hprlp_tpu/ops/pallas_spmv.py:394")):
-        a, at = rec[tag]["A"], rec[tag]["AT"]
+             "thin_spmv_df64 hprlp_tpu/ops/pallas_spmv.py:394")):
+        a = rec["bench", tag, "A"]
         kernels.append({
-            "name": f"csr_spmv_{tag}", "route": "cuda", "source": src,
+            "name": f"spmv_tiled_{tag}", "route": "cuda",
+            "source": os.path.relpath(spmv_mod.TILED_SOURCE, HERE),
             "replaces": replaces, "also_replaces": also,
-            "launches": launches,
-            "max_abs_err": max(a["err"], at["err"]),
+            "stage": spmv_mod.MAIN_STAGE, "launches": launches,
+            "max_abs_err": max(r["err"] for (_, t, _), r in rec.items()
+                               if t == tag),
             "ms": a["ms"], "plain_ms": a["plain_ms"],
             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
             "library_ms": a["library_ms"],
-            "ms_AT": at["ms"], "plain_ms_AT": at["plain_ms"],
-            "bound_ms_AT": at["bound_ms"], "library_ms_AT": at["library_ms"]})
+            "shapes": shapes(tag, ("nnz", "ms", "plain_ms", "bound_ms",
+                                   "library_ms", "csr_ms", "tiles_s",
+                                   "stages"))})
+    for tag, replaces, also in (
+            ("f32", "hprlp_tpu/ops/pallas_spmv.py:67",
+             "thin_spmv hprlp_tpu/ops/pallas_spmv.py:272"),
+            ("f64", "hprlp_tpu/ops/pallas_spmv.py:178",
+             "thin_spmv_df64 hprlp_tpu/ops/pallas_spmv.py:394")):
+        a = rec["bench", tag, "A"]
+        kernels.append({
+            "name": f"csr_spmv_{tag}", "route": "cuda",
+            "source": os.path.relpath(spmv_mod.SOURCE, HERE),
+            "replaces": replaces, "also_replaces": also,
+            "previous_design": "succeeded on the main path by "
+                               f"spmv_tiled_{tag}; timed in phase 3 only",
+            "launches": 0,
+            "max_abs_err": max(r["err_csr"] for (_, t, _), r in rec.items()
+                               if t == tag),
+            "ms": a["csr_ms"], "plain_ms": a["csr_plain_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+            "library_ms": a["library_ms"],
+            "shapes": shapes(tag, ("csr_ms", "csr_plain_ms", "bound_ms",
+                                   "library_ms"))})
     kernels += variant_records
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 A port of hprlp_tpu (JAX/XLA/Pallas, the reference) to PyTorch, with the
 sparse matrix-vector product as a hand-written CUDA kernel for Hopper
-(ops/spmv.py, csrc/spmv.cu).  It imports neither JAX nor hprlp_tpu.
+(ops/tiles.py, ops/spmv.py, csrc/spmv_tiled.cu).  It imports neither JAX nor hprlp_tpu.
 
 Standard form (reference: include/HPRLP.h:57-62):
     minimize    c'x        s.t.   AL <= A x <= AU,   l <= x <= u

@@ -25,6 +25,7 @@ import torch
 
 from ..problem import LpProblem
 from .sparse import CsrMatrix, csr_from_numpy
+from .tiles import TiledMatrix
 
 PAD_MULTIPLE = 32
 
@@ -90,6 +91,16 @@ def csr_from_coo(rows, cols, vals, nrows: int, ncols: int,
     M.sort_indices()
     return csr_from_numpy(M.indptr, M.indices, M.data, nrows, ncols, dtype,
                           device)
+
+
+def attach_tiles(lp: LpDevice, tiles_A: TiledMatrix, tiles_AT: TiledMatrix
+                 ) -> LpDevice:
+    """lp with the SpMV tiles of A and A^T attached, their values gathered
+    from lp's (possibly rescaled) matrices; the tiles may have been built
+    on the same structure before scaling."""
+    return dataclasses.replace(
+        lp, A=lp.A.with_tiles(tiles_A.retile(lp.A.vals)),
+        AT=lp.AT.with_tiles(tiles_AT.retile(lp.AT.vals)))
 
 
 def build_device_problem(problem: LpProblem, dtype=torch.float32,

@@ -2,9 +2,10 @@
 reductions and scalings the scaling pipeline needs.
 
 Counterpart of hprlp_tpu/ops/sparse.py.  The JAX package re-lays A out as
-bucketed ELL and LaneELL tiles for the TPU; on the GPU the matrix stays CSR
-(int32 indptr/indices), and A and A^T are both stored, each over the other's
-padded index space.
+bucketed ELL and LaneELL tiles for the TPU; here the matrix is CSR (int32
+indptr/indices), A and A^T are both stored, each over the other's padded
+index space, and the solver attaches to each its column-strip tiles
+(ops/tiles.py), on which the main-path SpMV runs.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .spmv import csr_spmv, row_of_entry, spmv_reference
+from .spmv import csr_spmv, row_of_entry, spmv_reference, tiled_spmv
+from .tiles import TiledMatrix, tiled_spmv_reference
 
 INT32_MAX = 2**31 - 1
 
@@ -26,6 +28,7 @@ class CsrMatrix:
     vals: torch.Tensor     # (nnz,) float32 or float64
     nrows: int
     ncols: int
+    tiles: TiledMatrix | None = None  # the same matrix as SpMV tiles
 
     @property
     def nnz(self) -> int:
@@ -40,7 +43,14 @@ class CsrMatrix:
         return self.vals.device
 
     def with_vals(self, vals: torch.Tensor) -> "CsrMatrix":
-        return dataclasses.replace(self, vals=vals)
+        """New values; the tiles are dropped, since they hold the old ones."""
+        return dataclasses.replace(self, vals=vals, tiles=None)
+
+    def with_tiles(self, tiles: TiledMatrix) -> "CsrMatrix":
+        if (tiles.nrows, tiles.ncols, tiles.nnz) != (self.nrows, self.ncols,
+                                                     self.nnz):
+            raise ValueError("the tiles are of another matrix")
+        return dataclasses.replace(self, tiles=tiles)
 
 
 def csr_from_numpy(indptr, indices, vals, nrows: int, ncols: int,
@@ -63,12 +73,14 @@ def csr_from_numpy(indptr, indices, vals, nrows: int, ncols: int,
 
 
 def spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x.  A CUDA tensor goes to the hand-written kernel (which
-    raises on failure); a CPU tensor goes to the plain version."""
+    """y = A @ x.  A CUDA tensor goes to a hand-written kernel (which
+    raises on failure): the tiled kernel when A carries tiles, else the CSR
+    kernel.  A CPU tensor goes to the matching plain version."""
     if x.device.type == "cuda":
-        return csr_spmv(A, x)
+        return csr_spmv(A, x) if A.tiles is None else tiled_spmv(A.tiles, x)
     if x.device.type == "cpu":
-        return spmv_reference(A, x)
+        return (spmv_reference(A, x) if A.tiles is None
+                else tiled_spmv_reference(A.tiles, x))
     raise ValueError(f"unsupported device {x.device}")
 
 

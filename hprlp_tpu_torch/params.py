@@ -7,8 +7,8 @@ Copy of hprlp_tpu/params.py, so that one Parameters object drives either
 package; tests/test_torch_copies.py pins the fields and defaults together.
 The port's solver (solver/loop.py) honours a subset: precision "auto",
 "f32" and "f64" (on CUDA, "auto" is f32 at stop_tol >= 1e-5 and f64 below),
-spmv_backend "auto" and "lane" (both run the CSR kernel, the port of the
-lane kernels), and no mesh; the others raise NotImplementedError there.
+spmv_backend "auto" and "lane" (both run the tiled SpMV kernel, the port
+of the lane kernels), and no mesh; the others raise NotImplementedError there.
 """
 
 from __future__ import annotations

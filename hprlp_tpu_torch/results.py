@@ -8,7 +8,7 @@ backfilled with the final iter/time if never reached.
 
 Copy of hprlp_tpu/results.py::Results (batched results are not ported
 yet); tests/test_torch_copies.py pins the two together.  spmv_backend
-reports "csr" for the port's kernel.
+reports "tiled" for the port's kernel.
 """
 
 from __future__ import annotations

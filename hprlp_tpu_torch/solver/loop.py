@@ -16,7 +16,8 @@ import time
 import numpy as np
 import torch
 
-from ..ops.device_problem import build_device_problem
+from ..ops.device_problem import attach_tiles, build_device_problem
+from ..ops.tiles import build_tiles
 from ..params import Parameters
 from ..problem import LpProblem
 from ..results import Results
@@ -97,7 +98,7 @@ def _check_supported(params: Parameters) -> None:
     if params.spmv_backend in ("gather", "dense"):
         raise NotImplementedError(
             f"spmv_backend={params.spmv_backend!r} is not ported yet "
-            f"(ROADMAP.md queue 1, autotune); 'auto' runs the CSR kernel")
+            f"(ROADMAP.md queue 1, autotune); 'auto' runs the tiled kernel")
     if params.mesh_shape:
         raise NotImplementedError("mesh_shape (multi-device solves) is not "
                                   "ported yet (ROADMAP.md queue 1, multi-GPU)")
@@ -128,6 +129,9 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
 
     t_setup = time.perf_counter()
     lp_raw, maps = build_device_problem(problem, dtype=dtype, device=device)
+    # The SpMV tiles' structure (ops/tiles.py) is layout and counts here;
+    # the scaled values are gathered into it below, in scaling_time.
+    tiles = (build_tiles(lp_raw.A), build_tiles(lp_raw.AT))
     _sync(device)
     out.setup_time = time.perf_counter() - t_setup
     log(f"Setup (layout and upload) time = {out.setup_time:.2f} seconds")
@@ -139,6 +143,8 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
                              use_pc=params.use_Pock_Chambolle_scaling,
                              use_bc=params.use_bc_scaling)
     del lp_raw
+    lp = attach_tiles(lp, *tiles)
+    del tiles
     scal_host = {k: float(getattr(scal, k)) for k in
                  ("b_scale", "c_scale", "norm_b", "norm_c",
                   "norm_b_org", "norm_c_org")}
@@ -204,7 +210,7 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
 
     def finish(status, at_it, res, sigma_val, restarts):
         out.status = status
-        out.spmv_backend = "csr"
+        out.spmv_backend = "tiled"
         out.iter = at_it
         out.gap = res.rel_gap
         out.residuals = res.kkt

@@ -15,7 +15,7 @@ import torch
 import hprlp_tpu_torch as ht
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
 from hprlp_tpu_torch.ops.sparse import spmv
-from hprlp_tpu_torch.ops.spmv import csr_spmv, spmv_reference
+from hprlp_tpu_torch.ops.spmv import csr_spmv, spmv_reference, tiled_spmv
 
 pytestmark = pytest.mark.gpu
 
@@ -57,10 +57,12 @@ def test_kernel_rejects_bad_arguments(cuda):
 
 
 def test_solve_on_the_card_goes_through_the_kernel(cuda):
-    csr_spmv.launches = 0
+    """The solve's SpMVs run on the tiled kernel (csrc/spmv_tiled.cu),
+    which succeeded this CSR kernel on the main path."""
+    tiled_spmv.launches = 0
     res = ht.solve(np.array([[1.0, 2.0], [3.0, 1.0]]), [-np.inf] * 2,
                    [10.0, 12.0], [0.0, 0.0], [np.inf] * 2, [-3.0, -5.0],
                    ht.Parameters(verbose=False, use_presolve=False))
     assert res.status == "OPTIMAL"
     assert res.primal_obj == pytest.approx(-26.4, abs=1e-2)
-    assert csr_spmv.launches > 0
+    assert tiled_spmv.launches > 0

@@ -65,7 +65,7 @@ def test_solve_matches_jax(case, stall_recovery):
     assert rt.iter == rj.iter
     for k in ("iter4", "iter6", "iter8", "restarts", "stall_recoveries"):
         assert getattr(rt, k) == getattr(rj, k), k
-    assert rt.spmv_backend == "csr"
+    assert rt.spmv_backend == "tiled"
     np.testing.assert_allclose(rt.x, rj.x, rtol=1e-6, atol=1e-6)
     if case == "demo":
         assert rt.primal_obj == pytest.approx(-26.4, abs=1e-3)

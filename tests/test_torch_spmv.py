@@ -1,7 +1,9 @@
-"""The port's CSR SpMV (hprlp_tpu_torch/ops/spmv.py, ops/sparse.py) against
+"""The port's SpMV (hprlp_tpu_torch/ops/spmv.py, ops/sparse.py) against
 scipy and against the four Pallas TPU kernels it replaces (interpret mode,
-as tests/test_lane_ell.py runs them).  The kernel itself is tested on the
-card by tests/test_torch_kernel_gpu.py.
+as tests/test_lane_ell.py runs them), in both layouts: bare CSR and CSR
+with column-strip tiles (ops/tiles.py, forced here to many strips and
+blocks), each on its plain version.  The kernels themselves are tested on
+the card by tests/test_torch_kernel_gpu.py and test_torch_tiles_gpu.py.
 
 Tolerances: 1e-5 * max|y| in f32 and 1e-13 * max|y| in f64 -- the
 summation order differs between CSR rows, LaneELL tiles and scipy.
@@ -19,6 +21,7 @@ from hprlp_tpu.ops.pallas_spmv import (lane_spmv, lane_spmv_df64, pack_tiles,
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
 from hprlp_tpu_torch.ops.sparse import csr_from_numpy, spmv
 from hprlp_tpu_torch.ops.spmv import csr_spmv, threads_per_row
+from hprlp_tpu_torch.ops.tiles import build_tiles
 
 # The tensors here are small: one intra-op thread keeps this test worker
 # from competing with the suite's other workers for cores.
@@ -75,8 +78,14 @@ CASES = {
 }
 
 
-def _port(A, m_pad, n_pad, dtype):
-    return csr_from_coo(A.row, A.col, A.data, m_pad, n_pad, dtype, "cpu")
+LAYOUTS = ["csr", "tiled"]
+
+
+def _port(A, m_pad, n_pad, dtype, layout="csr"):
+    M = csr_from_coo(A.row, A.col, A.data, m_pad, n_pad, dtype, "cpu")
+    if layout == "tiled":
+        M = M.with_tiles(build_tiles(M, strip_width=256, block_rows=96))
+    return M
 
 
 def _scipy_y(A, x, m_pad):
@@ -90,14 +99,15 @@ def _assert_close(y, y_ref, tol):
     assert np.abs(np.asarray(y, np.float64) - y_ref).max() <= tol * scale
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_port_spmv_matches_scipy(case):
+def test_port_spmv_matches_scipy(case, layout):
     make, m_pad, n_pad = CASES[case]
     A = make()
     x = np.random.default_rng(0).normal(size=n_pad)
     y_ref = _scipy_y(A, x, m_pad)
     for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
-        M = _port(A, m_pad, n_pad, dtype)
+        M = _port(A, m_pad, n_pad, dtype, layout)
         y = spmv(M, torch.as_tensor(x).to(dtype))
         assert y.dtype == dtype and y.shape == (m_pad,)
         _assert_close(y.numpy(), y_ref, tol)
@@ -106,7 +116,8 @@ def test_port_spmv_matches_scipy(case):
 @pytest.mark.parametrize("case", ["single_window", "multi_window",
                                   "dense_column_fanout", "unbalanced_rows",
                                   "tiny"])
-def test_port_matches_lane_spmv(case):
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_port_matches_lane_spmv(case, layout):
     """f32: the aligned LaneELL kernel (lane_spmv, interpret mode)."""
     make, m_pad, n_pad = CASES[case]
     A = make()
@@ -117,14 +128,16 @@ def test_port_matches_lane_spmv(case):
     y_jax = np.asarray(lane_spmv(jnp.asarray(x), p["idx1t"], p["idx2"],
                                  p["vals"], p["gbase"], p["wid"], p["G"],
                                  interpret=True))
-    y = spmv(_port(A, m_pad, n_pad, torch.float32), torch.as_tensor(x))
+    y = spmv(_port(A, m_pad, n_pad, torch.float32, layout),
+             torch.as_tensor(x))
     y_ref = _scipy_y(A, x, m_pad)
     _assert_close(y.numpy(), y_ref, F32_TOL)
     _assert_close(y.numpy(), y_jax.astype(np.float64), F32_TOL)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("phi", [1, 2, 4, 8])
-def test_port_matches_thin_spmv(phi):
+def test_port_matches_thin_spmv(phi, layout):
     """f32: the packed thin LaneELL kernel (thin_spmv, interpret mode)."""
     case = "high_multiplicity" if phi in (1, 4) else "single_window"
     make, m_pad, n_pad = CASES[case]
@@ -136,13 +149,15 @@ def test_port_matches_thin_spmv(phi):
     y_jax = np.asarray(thin_spmv(jnp.asarray(x), p["idx1t"], p["idx2"],
                                  p["invt"], p["vals"], p["gbase"], p["wid"],
                                  p["G"], p["phi"], interpret=True))
-    y = spmv(_port(A, m_pad, n_pad, torch.float32), torch.as_tensor(x))
+    y = spmv(_port(A, m_pad, n_pad, torch.float32, layout),
+             torch.as_tensor(x))
     _assert_close(y.numpy(), _scipy_y(A, x, m_pad), F32_TOL)
     _assert_close(y.numpy(), y_jax.astype(np.float64), F32_TOL)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("kind", ["aligned", "thin"])
-def test_port_f64_matches_df64_kernels(kind):
+def test_port_f64_matches_df64_kernels(kind, layout):
     """f64: the compensated pair kernels (lane_spmv_df64, thin_spmv_df64)
     that the native-f64 build replaces."""
     A = _random_coo(3 if kind == "aligned" else 26, 900, 1100, 0.01)
@@ -166,13 +181,15 @@ def test_port_f64_matches_df64_kernels(kind):
                                 p["vals_lo"], p["gbase"], p["wid"], p["G"],
                                 p["phi"], interpret=True)
     y_jax = np.asarray(yh, np.float64) + np.asarray(yl, np.float64)
-    y = spmv(_port(A, m_pad, n_pad, torch.float64), torch.as_tensor(x))
+    y = spmv(_port(A, m_pad, n_pad, torch.float64, layout),
+             torch.as_tensor(x))
     _assert_close(y.numpy(), _scipy_y(A, x, m_pad), F64_TOL)
     _assert_close(y.numpy(), y_jax, F64_TOL)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
-def test_port_matches_hybrid_lane_backend(dtype):
+def test_port_matches_hybrid_lane_backend(dtype, layout):
     """The JAX spmv on with_backend(A, "lane") (aligned + thin tiles
     summed, df64 pairs in f64) against the port on the same padded COO."""
     from hprlp_tpu.ops.device_problem import build_device_problem
@@ -198,6 +215,8 @@ def test_port_matches_hybrid_lane_backend(dtype):
     r, c, v = to_coo(lp.A)
     t_dtype = torch.float32 if dtype == "f32" else torch.float64
     M = csr_from_coo(r, c, v, lp.A.nrows, lp.A.ncols, t_dtype, "cpu")
+    if layout == "tiled":
+        M = M.with_tiles(build_tiles(M, strip_width=1024, block_rows=512))
     y = spmv(M, torch.as_tensor(x)).numpy()
     y_ref = np.zeros(lp.A.nrows)
     np.add.at(y_ref, r, v * x[c].astype(np.float64))
