@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the kernels from the checkout's sources, holds each against its
-plain PyTorch version at its path's shapes, drives the main path
-(hprlp_tpu_torch.solve) on three LPs, then the SpMV variant studies:
+Builds the kernels and the host library from the checkout's sources,
+holds each kernel against its plain PyTorch version at its path's shapes,
+drives the main path (hprlp_tpu_torch.solve) on three LPs, the SpMV
+variant studies, then the CLI on an MPS file with presolve:
 
   1. toolchain   nvidia-smi name/power limit, torch, CUDA, nvcc, Triton
   2. build       the three kernel libraries (nvcc, sm_90a, one process per
-                 source, started together), with their build times
+                 source, started together) and the host library (g++,
+                 native/src), with their build times
   3. kernel      the tiled SpMV (main path) and the CSR kernel (previous
                  design), f32 and f64, on A and A^T of random_lp(65536,
                  131072, 20, seed=2) and random_lp(262144, 524288, 40,
@@ -24,6 +26,18 @@ plain PyTorch version at its path's shapes, drives the main path
   7. variants    the four prof_* studies (hprlp_tpu_torch/prof/) on the
                  bench LP (A, A^T) and on phase 6's LP (A), every variant
                  against its plain version and the exact ones against A @ x
+  8. mps + presolve   structured_lp(scale=1.0, seed=7) (950,000 x
+                 1,000,000, 10.50M nnz) written as MPS to a temporary
+                 directory and solved by hprlp_tpu_torch.cli.main at 1e-4:
+                 native reader, native presolve (status OK, the reduced
+                 size beside benchmarks/report_presolve_scale.json's),
+                 solve on the card (the tiled kernel launched, the CSR
+                 kernel never), postsolve, original-space KKT, solution
+                 file; that file's x/y/z re-measured in host f64 (KKT <
+                 1e-3) and its objective against an in-process solve with
+                 presolve off (1e-3 relative); stage times; then
+                 `python -m hprlp_tpu_torch.cli -i data/model.mps` in a
+                 subprocess
 
 Any failure raises (exit code != 0).  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -32,12 +46,14 @@ Needs torch, numpy and scipy only; imports neither JAX nor hprlp_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -199,8 +215,11 @@ def run_solve(n, problem, params, card):
 
 
 def build_kernels():
-    """Build every kernel library at once, one nvcc process per source.
-    Returns {source: (library, seconds, nvcc -Xptxas -v output)}."""
+    """Build every kernel library at once, one nvcc process per source,
+    and the host library (presolve, MPS reader; one g++) beside them.
+    Returns {source: (library, seconds, nvcc -Xptxas -v output)}, the host
+    library under native.LIB_PATH."""
+    from hprlp_tpu_torch import native
     from hprlp_tpu_torch.ops import spmv, spmv_variants
 
     sources = (spmv.TILED_SOURCE, spmv.SOURCE, spmv_variants.SOURCE)
@@ -208,12 +227,176 @@ def build_kernels():
 
     def one(src):
         t0 = time.perf_counter()
-        lib = spmv.build(src, logs[src])
+        lib = (native.build() if src == native.LIB_PATH
+               else spmv.build(src, logs[src]))
         return lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(sources)) as pool:
-        built = dict(zip(sources, pool.map(one, sources)))
-    return {src: (*built[src], "".join(logs[src])) for src in sources}
+    jobs = (*sources, native.LIB_PATH)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(one, jobs)))
+    return {src: (*built[src], "".join(logs.get(src, []))) for src in jobs}
+
+
+@contextlib.contextmanager
+def recorded(record, calls):
+    """Wrap each (owner, attribute) of `calls` so that every call appends
+    (attribute, seconds, result) to `record`; restore them on exit."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name in calls]
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            record.append((name, time.perf_counter() - t0, out))
+            return out
+        return timed
+
+    for owner, name, fn in saved:
+        setattr(owner, name, wrap(name, fn))
+    try:
+        yield record
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def read_solution(path):
+    """The CLI's solution file (cli.write_solution) as (dict of the
+    `key value` lines, {"x": array, "y": array, "z": array})."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    head, vecs, k = {}, {}, 0
+    while k < len(lines):
+        key, val = lines[k].split(" ", 1)
+        k += 1
+        if key in ("x", "y", "z"):
+            size = int(val)
+            vecs[key] = np.array(lines[k:k + size], dtype=np.float64)
+            k += size
+        else:
+            head[key] = val
+    return head, vecs
+
+
+# Phase 8's LP: structured_lp(MPS_SCALE), 10.50M nnz at 1.0.
+MPS_SCALE = 1.0
+# benchmarks/report_presolve_scale.json at scale 1.0: the reduced problem.
+REPORT_REDUCED = (500_000, 549_999, 8_249_671)
+
+
+def mps_phase(card, scale, cli_extra=()):
+    """Phase 8: structured_lp(scale) written as MPS, solved by
+    cli.main (native reader, presolve, tiled-kernel solve, postsolve,
+    original-space KKT, solution file), checked against a presolve-off
+    solve.  Returns (tiled_spmv launches during cli.main, record)."""
+    import hprlp_tpu_torch as hp
+    from hprlp_tpu_torch import cli, native, presolve
+    from hprlp_tpu_torch.io import native_mps
+    from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
+    from hprlp_tpu_torch.prof.problems import structured_lp, write_mps
+
+    check(native.is_available(), f"phase 8: the host library did not load: "
+          f"{native.lib_error}")
+    t0 = time.perf_counter()
+    problem = structured_lp(scale=scale, seed=7)
+    gen_s = time.perf_counter() - t0
+    phase(8, f"structured_lp(scale={scale}, seed=7): {problem.m} x "
+             f"{problem.n}, {problem.nnz} nnz, generated in {gen_s:.2f} s")
+    tmp = tempfile.mkdtemp(prefix="hprlp_smoke_")
+    try:
+        need = 80 * problem.nnz  # ~52 bytes per written entry, and slack
+        free = shutil.disk_usage(tmp).free
+        check(free > need, f"phase 8: {free} bytes free in {tmp}, the MPS "
+              f"file needs ~{need}")
+        mps, sol = os.path.join(tmp, "lp.mps"), os.path.join(tmp, "sol.txt")
+        t0 = time.perf_counter()
+        write_mps(problem, mps)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(mps)
+
+        record = []
+        csr_spmv.launches = 0
+        tiled_spmv.launches = 0
+        with recorded(record, [(native_mps, "read_mps_native"),
+                               (presolve, "presolve_problem"),
+                               (presolve.PresolveHandle, "postsolve"),
+                               (presolve, "validate_original_kkt"),
+                               (hp.Model, "solve")]):
+            t0 = time.perf_counter()
+            rc = cli.main(["-i", mps, "--tol", "1e-4", "--quiet",
+                           "--solution-out", sol, *cli_extra])
+            cli_s = time.perf_counter() - t0
+        launches, csr_launches = tiled_spmv.launches, csr_spmv.launches
+        stage = {name: (secs, out) for name, secs, out in record}
+        check(set(stage) == {"read_mps_native", "presolve_problem",
+                             "postsolve", "validate_original_kkt", "solve"},
+              f"phase 8: the CLI took another path: {sorted(stage)}")
+        status, reduced, _ = stage["presolve_problem"][1]
+        check(status == "OK", f"phase 8: presolve status {status}")
+        res = stage["solve"][1]
+        phase(8, f"reduced {reduced.m} x {reduced.n}, {reduced.nnz} nnz "
+                 f"(benchmarks/report_presolve_scale.json at scale 1.0: "
+                 f"{REPORT_REDUCED[0]} x {REPORT_REDUCED[1]}, "
+                 f"{REPORT_REDUCED[2]} nnz)")
+        head, vecs = read_solution(sol)
+        kkt = problem.kkt_error(vecs["x"], vecs["y"], vecs["z"])
+        times = {"write": write_s, "native_read": stage["read_mps_native"][0],
+                 "presolve": res.presolve_time, "setup": res.setup_time,
+                 "scaling": res.scaling_time, "power": res.power_time,
+                 "solve": res.time, "postsolve": stage["postsolve"][0],
+                 "kkt_validation": stage["validate_original_kkt"][0],
+                 "cli_main": cli_s}
+        phase(8, f"cli.main rc={rc} status={head['status']} "
+                 f"iter={head['iter']} primal_obj={head['primal_obj']} "
+                 f"kkt_f64={kkt['kkt']:.3e} launches={launches} "
+                 f"csr_launches={csr_launches}; file {size} bytes; stage "
+                 f"times (s): " + ", ".join(f"{k}={v:.3f}"
+                                            for k, v in times.items())
+              + f" [{card}]")
+
+        t0 = time.perf_counter()
+        ref = hp.Model(problem).solve(hp.Parameters(
+            stop_tol=1e-4, verbose=False, use_presolve=False),
+            device="cpu" if "cpu" in cli_extra else None)
+        ref_s = time.perf_counter() - t0
+        obj = float(head["primal_obj"])
+        rel = abs(obj - ref.primal_obj) / max(1.0, abs(ref.primal_obj))
+        phase(8, f"presolve off, in-process: status={ref.status} "
+                 f"iter={ref.iter} setup={ref.setup_time:.3f}s "
+                 f"scaling={ref.scaling_time:.3f}s power="
+                 f"{ref.power_time:.3f}s solve={ref.time:.3f}s "
+                 f"(all {ref_s:.3f}s) primal_obj={ref.primal_obj:.10e}; "
+                 f"rel diff {rel:.3e} [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hprlp_tpu_torch.cli", "-i",
+         os.path.join(HERE, "data", "model.mps"), "--quiet", *cli_extra],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    phase(8, f"python -m hprlp_tpu_torch.cli -i data/model.mps --quiet: "
+             f"rc={proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+             f"{proc.stdout.strip()}")
+
+    check(rc == 0 and head["status"] == "OPTIMAL",
+          f"phase 8: cli.main rc={rc}, status {head['status']}")
+    check(kkt["kkt"] < 1e-3, f"phase 8: host f64 KKT {kkt['kkt']}")
+    check(ref.status == "OPTIMAL", f"phase 8: presolve-off status "
+          f"{ref.status}")
+    check(rel < 1e-3, f"phase 8: objective {obj} against {ref.primal_obj} "
+          f"with presolve off")
+    check(csr_launches == 0, f"phase 8: cli.main launched the CSR kernel "
+          f"{csr_launches} times")
+    check(launches > 0, "phase 8: the tiled kernel was never launched")
+    check(proc.returncode == 0 and "status=OPTIMAL" in proc.stdout,
+          f"phase 8: python -m hprlp_tpu_torch.cli failed: {proc.stdout}"
+          f"{proc.stderr[-2000:]}")
+    return launches, {
+        "m": problem.m, "n": problem.n, "nnz": problem.nnz,
+        "reduced": [reduced.m, reduced.n, reduced.nnz], "iter": res.iter,
+        "iter_presolve_off": ref.iter, "kkt_f64": kkt["kkt"],
+        "times_s": times}
 
 
 def ptxas_summary(log):
@@ -332,7 +515,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import hprlp_tpu_torch
-    from hprlp_tpu_torch import Parameters
+    from hprlp_tpu_torch import Parameters, native
     from hprlp_tpu_torch.ops import spmv as spmv_mod
 
     pkg_dir = os.path.dirname(os.path.abspath(hprlp_tpu_torch.__file__))
@@ -349,6 +532,9 @@ def main():
         phase(2, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s")
     for line in ptxas_summary(built[spmv_mod.TILED_SOURCE][2]):
         phase(2, f"ptxas {line}")
+    lib, secs, _ = built[native.LIB_PATH]
+    phase(2, f"built {os.path.relpath(lib, HERE)} (host: presolve, MPS "
+             f"reader; g++) in {secs:.2f} s")
 
     prob4 = random_lp(65536, 131072, 20, seed=2)
     prob6 = random_lp(262144, 524288, 40, seed=4)
@@ -383,13 +569,15 @@ def main():
 
     variant_records = variants_phase(card, built, prob6)
 
+    l8, mps_record = mps_phase(card, MPS_SCALE)
+
     def shapes(tag, keys):
         return {f"{size}_{mat}": {k: rec[size, tag, mat][k] for k in keys}
                 for size in ("bench", "huge") for mat in ("A", "AT")}
 
     kernels = []
     for tag, launches, replaces, also in (
-            ("f32", l32a + l32b, "hprlp_tpu/ops/pallas_spmv.py:67",
+            ("f32", l32a + l32b + l8, "hprlp_tpu/ops/pallas_spmv.py:67",
              "thin_spmv hprlp_tpu/ops/pallas_spmv.py:272"),
             ("f64", l64, "hprlp_tpu/ops/pallas_spmv.py:178",
              "thin_spmv_df64 hprlp_tpu/ops/pallas_spmv.py:394")):
@@ -427,6 +615,8 @@ def main():
             "library_ms": a["library_ms"],
             "shapes": shapes(tag, ("csr_ms", "csr_plain_ms", "bound_ms",
                                    "library_ms"))})
+    kernels[0]["launches_by_phase"] = {"4": l32a, "6": l32b, "8": l8}
+    kernels[0]["mps_presolve"] = mps_record
     kernels += variant_records
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

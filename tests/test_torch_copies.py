@@ -146,9 +146,102 @@ def test_prof_problem_generators_match_originals(name, args, monkeypatch):
         np.testing.assert_array_equal(getattr(pt, k), getattr(pj, k))
 
 
+def _body_without_docstring(path, drop=()):
+    """ast.dump of a module's statements after its docstring, without the
+    top-level functions or class methods named in `drop`."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    body = tree.body[1:] if isinstance(tree.body[0], ast.Expr) else tree.body
+    out = []
+    for node in body:
+        if isinstance(node, ast.FunctionDef) and node.name in drop:
+            continue
+        if isinstance(node, ast.ClassDef):
+            node.body = [n for n in node.body if not (
+                isinstance(n, ast.FunctionDef)
+                and f"{node.name}.{n.name}" in drop)]
+        out.append(ast.dump(node))
+    return out
+
+
+@pytest.mark.parametrize("copy,original,drop", [
+    ("io/mps.py", "hprlp_tpu/io/mps.py", ()),
+    # The port's ModelBuilder.solve takes a torch device.
+    ("modeling.py", "hprlp_tpu/modeling.py", ("ModelBuilder.solve",)),
+], ids=["io.mps", "modeling"])
+def test_module_copies_match(copy, original, drop):
+    assert _body_without_docstring(os.path.join(PORT, copy), drop) == \
+        _body_without_docstring(os.path.join(ROOT, original), drop)
+
+
+def _function(path, name):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+
+
+def test_structured_lp_copy_matches():
+    """prof/problems.py::structured_lp against
+    benchmarks/prof_presolve_scale.py's, taken from its source (importing
+    that script tunes the process's allocator): the same code, and the
+    same LP at a cut scale."""
+    import hprlp_tpu_torch.prof.problems as tprob
+
+    orig = _function(os.path.join(ROOT, "benchmarks",
+                                  "prof_presolve_scale.py"), "structured_lp")
+    assert ast.dump(_function(tprob.__file__, "structured_lp")) == \
+        ast.dump(orig)
+    ns = {"np": np, "sp": sp, "LpProblem": jproblem.LpProblem,
+          "INF": float("inf")}
+    exec(compile(ast.Module(body=[orig], type_ignores=[]),
+                 "prof_presolve_scale.py", "exec"), ns)
+    pj = ns["structured_lp"](scale=0.002, seed=7)
+    pt = tprob.structured_lp(scale=0.002, seed=7)
+    assert pt.name == pj.name and (pt.A != pj.A).nnz == 0
+    for k in ("AL", "AU", "l", "u", "c"):
+        np.testing.assert_array_equal(getattr(pt, k), getattr(pj, k))
+
+
+class _Recorder:
+    """Stands in for a ctypes library: records each function's
+    argtypes and restype."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, type("Fn", (), {})())
+
+
+def test_native_signatures_match():
+    """native.py binds hprlp_tpu/native.py's hpres_* presolve and hpmps_*
+    reader signatures (52-82, 132-153), and none of its lane/scaling
+    entry points."""
+    import hprlp_tpu.native as jnative
+    import hprlp_tpu_torch.native as tnative
+
+    port, jax = _Recorder(), _Recorder()
+    tnative._configure(port)
+    jnative._configure(jax)
+    lane = ("hpres_lane_schedule", "hpres_lane_pack_thin",
+            "hpres_balance_cells")
+    want = {k for k in jax.fns if k.startswith(("hpres_", "hpmps_"))
+            and k not in lane}
+    assert set(port.fns) == want
+    for name in want:
+        for attr in ("argtypes", "restype"):
+            assert getattr(port.fns[name], attr) == \
+                getattr(jax.fns[name], attr), (name, attr)
+
+
 def test_import_leaves_out_jax_triton_and_the_jax_package():
     code = ("import sys, hprlp_tpu_torch, hprlp_tpu_torch.convert, "
             "hprlp_tpu_torch.ops.spmv, hprlp_tpu_torch.solver.loop, "
+            "hprlp_tpu_torch.cli, hprlp_tpu_torch.model, "
+            "hprlp_tpu_torch.presolve, hprlp_tpu_torch.io.mps, "
+            "hprlp_tpu_torch.io.native_mps, hprlp_tpu_torch.modeling, "
+            "hprlp_tpu_torch.native, hprlp_tpu_torch.prof.problems, "
             "hprlp_tpu_torch.ops.spmv_variants, "
             "hprlp_tpu_torch.prof.prof_lane_ablate, "
             "hprlp_tpu_torch.prof.prof_dual_acc, "

@@ -96,18 +96,23 @@ def test_f32_solve_on_cpu():
 
 
 def test_model_prints_presolve_posture_and_applies_sense(capsys):
+    """Presolve is on by default, as in the JAX package, and runs quietly."""
     args = CASES["demo"]()
     res = ht.solve(*args, ht.Parameters(verbose=False), device="cpu")
     assert res.status == "OPTIMAL"
-    assert "not yet ported" in capsys.readouterr().err
-    ht.solve(*args, ht.Parameters(verbose=False, use_presolve=False),
-             device="cpu")
+    assert res.presolve_time > 0.0
     assert capsys.readouterr().err == ""
+    off = ht.solve(*args, ht.Parameters(verbose=False, use_presolve=False),
+                   device="cpu")
+    assert capsys.readouterr().err == ""
+    assert off.presolve_time == 0.0
+    for r in (res, off):
+        assert r.primal_obj == pytest.approx(-26.4, abs=1e-3)
     prob = LpProblem.from_arrays(*args)
     prob.objective_sense = -1
     res_max = ht.Model(prob).solve(
         ht.Parameters(verbose=False, use_presolve=False), device="cpu")
-    assert res_max.primal_obj == pytest.approx(-res.primal_obj)
+    assert res_max.primal_obj == pytest.approx(-off.primal_obj)
 
 
 def test_verbose_solve_logs_progress(capsys):
