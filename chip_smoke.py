@@ -5,10 +5,11 @@
 Builds the kernels and the host library from the checkout's sources,
 holds each kernel against its plain PyTorch version at its path's shapes,
 drives the main path (hprlp_tpu_torch.solve) on three LPs, the SpMV
-variant studies, then the CLI on an MPS file with presolve:
+variant studies, the CLI on an MPS file with presolve, then the batched
+solver (hprlp_tpu_torch.solve_batched):
 
   1. toolchain   nvidia-smi name/power limit, torch, CUDA, nvcc, Triton
-  2. build       the three kernel libraries (nvcc, sm_90a, one process per
+  2. build       the four kernel libraries (nvcc, sm_90a, one process per
                  source, started together) and the host library (g++,
                  native/src), with their build times
   3. kernel      the tiled SpMV (main path) and the CSR kernel (previous
@@ -38,6 +39,21 @@ variant studies, then the CLI on an MPS file with presolve:
                  presolve off (1e-3 relative); stage times; then
                  `python -m hprlp_tpu_torch.cli -i data/model.mps` in a
                  subprocess
+  9. batched     (a) the SpMM kernel (csrc/spmm.cu) against its plain
+                 version on the unscaled A and A^T of phase 3's first LP,
+                 B in SPMM_BATCHES, f32 and f64: error relative to the row
+                 sums of |A| |X|, bitwise repeat, times by graph replay
+                 beside torch.sparse.mm on a CSR tensor (cuSPARSE) and the
+                 byte bound; (b) batched_large: solve_batched of
+                 batched_lp(65536, 131072, 64, seed=3) at 1e-4 (f32):
+                 every member OPTIMAL with host-f64 KKT < 1e-3, two members
+                 against single solves, the SpMM and tiled kernels
+                 launched and the CSR SpMV never, one chunk profiled;
+                 (c) the dense probe on batched_lp(2048, 4096, 256,
+                 seed=3): spmv_backend "auto" (both probe times, the
+                 winner) against "dense", every member OPTIMAL, objectives
+                 within 1e-3; one SpMM of each candidate timed by graph
+                 replay and eagerly
 
 Any failure raises (exit code != 0).  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -220,9 +236,10 @@ def build_kernels():
     Returns {source: (library, seconds, nvcc -Xptxas -v output)}, the host
     library under native.LIB_PATH."""
     from hprlp_tpu_torch import native
-    from hprlp_tpu_torch.ops import spmv, spmv_variants
+    from hprlp_tpu_torch.ops import spmm, spmv, spmv_variants
 
-    sources = (spmv.TILED_SOURCE, spmv.SOURCE, spmv_variants.SOURCE)
+    sources = (spmv.TILED_SOURCE, spmv.SOURCE, spmv_variants.SOURCE,
+               spmm.SOURCE)
     logs = {src: [] for src in sources}
 
     def one(src):
@@ -510,12 +527,210 @@ def variants_phase(card, built, huge_problem):
     return records
 
 
+# Phase 9's batch widths for the SpMM kernel, and its tolerances, relative
+# to the row sums of |A| |X| (the kernel's fused multiply-adds round
+# otherwise than the plain version's products and sums).
+SPMM_BATCHES = (1, 8, 64, 256)
+SPMM_TOL = {"f32": 1e-5, "f64": 1e-12}
+
+
+def spmm_check(card, problem):
+    """Phase 9 (a): the SpMM kernel against its plain version on the
+    unscaled A and A^T of `problem`.  Returns {(dtype tag, matrix, B):
+    record}."""
+    from hprlp_tpu_torch.ops.device_problem import build_device_problem
+    from hprlp_tpu_torch.ops.spmm import csr_spmm, spmm_plan, spmm_reference
+    from hprlp_tpu_torch.prof.timing import spmv_bound
+
+    rng = np.random.default_rng(9)
+    records = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        lp, _ = build_device_problem(problem, dtype=dtype, device="cuda")
+        for mat_name, M in (("A", lp.A), ("AT", lp.AT)):
+            S = torch.sparse_csr_tensor(M.indptr, M.indices, M.vals,
+                                        (M.nrows, M.ncols))
+            absM = M.with_vals(M.vals.abs())
+            for B in SPMM_BATCHES:
+                X = torch.as_tensor(rng.normal(size=(M.ncols, B)),
+                                    device="cuda").to(dtype)
+                Y = csr_spmm(M, X)
+                Y_again = csr_spmm(M, X)
+                Y_ref = spmm_reference(M, X)
+                scale = spmm_reference(absM, X.abs())
+                torch.cuda.synchronize()
+                diff = (Y - Y_ref).abs()
+                err = float((diff / torch.clamp(
+                    scale, min=torch.finfo(dtype).tiny)).max())
+                what = f"phase 9: SpMM {tag} {mat_name} B={B}"
+                check(err <= SPMM_TOL[tag], f"{what}: error {err} relative "
+                      f"to |A||X| > {SPMM_TOL[tag]}")
+                check(torch.equal(Y, Y_again), f"{what}: two launches "
+                      f"differ")
+                bound_ms, bound_by = spmv_bound(M, dtype, B)
+                rec = {"nnz": M.nnz, "err": err,
+                       "max_abs_err": float(diff.max()),
+                       "plan": spmm_plan(B, X.element_size(), X.data_ptr()),
+                       "ms": time_ms(lambda: csr_spmm(M, X)),
+                       "plain_ms": time_ms(lambda: spmm_reference(M, X),
+                                           reps=10),
+                       "library_ms": time_ms(lambda: torch.sparse.mm(S, X)),
+                       "bound_ms": bound_ms, "bound_by": bound_by}
+                records[tag, mat_name, B] = rec
+                phase(9, f"SpMM {tag} {mat_name} B={B} ({M.nnz} nnz, plan "
+                         f"G,V,slices={rec['plan']}): err {err:.3e} (<= "
+                         f"{SPMM_TOL[tag]:g} of |A||X|), repeat "
+                         f"bitwise-identical; kernel={rec['ms']:.5f} ms "
+                         f"({bound_ms / rec['ms']:.1%} of bound "
+                         f"{bound_ms:.5f} ms, {bound_by}) plain="
+                         f"{rec['plain_ms']:.5f} cusparse="
+                         f"{rec['library_ms']:.5f} [{card}]")
+    return records
+
+
+def batched_phase(card):
+    """Phase 9 (b) and (c).  Returns (SpMM launches in (b)'s solve, tiled
+    SpMV launches in it, record)."""
+    import hprlp_tpu_torch as hp
+    from hprlp_tpu_torch.ops.device_problem import csr_from_coo
+    from hprlp_tpu_torch.ops.sparse import spmm, with_backend
+    from hprlp_tpu_torch.ops.spmm import csr_spmm
+    from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
+    from hprlp_tpu_torch.prof import prof_loop
+    from hprlp_tpu_torch.prof.problems import batched_lp
+
+    # (b) batched_large.
+    t0 = time.perf_counter()
+    arrays = batched_lp(65536, 131072, 64, seed=3)
+    A, C, AL, AU, l, u = arrays
+    B = C.shape[1]
+    phase(9, f"batched_large: batched_lp(65536, 131072, 64, seed=3): "
+             f"{A.shape[0]} x {A.shape[1]}, {A.nnz} nnz, B={B}, generated "
+             f"in {time.perf_counter() - t0:.2f} s")
+    csr_spmm.launches = tiled_spmv.launches = csr_spmv.launches = 0
+    res = hp.solve_batched(A, C, AL, AU, l, u, params=hp.Parameters(
+        stop_tol=1e-4, verbose=False, time_limit=300))
+    spmm_l, tiled_l, csr_l = (csr_spmm.launches, tiled_spmv.launches,
+                              csr_spmv.launches)
+    kkt = np.array([hp.LpProblem.from_arrays(
+        A, AL[:, k], AU[:, k], l[:, k], u[:, k], C[:, k]).kkt_error(
+        res.x[:, k], res.y[:, k], res.z[:, k])["kkt"] for k in range(B)])
+    its = res.iter.max() / res.solve_time
+    n_opt = sum(s == "OPTIMAL" for s in res.status)
+    phase(9, f"batched_large: {n_opt}/{B} OPTIMAL, iterations max "
+             f"{res.iter.max()} mean {res.iter.mean():.1f}; setup="
+             f"{res.setup_time:.3f}s power={res.power_time:.3f}s solve="
+             f"{res.solve_time:.3f}s time={res.time:.3f}s it/s={its:.1f} "
+             f"(max iterations over solve time); host f64 KKT max "
+             f"{kkt.max():.3e} mean {kkt.mean():.3e}; launches csr_spmm="
+             f"{spmm_l} tiled_spmv={tiled_l} csr_spmv={csr_l} [{card}]")
+    singles = {}
+    for k in (0, B - 1):
+        one = hp.solve(A, AL[:, k], AU[:, k], l[:, k], u[:, k], C[:, k],
+                       hp.Parameters(stop_tol=1e-4, verbose=False,
+                                     use_presolve=False))
+        rel = abs(one.primal_obj - res.primal_obj[k]) / max(
+            1.0, abs(one.primal_obj))
+        singles[k] = {"status": one.status, "iter": one.iter,
+                      "primal_obj": one.primal_obj,
+                      "batched_obj": float(res.primal_obj[k]),
+                      "batched_iter": int(res.iter[k]), "rel": rel}
+        phase(9, f"batched_large member {k} alone: status={one.status} "
+                 f"iter={one.iter} primal_obj={one.primal_obj:.10e}; "
+                 f"batched {res.primal_obj[k]:.10e} at {res.iter[k]} "
+                 f"iterations; rel diff {rel:.3e}")
+    loop = prof_loop.BatchedLoop(arrays, torch.float32)
+    prof = prof_loop.profile(loop, prof_loop.SPMM_KERNELS, chunks=1)
+    phase(9, f"batched_large profile of one chunk ({prof['iters']} "
+             f"iterations): {prof['its']:.1f} it/s unprofiled; wall "
+             f"{prof['wall_us']:.1f} us/it, device {prof['device_us']:.1f} "
+             f"us/it, busy share {prof['busy']:.3f}, "
+             f"{prof['kernels']:.1f} kernels/it, SpMM "
+             f"{prof['product_us']:.1f} us/it "
+             f"({prof['product_share']:.1%}) [{card}]")
+    for us, count, key in prof["top"][:5]:
+        phase(9, f"batched_large   {us:8.2f} us/it {count:6d}x {key}")
+    del loop
+
+    check(n_opt == B, f"phase 9: {B - n_opt} batched members not OPTIMAL: "
+          f"{sorted(set(res.status))}")
+    check(kkt.max() < 1e-3, f"phase 9: host f64 KKT {kkt.max()}")
+    for k, r in singles.items():
+        check(r["status"] == "OPTIMAL", f"phase 9: member {k} alone: "
+              f"{r['status']}")
+        check(r["rel"] < 1e-3, f"phase 9: member {k}: batched objective "
+              f"{r['batched_obj']} against {r['primal_obj']} alone")
+    check(spmm_l > 0, "phase 9: the SpMM kernel was never launched")
+    check(tiled_l > 0, "phase 9: the tiled SpMV was never launched")
+    check(csr_l == 0, f"phase 9: the batched solve launched the CSR SpMV "
+          f"{csr_l} times")
+
+    # (c) the dense probe.
+    arrays = batched_lp(2048, 4096, 256, seed=3)
+    A, C, AL, AU, l, u = arrays
+    runs = {}
+    for backend in ("auto", "dense"):
+        csr_spmm.launches = 0
+        r = hp.solve_batched(A, C, AL, AU, l, u, params=hp.Parameters(
+            stop_tol=1e-4, verbose=False, time_limit=300,
+            spmv_backend=backend))
+        probe = hp.solve_batched.probe
+        runs[backend] = (r, probe, csr_spmm.launches)
+        phase(9, f"dense probe case ({A.shape[0]} x {A.shape[1]}, {A.nnz} "
+                 f"nnz, B={C.shape[1]}), spmv_backend={backend!r}: "
+                 f"{sum(s == 'OPTIMAL' for s in r.status)}/{C.shape[1]} "
+                 f"OPTIMAL, iterations max {r.iter.max()}, solve="
+                 f"{r.solve_time:.3f}s, csr_spmm launches "
+                 f"{csr_spmm.launches}; probe {probe} [{card}]")
+    (r_auto, probe, auto_l), (r_dense, _, dense_l) = runs["auto"], \
+        runs["dense"]
+    rel = np.abs(r_auto.primal_obj - r_dense.primal_obj) / np.maximum(
+        1.0, np.abs(r_dense.primal_obj))
+    phase(9, f"dense probe case: objectives of auto and dense agree to "
+             f"{rel.max():.3e} relative")
+    # One SpMM of each candidate at this shape: device time (graph replay)
+    # and time per call of back-to-back eager calls (host work included),
+    # the probe's own measure.
+    coo = A.tocoo()
+    M = csr_from_coo(coo.row, coo.col, coo.data, A.shape[0], A.shape[1],
+                     torch.float32, "cuda")
+    D = with_backend(M, "dense")
+    X = torch.randn(A.shape[1], C.shape[1], device="cuda")
+    spmm_ms = {f"{name}_{how}": timer(lambda Mx=Mx: spmm(Mx, X))
+               for name, Mx in (("kernel", M), ("dense", D))
+               for how, timer in (("graph", time_ms), ("eager", eager_ms))}
+    phase(9, "dense probe case, one SpMM (ms): " + ", ".join(
+        f"{k}={v:.5f}" for k, v in spmm_ms.items()) + f" [{card}]")
+    check(probe is not None and probe["dense_ms"] is not None,
+          f"phase 9: the dense probe did not run: {probe}")
+    for name, (r, _, _) in runs.items():
+        check(all(s == "OPTIMAL" for s in r.status), f"phase 9: {name}: "
+              f"{sorted(set(r.status))}")
+    check(rel.max() < 1e-3, f"phase 9: auto and dense objectives differ by "
+          f"{rel.max()}")
+    check(dense_l == 0, f"phase 9: the dense run launched the SpMM kernel "
+          f"{dense_l} times")
+    return spmm_l, tiled_l, {
+        "batched_large": {
+            "m": 65536, "n": 131072, "B": 64, "iter_max": int(
+                res.iter.max()), "iter_mean": float(res.iter.mean()),
+            "setup_s": res.setup_time, "power_s": res.power_time,
+            "solve_s": res.solve_time, "kkt_f64_max": float(kkt.max()),
+            "singles": singles, "profile": {
+                k: prof[k] for k in ("its", "wall_us", "device_us", "busy",
+                                     "kernels", "product_us",
+                                     "product_share")}},
+        "dense_probe": {"probe": probe, "auto_launches": auto_l,
+                        "obj_rel_max": float(rel.max()),
+                        "one_spmm_ms": spmm_ms}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import hprlp_tpu_torch
     from hprlp_tpu_torch import Parameters, native
+    from hprlp_tpu_torch.ops import spmm as spmm_mod
     from hprlp_tpu_torch.ops import spmv as spmv_mod
 
     pkg_dir = os.path.dirname(os.path.abspath(hprlp_tpu_torch.__file__))
@@ -571,13 +786,21 @@ def main():
 
     l8, mps_record = mps_phase(card, MPS_SCALE)
 
+    lib, secs, _ = built[spmm_mod.SOURCE]
+    phase(9, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s")
+    for line in ptxas_summary(built[spmm_mod.SOURCE][2]):
+        phase(9, f"ptxas {line}")
+    spmm_rec = spmm_check(card, prob4)
+    l9, l9_tiled, batched_record = batched_phase(card)
+
     def shapes(tag, keys):
         return {f"{size}_{mat}": {k: rec[size, tag, mat][k] for k in keys}
                 for size in ("bench", "huge") for mat in ("A", "AT")}
 
     kernels = []
     for tag, launches, replaces, also in (
-            ("f32", l32a + l32b + l8, "hprlp_tpu/ops/pallas_spmv.py:67",
+            ("f32", l32a + l32b + l8 + l9_tiled,
+             "hprlp_tpu/ops/pallas_spmv.py:67",
              "thin_spmv hprlp_tpu/ops/pallas_spmv.py:272"),
             ("f64", l64, "hprlp_tpu/ops/pallas_spmv.py:178",
              "thin_spmv_df64 hprlp_tpu/ops/pallas_spmv.py:394")):
@@ -615,9 +838,27 @@ def main():
             "library_ms": a["library_ms"],
             "shapes": shapes(tag, ("csr_ms", "csr_plain_ms", "bound_ms",
                                    "library_ms"))})
-    kernels[0]["launches_by_phase"] = {"4": l32a, "6": l32b, "8": l8}
+    kernels[0]["launches_by_phase"] = {"4": l32a, "6": l32b, "8": l8,
+                                       "9": l9_tiled}
     kernels[0]["mps_presolve"] = mps_record
     kernels += variant_records
+    head = spmm_rec["f32", "A", 64]
+    kernels.append({
+        "name": "csr_spmm", "route": "cuda",
+        "source": os.path.relpath(spmm_mod.SOURCE, HERE),
+        "replaces": "hprlp_tpu/ops/sparse.py:594",
+        "note": "no Pallas kernel in the JAX package: spmm is an XLA "
+                "gather einsum; headline shape f32 A B=64",
+        "launches": l9, "launches_by_phase": {"9": l9},
+        "max_abs_err": max(r["max_abs_err"] for r in spmm_rec.values()),
+        "max_err_rel_abs_ax": max(r["err"] for r in spmm_rec.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shapes": {f"{tag}_{mat}_B{b}": {k: r[k] for k in (
+            "nnz", "ms", "plain_ms", "library_ms", "bound_ms", "err",
+            "plan")} for (tag, mat, b), r in spmm_rec.items()},
+        "batched": batched_record})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,3 +35,15 @@ RUIZ_ITERS = 10
 # Default stopping tolerances (reference: include/structs.h:27, :50-57).
 DEFAULT_STOP_TOL = 1e-4
 MILESTONE_TOLS = (1e-4, 1e-6, 1e-8)
+
+# Budgets, in bytes of one dense copy of A, for a dense-product candidate
+# (reference analogue: the fused-kernel autotuner, src/main_iterate.cu:
+# 517-595).  A dense SpMV reads the whole m x n matrix for every product,
+# so the single-LP budget keeps it small beside the solver's state (the
+# single-LP autotuner is not ported yet).  A batched solve's dense SpMM
+# (torch.matmul at full f32 or f64) reads the matrix once for all B
+# members, so solver/batched.py probes it at up to 3x that size; A and A^T
+# are both densified, so a probe at the limit holds 12 GiB of the H100's
+# 80 GB.
+DENSE_BYTES_LIMIT_SINGLE = 2 * 1024 * 1024 * 1024
+DENSE_BYTES_LIMIT_BATCHED = 6 * 1024 * 1024 * 1024

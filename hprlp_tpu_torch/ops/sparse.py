@@ -5,7 +5,9 @@ Counterpart of hprlp_tpu/ops/sparse.py.  The JAX package re-lays A out as
 bucketed ELL and LaneELL tiles for the TPU; here the matrix is CSR (int32
 indptr/indices), A and A^T are both stored, each over the other's padded
 index space, and the solver attaches to each its column-strip tiles
-(ops/tiles.py), on which the main-path SpMV runs.
+(ops/tiles.py), on which the main-path SpMV runs.  The batched solver's
+SpMM runs on the CSR arrays (ops/spmm.py), or on a dense copy of the
+matrix that `with_backend(A, "dense")` attaches.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .spmm import csr_spmm, spmm_reference
 from .spmv import csr_spmv, row_of_entry, spmv_reference, tiled_spmv
 from .tiles import TiledMatrix, tiled_spmv_reference
 
@@ -29,6 +32,7 @@ class CsrMatrix:
     nrows: int
     ncols: int
     tiles: TiledMatrix | None = None  # the same matrix as SpMV tiles
+    dense: torch.Tensor | None = None  # the same matrix, (nrows, ncols)
 
     @property
     def nnz(self) -> int:
@@ -43,8 +47,9 @@ class CsrMatrix:
         return self.vals.device
 
     def with_vals(self, vals: torch.Tensor) -> "CsrMatrix":
-        """New values; the tiles are dropped, since they hold the old ones."""
-        return dataclasses.replace(self, vals=vals, tiles=None)
+        """New values; the tiles and the dense copy are dropped, since they
+        hold the old ones."""
+        return dataclasses.replace(self, vals=vals, tiles=None, dense=None)
 
     def with_tiles(self, tiles: TiledMatrix) -> "CsrMatrix":
         if (tiles.nrows, tiles.ncols, tiles.nnz) != (self.nrows, self.ncols,
@@ -82,6 +87,49 @@ def spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
         return (spmv_reference(A, x) if A.tiles is None
                 else tiled_spmv_reference(A.tiles, x))
     raise ValueError(f"unsupported device {x.device}")
+
+
+def densify(A: CsrMatrix) -> torch.Tensor:
+    """A as a dense (nrows, ncols) tensor on A's device."""
+    out = torch.zeros((A.nrows, A.ncols), dtype=A.dtype, device=A.device)
+    return out.index_put_((row_of_entry(A), A.indices.to(torch.int64)),
+                          A.vals, accumulate=True)
+
+
+def with_backend(A: CsrMatrix, backend: str) -> CsrMatrix:
+    """A configured for the batched SpMM: "dense" attaches a dense copy
+    (built on A's device), "gather" drops it, so spmm runs the CSR kernel."""
+    if backend == "dense":
+        return A if A.dense is not None else dataclasses.replace(
+            A, dense=densify(A))
+    if backend == "gather":
+        return dataclasses.replace(A, dense=None)
+    raise ValueError(f"unknown SpMM backend {backend!r}")
+
+
+def _dense_matmul(D: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """D @ X in full precision: a user's global TF32 setting must not
+    change the iterates (the JAX package asks for Precision.HIGHEST)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.matmul(D, X)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def spmm(A: CsrMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for batched solves, X: (ncols, B) -> Y: (nrows, B).  A
+    dense copy, where attached, goes to torch.matmul.  Else a CUDA tensor
+    goes to the hand-written kernel (which raises on failure) and a CPU
+    tensor to its plain version."""
+    if A.dense is not None:
+        return _dense_matmul(A.dense, X)
+    if X.device.type == "cuda":
+        return csr_spmm(A, X)
+    if X.device.type == "cpu":
+        return spmm_reference(A, X)
+    raise ValueError(f"unsupported device {X.device}")
 
 
 def _row_reduce(A: CsrMatrix, per_entry: torch.Tensor, reduce: str

@@ -114,8 +114,9 @@ def threads_per_row(nnz: int, nrows: int) -> int:
     return _THREADS_PER_ROW[-1]
 
 
-def check_csr_args(A, x: torch.Tensor) -> None:
-    """The checks every CSR kernel wrapper makes before a launch."""
+def check_csr_matrix(A, x: torch.Tensor) -> None:
+    """The checks every CSR kernel wrapper makes of A and of the device and
+    dtype of its dense operand x before a launch."""
     if not x.is_cuda:
         raise ValueError(f"the CUDA kernels need a CUDA tensor, got "
                          f"{x.device}")
@@ -131,12 +132,17 @@ def check_csr_args(A, x: torch.Tensor) -> None:
         raise TypeError(f"unsupported value dtype {A.vals.dtype}")
     if x.dtype != A.vals.dtype:
         raise TypeError(f"x is {x.dtype}, matrix values are {A.vals.dtype}")
-    if x.shape != (A.ncols,) or not x.is_contiguous():
-        raise ValueError(f"x must be contiguous of shape ({A.ncols},), got "
-                         f"{tuple(x.shape)}")
     if A.indptr.shape != (A.nrows + 1,) or A.indices.shape != (A.nnz,) \
             or A.vals.shape != (A.nnz,):
         raise ValueError("CSR arrays do not match nrows/nnz")
+
+
+def check_csr_args(A, x: torch.Tensor) -> None:
+    """The checks the CSR SpMV wrapper makes before a launch."""
+    check_csr_matrix(A, x)
+    if x.shape != (A.ncols,) or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous of shape ({A.ncols},), got "
+                         f"{tuple(x.shape)}")
 
 
 def csr_spmv(A, x: torch.Tensor) -> torch.Tensor:

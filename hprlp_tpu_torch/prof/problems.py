@@ -6,6 +6,7 @@ it by tests/test_torch_copies.py:
   make_problem (M, N, NNZ_PER_ROW, SEED)   bench.py:44-46, 69-82
   structured_lp   benchmarks/prof_presolve_scale.py (the presolvable LP
                   of benchmarks/report_presolve_scale.json)
+  batched_lp      benchmarks/run.py::run_batched's generator (295-305)
 
 and `write_mps`, which writes a problem as a free-format MPS file.
 """
@@ -75,6 +76,20 @@ def make_problem():
     return LpProblem.from_arrays(
         A, Ax - 1.0, Ax + 1.0, x_feas - 2.0, x_feas + 2.0,
         rng.normal(size=N))
+
+
+def batched_lp(m, n, B, seed):
+    """Copy of benchmarks/run.py::run_batched's generator: B members that
+    share a random A (~20 entries per row), each feasible around its own
+    point.  Returns (A, C, AL, AU, l, u), C, l, u of shape (n, B) and AL,
+    AU of shape (m, B), as solve_batched takes them."""
+    rng = np.random.default_rng(seed)
+    A = sp.random(m, n, density=min(0.3, 20.0 / n), random_state=rng,
+                  data_rvs=lambda k: rng.normal(size=k)).tocsr()
+    x0 = rng.uniform(-1, 1, size=(n, B))
+    Ax = A @ x0
+    return (A, rng.normal(size=(n, B)), Ax - 1.0, Ax + 1.0, x0 - 2.0,
+            x0 + 2.0)
 
 
 def structured_lp(scale: float = 1.0, seed: int = 7) -> LpProblem:

@@ -1,16 +1,21 @@
 """Where the solve loop's device time goes: torch.profiler over whole
-chunks of run_superchunk on the card.
+chunks of run_superchunk (or, with --batch, run_batched_superchunk) on the
+card.
 
     python -m hprlp_tpu_torch.prof.prof_loop [--size large|huge|assign64]
-                                             [--dtype f32|f64]
+                                             [--dtype f32|f64] [--batch B]
 
 Sets the LP up as solve_problem does (layout and tiles, scaling, power
 method), runs one warm-up chunk, times CHUNKS chunks unprofiled (stop_tol
 0, so none stops early), then profiles CHUNKS more and prints per HPR
 iteration: unprofiled it/s, host wall us, device us (kernel rows only),
 the device's busy share (device time over wall time), kernels launched,
-the SpMV kernels' share of device time, and the top kernels by device
-time; with the card's name and power limit.  Needs a CUDA device.
+the sparse-product kernels' share of device time, and the top kernels by
+device time; with the card's name and power limit.  --batch B sets up B
+members that share one A as solve_batched does (--size large is
+prof.problems.batched_lp(65536, 131072, B, seed=3), huge
+batched_lp(262144, 524288, B, seed=4)), and the share is the SpMM
+kernel's.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,23 +24,30 @@ import argparse
 import sys
 import time
 
+import numpy as np
 import torch
 
 from ..ops.device_problem import attach_tiles, build_device_problem
 from ..ops.tiles import build_tiles
 from ..params import Parameters
+from ..solver import batched
+from ..solver.batched_device_loop import (init_batched_restart_dev,
+                                          run_batched_superchunk)
 from ..solver.chunk import init_state, initial_metrics
 from ..solver.device_loop import init_restart_dev, run_superchunk
 from ..solver.power_iteration import power_method
 from ..solver.scaling import scale_problem
-from .problems import assignment_problem, random_lp
+from .problems import assignment_problem, batched_lp, random_lp
 from .timing import card
 
 SIZES = {"large": lambda: random_lp(65536, 131072, 20, seed=2),
          "huge": lambda: random_lp(262144, 524288, 40, seed=4),
          "assign64": lambda: assignment_problem(64)}
+BATCHED_SIZES = {"large": lambda B: batched_lp(65536, 131072, B, seed=3),
+                 "huge": lambda B: batched_lp(262144, 524288, B, seed=4)}
 CHUNKS = 2
 SPMV_KERNELS = ("tiled_spmv_kernel", "group_sum_kernel")
+SPMM_KERNELS = ("csr_spmm_kernel",)
 
 
 class Loop:
@@ -70,53 +82,119 @@ class Loop:
         self.it += k * self.check
 
 
+class BatchedLoop:
+    """The batched solver's device state for B members sharing one A,
+    advanced chunk by chunk (every member stays active)."""
+
+    def __init__(self, arrays, dtype, device="cuda"):
+        dev = torch.device(device)
+        params = Parameters()
+        self.check = params.check_iter
+        A, C, AL, AU, l, u = arrays
+        su = batched.setup_batched(A, *(np.asarray(v, np.float64)
+                                        for v in (C, AL, AU, l, u)),
+                                   params, dev, dtype)
+        self.lp, self.row_norm, self.col_norm = su.lp, su.row_norm, \
+            su.col_norm
+        B = C.shape[1]
+        lam = max(float(power_method(su.lp0)) * 1.01, 1e-12)
+
+        def tensor(v):
+            return torch.as_tensor(v, device=dev).to(dtype)
+
+        self.sigma = tensor(batched.initial_sigma(su))
+        self.lam = tensor(np.full(B, lam))
+        self.scales = tuple(tensor(v) for v in (
+            su.b_scale, su.c_scale, su.norm_b_org, su.norm_c_org,
+            np.zeros(B)))
+        self.state = batched.init_batched_state(self.lp)
+        self.rd = init_batched_restart_dev(self.sigma, dtype)
+        self.active = torch.ones(B, dtype=torch.bool, device=dev)
+        self.metrics = batched.initial_bmetrics(self.lp, self.row_norm,
+                                                self.col_norm, self.state)
+        self.it = 0
+
+    def run(self, n_chunks: int) -> None:
+        (self.state, self.rd, self.sigma, self.lam, self.active,
+         self.metrics, _, k) = run_batched_superchunk(
+            self.lp, self.row_norm, self.col_norm, self.state, self.rd,
+            self.sigma, self.lam, self.active, self.metrics, self.it,
+            *self.scales, 0.0, n_chunks, self.check)
+        self.it += k * self.check
+
+
 def _device_us(event) -> float:
     return float(getattr(event, "device_time_total",
                          getattr(event, "cuda_time_total", 0.0)))
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--size", choices=sorted(SIZES), default="huge")
-    ap.add_argument("--dtype", choices=("f32", "f64"), default="f32")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("prof_loop: no CUDA device", file=sys.stderr)
-        return 2
-    name = card()
-    dtype = torch.float32 if args.dtype == "f32" else torch.float64
-    loop = Loop(SIZES[args.size](), dtype)
+def profile(loop, product_kernels, chunks: int = CHUNKS) -> dict:
+    """One warm-up chunk, `chunks` timed unprofiled, `chunks` profiled.
+    Per HPR iteration: its (unprofiled it/s), wall_us, device_us (kernel
+    rows only), busy (device over wall time), kernels, and product_share,
+    the share of device time in kernels whose names hold one of
+    `product_kernels`; top: the 8 kernels of most device time as
+    (us/it, count, name)."""
     loop.run(1)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loop.run(CHUNKS)
+    loop.run(chunks)
     torch.cuda.synchronize()
-    iters = CHUNKS * loop.check
+    iters = chunks * loop.check
     its = iters / (time.perf_counter() - t0)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        loop.run(CHUNKS)
+        loop.run(chunks)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(_device_us(e) for e in kernels)
-    spmv_us = sum(_device_us(e) for e in kernels
-                  if any(k in e.key for k in SPMV_KERNELS))
-    launches = sum(e.count for e in kernels)
-    head = f"{args.size} {args.dtype}"
-    print(f"{head}: {its:.1f} it/s unprofiled; profiled {iters} iterations: "
-          f"wall {wall_us / iters:.1f} us/it, device {device_us / iters:.1f} "
-          f"us/it, busy share {device_us / wall_us:.3f}, "
-          f"{launches / iters:.1f} kernels/it, SpMV {spmv_us / 1e3:.2f} of "
-          f"{device_us / 1e3:.2f} ms ({spmv_us / max(device_us, 1e-9):.1%}) "
-          f"[{name}]", flush=True)
-    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
-        print(f"{head}:   {_device_us(e) / iters:8.2f} us/it  {e.count:6d}x  "
-              f"{e.key[:90]}", flush=True)
+    product_us = sum(_device_us(e) for e in kernels
+                     if any(k in e.key for k in product_kernels))
+    return {"iters": iters, "its": its, "wall_us": wall_us / iters,
+            "device_us": device_us / iters, "busy": device_us / wall_us,
+            "kernels": sum(e.count for e in kernels) / iters,
+            "product_us": product_us / iters,
+            "product_share": product_us / max(device_us, 1e-9),
+            "top": [(_device_us(e) / iters, e.count, e.key[:90]) for e in
+                    sorted(kernels, key=_device_us, reverse=True)[:8]]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--size", choices=sorted(SIZES), default="huge")
+    ap.add_argument("--dtype", choices=("f32", "f64"), default="f32")
+    ap.add_argument("--batch", type=int, default=0, metavar="B",
+                    help="profile the batched loop with B members")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("prof_loop: no CUDA device", file=sys.stderr)
+        return 2
+    name = card()
+    dtype = torch.float32 if args.dtype == "f32" else torch.float64
+    if args.batch:
+        if args.size not in BATCHED_SIZES:
+            ap.error(f"--batch takes --size {' or '.join(BATCHED_SIZES)}")
+        loop = BatchedLoop(BATCHED_SIZES[args.size](args.batch), dtype)
+        what, product = "SpMM", SPMM_KERNELS
+        head = f"{args.size} B={args.batch} {args.dtype}"
+    else:
+        loop = Loop(SIZES[args.size](), dtype)
+        what, product = "SpMV", SPMV_KERNELS
+        head = f"{args.size} {args.dtype}"
+    r = profile(loop, product)
+    print(f"{head}: {r['its']:.1f} it/s unprofiled; profiled {r['iters']} "
+          f"iterations: wall {r['wall_us']:.1f} us/it, device "
+          f"{r['device_us']:.1f} us/it, busy share {r['busy']:.3f}, "
+          f"{r['kernels']:.1f} kernels/it, {what} {r['product_us']:.1f} of "
+          f"{r['device_us']:.1f} us/it ({r['product_share']:.1%}) [{name}]",
+          flush=True)
+    for us, count, key in r["top"]:
+        print(f"{head}:   {us:8.2f} us/it  {count:6d}x  {key}", flush=True)
     return 0
 
 

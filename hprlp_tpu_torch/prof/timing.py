@@ -1,10 +1,11 @@
 """Kernel timing on the card, and the SpMV's least time (its bound).
 
 `time_ms` is device time by CUDA-graph replay between CUDA events;
-`eager_ms` adds the host's launch gaps.  `spmv_bytes`/`spmv_bound_ms` give
-the least time one y = A x can take on an H100 SXM: the larger of its
-bytes over the HBM rate and its operations over the vector-unit peak
-(NVIDIA's data sheet; both assume the 700 W power limit).
+`eager_ms` adds the host's launch gaps.  `spmv_bytes`/`spmv_bound` give
+the least time one y = A x, or one Y = A X over B columns, can take on an
+H100 SXM: the larger of its bytes over the HBM rate and its operations
+over the vector-unit peak (NVIDIA's data sheet; both assume the 700 W
+power limit).
 """
 
 from __future__ import annotations
@@ -57,18 +58,19 @@ def eager_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def spmv_bytes(A, dtype: torch.dtype) -> int:
-    """Bytes one y = A x must move: values, column indices (int32), indptr
-    (int32), x and y, each once."""
+def spmv_bytes(A, dtype: torch.dtype, B: int = 1) -> int:
+    """Bytes one Y = A X with X of B columns (B = 1: y = A x) must move:
+    values, column indices (int32), indptr (int32), X and Y, each once."""
     v = torch.empty((), dtype=dtype).element_size()
-    return A.nnz * (v + 4) + (A.nrows + 1) * 4 + A.ncols * v + A.nrows * v
+    return (A.nnz * (v + 4) + (A.nrows + 1) * 4
+            + B * (A.ncols + A.nrows) * v)
 
 
-def spmv_bound(A, dtype: torch.dtype) -> tuple[float, str]:
-    """(bound_ms, bound_by): the least time of one y = A x, and whether
-    its bytes or its 2 * nnz operations set it."""
-    bytes_ms = spmv_bytes(A, dtype) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * A.nnz / FLOPS_PER_S[dtype] * 1e3
+def spmv_bound(A, dtype: torch.dtype, B: int = 1) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time of one Y = A X with X of B
+    columns, and whether its bytes or its 2 * nnz * B operations set it."""
+    bytes_ms = spmv_bytes(A, dtype, B) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * A.nnz * B / FLOPS_PER_S[dtype] * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
 

@@ -6,8 +6,8 @@ follow the reference's semantics (src/HPRLP.cu:220-253): first
 iteration/time at which the relative KKT error drops below 1e-4/1e-6/1e-8,
 backfilled with the final iter/time if never reached.
 
-Copy of hprlp_tpu/results.py::Results (batched results are not ported
-yet); tests/test_torch_copies.py pins the two together.  spmv_backend
+Copies of hprlp_tpu/results.py::Results and ::BatchedResults;
+tests/test_torch_copies.py pins each to its original.  spmv_backend
 reports "tiled" for the port's kernel.
 """
 
@@ -75,3 +75,32 @@ class Results:
             if d[k] is not None:
                 d[k] = np.asarray(d[k])
         return d
+
+
+@dataclasses.dataclass
+class BatchedResults:
+    """Results of a batched shared-A solve (reference: structs.h:68-90).
+
+    x/z have shape (n, batch), y has shape (m, batch) — column-major layout
+    parity with the reference (batched_solver.cu:887-935).
+    """
+
+    m: int = 0
+    n: int = 0
+    batch_size: int = 0
+    x: Optional[np.ndarray] = None
+    y: Optional[np.ndarray] = None
+    z: Optional[np.ndarray] = None
+    primal_obj: Optional[np.ndarray] = None
+    residuals: Optional[np.ndarray] = None
+    gap: Optional[np.ndarray] = None
+    iter: Optional[np.ndarray] = None
+    status: Optional[list] = None
+
+    time: float = 0.0
+    setup_time: float = 0.0
+    solve_time: float = 0.0
+    power_time: float = 0.0
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)

@@ -37,8 +37,9 @@ def _fields(cls):
 @pytest.mark.parametrize("pair", [
     (jparams.Parameters, tparams.Parameters),
     (jresults.Results, tresults.Results),
+    (jresults.BatchedResults, tresults.BatchedResults),
     (jproblem.LpProblem, tproblem.LpProblem),
-], ids=["Parameters", "Results", "LpProblem"])
+], ids=["Parameters", "Results", "BatchedResults", "LpProblem"])
 def test_dataclass_copies_match(pair):
     assert _fields(pair[1]) == _fields(pair[0])
 
@@ -146,6 +147,42 @@ def test_prof_problem_generators_match_originals(name, args, monkeypatch):
         np.testing.assert_array_equal(getattr(pt, k), getattr(pj, k))
 
 
+class _Captured(Exception):
+    pass
+
+
+def test_batched_lp_copy_matches_run_batched():
+    """prof/problems.py::batched_lp against the generator inside
+    benchmarks/run.py::run_batched, whose solve_batched call is replaced by
+    one that records its arguments."""
+    import time
+
+    import hprlp_tpu_torch.prof.problems as tprob
+
+    got = {}
+
+    def record(*args, **kw):
+        got["args"] = args
+        raise _Captured
+
+    with open(os.path.join(ROOT, "benchmarks", "run.py")) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "run_batched")
+    ns = {"np": np, "sp": sp, "time": time, "solve_batched": record,
+          "Parameters": lambda **kw: kw}
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), "run.py", "exec"),
+         ns)
+    with pytest.raises(_Captured):
+        ns["run_batched"](40, 70, 5, 3, 1e-4, 10.0)
+    want = got["args"]
+    have = tprob.batched_lp(40, 70, 5, 3)
+    assert len(have) == len(want) == 6
+    assert (have[0] != want[0]).nnz == 0
+    for a, b in zip(have[1:], want[1:]):
+        np.testing.assert_array_equal(a, b)
+
+
 def _body_without_docstring(path, drop=()):
     """ast.dump of a module's statements after its docstring, without the
     top-level functions or class methods named in `drop`."""
@@ -246,7 +283,10 @@ def test_import_leaves_out_jax_triton_and_the_jax_package():
             "hprlp_tpu_torch.prof.prof_lane_ablate, "
             "hprlp_tpu_torch.prof.prof_dual_acc, "
             "hprlp_tpu_torch.prof.prof_flush_variants, "
-            "hprlp_tpu_torch.prof.prof_kernel_variants; "
+            "hprlp_tpu_torch.prof.prof_kernel_variants, "
+            "hprlp_tpu_torch.ops.spmm, hprlp_tpu_torch.solver.batched, "
+            "hprlp_tpu_torch.solver.batched_device_loop, "
+            "hprlp_tpu_torch.prof.prof_loop; "
             "bad = [m for m in ('jax', 'triton', 'hprlp_tpu') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
