@@ -12,6 +12,11 @@ solver (hprlp_tpu_torch.solve_batched):
   2. build       the four kernel libraries (nvcc, sm_90a, one process per
                  source, started together) and the host library (g++,
                  native/src), with their build times
+  0. repairs     scale_matrix twice on the first LP's A and A^T (f32):
+                 bitwise-equal values and norms (its row sums run on the
+                 SpMM kernel in CSR order); after phase 4, its solve run a
+                 second time: the same iterations and a bitwise-equal
+                 objective
   3. kernel      the tiled SpMV (main path) and the CSR kernel (previous
                  design), f32 and f64, on A and A^T of random_lp(65536,
                  131072, 20, seed=2) and random_lp(262144, 524288, 40,
@@ -42,18 +47,27 @@ solver (hprlp_tpu_torch.solve_batched):
   9. batched     (a) the SpMM kernel (csrc/spmm.cu) against its plain
                  version on the unscaled A and A^T of phase 3's first LP,
                  B in SPMM_BATCHES, f32 and f64: error relative to the row
-                 sums of |A| |X|, bitwise repeat, times by graph replay
-                 beside torch.sparse.mm on a CSR tensor (cuSPARSE) and the
-                 byte bound; (b) batched_large: solve_batched of
-                 batched_lp(65536, 131072, 64, seed=3) at 1e-4 (f32):
-                 every member OPTIMAL with host-f64 KKT < 1e-3, two members
-                 against single solves, the SpMM and tiled kernels
-                 launched and the CSR SpMV never, one chunk profiled;
-                 (c) the dense probe on batched_lp(2048, 4096, 256,
-                 seed=3): spmv_backend "auto" (both probe times, the
-                 winner) against "dense", every member OPTIMAL, objectives
-                 within 1e-3; one SpMM of each candidate timed by graph
-                 replay and eagerly
+                 sums of |A| |X|, bitwise repeat, bitwise equal to the
+                 previous design (row-wise), times by graph replay of both
+                 designs (and, at B >= 64, of the new one with no L2 cap
+                 on its slices) beside torch.sparse.mm on a CSR tensor
+                 (cuSPARSE) and the byte bound; the new design must beat
+                 the previous one on A at B = 64 and 256; (b)
+                 batched_large: solve_batched of batched_lp(65536, 131072,
+                 64, seed=3) at 1e-4 (f32): every member OPTIMAL with
+                 host-f64 KKT < 1e-3, two members against single solves,
+                 the SpMM, fused-half and tiled kernels launched and the
+                 CSR SpMV never, one chunk profiled; (c) the dense probe
+                 on batched_lp(2048, 4096, 256, seed=3): spmv_backend
+                 "auto" (both probe times, the winner) against "dense",
+                 every member OPTIMAL, objectives within 1e-3; one SpMM of
+                 each candidate (and of the previous design) timed by graph
+                 replay and eagerly; (d) on
+                 batched_large's problem, f32 and f64, with members
+                 frozen: one 150-iteration run_batched_chunk through the
+                 fused halves and one through the plain halves, bitwise
+                 equal; each half's time by graph replay, fused and
+                 plain, beside its byte bound; the f64 chunk profiled
 
 Any failure raises (exit code != 0).  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -207,15 +221,49 @@ def kernel_check(card, problems):
     return records
 
 
+def repair_checks(card, problem):
+    """Phase 0: scale_matrix twice on the problem's A and A^T (f32) gives
+    bitwise-equal values and norms.  Beside it, for the record, whether two
+    scatter_reduce_ sums of the same rows (the route it left) agree.
+    Returns the row sums one scale_matrix runs on the SpMM kernel."""
+    from hprlp_tpu_torch.ops.device_problem import build_device_problem
+    from hprlp_tpu_torch.ops.spmm import csr_spmm
+    from hprlp_tpu_torch.ops.spmv import row_of_entry
+    from hprlp_tpu_torch.solver.scaling import scale_matrix
+
+    lp, _ = build_device_problem(problem, dtype=torch.float32, device="cuda")
+    before = csr_spmm.launches
+    runs = [scale_matrix(lp.A, lp.AT) for _ in range(2)]
+    torch.cuda.synchronize()
+    sums = (csr_spmm.launches - before) // 2
+    (a1, at1, r1, c1), (a2, at2, r2, c2) = runs
+    same = {"A": torch.equal(a1.vals, a2.vals),
+            "AT": torch.equal(at1.vals, at2.vals),
+            "row_norm": torch.equal(r1, r2), "col_norm": torch.equal(c1, c2)}
+    rows, vals = row_of_entry(lp.A), lp.A.vals.abs()
+    atomics = [torch.zeros(lp.A.nrows, device="cuda").scatter_reduce_(
+        0, rows, vals, reduce="sum") for _ in range(2)]
+    phase(0, f"scale_matrix twice on {problem.name} (f32, {lp.A.nnz} nnz): "
+             f"bitwise equal {same}; {sums} row sums on the SpMM kernel per "
+             f"run; two scatter_reduce_ sums of |A|'s rows bitwise equal: "
+             f"{torch.equal(*atomics)} [{card}]")
+    check(all(same.values()), f"phase 0: scale_matrix is not bitwise "
+          f"repeatable: {same}")
+    check(sums > 0, "phase 0: scale_matrix ran no row sum on the card")
+    return sums
+
+
 def run_solve(n, problem, params, card):
+    """One solve on the main path.  Returns (result, host f64 KKT, tiled
+    SpMV launches, SpMM launches: the scaling's row sums)."""
     import hprlp_tpu_torch as hp
+    from hprlp_tpu_torch.ops.spmm import csr_spmm
     from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
 
-    csr_spmv.launches = 0
-    tiled_spmv.launches = 0
+    csr_spmv.launches = tiled_spmv.launches = csr_spmm.launches = 0
     res = hp.solve(problem.A, problem.AL, problem.AU, problem.l, problem.u,
                    problem.c, params, obj_constant=problem.obj_constant)
-    launches = tiled_spmv.launches
+    launches, row_sums = tiled_spmv.launches, csr_spmm.launches
     check(csr_spmv.launches == 0, f"phase {n}: the solve launched the CSR "
           f"kernel {csr_spmv.launches} times")
     kkt = problem.kkt_error(res.x, res.y, res.z)["kkt"]
@@ -223,11 +271,14 @@ def run_solve(n, problem, params, card):
     phase(n, f"{problem.name}: status={res.status} iter={res.iter} "
              f"setup={res.setup_time:.3f}s scaling={res.scaling_time:.3f}s "
              f"power={res.power_time:.3f}s solve={res.time:.3f}s "
-             f"it/s={its:.1f} launches={launches} "
-             f"primal_obj={res.primal_obj:.10e} kkt_f64={kkt:.3e} [{card}]")
+             f"it/s={its:.1f} launches={launches} csr_spmm (row sums) "
+             f"{row_sums} primal_obj={res.primal_obj:.10e} kkt_f64={kkt:.3e} "
+             f"[{card}]")
     check(launches > 0, f"phase {n}: the tiled kernel was never launched")
+    check(row_sums > 0, f"phase {n}: the scaling's row sums never ran on "
+          f"the SpMM kernel")
     check(res.status == "OPTIMAL", f"phase {n}: status {res.status}")
-    return res, kkt, launches
+    return res, kkt, launches, row_sums
 
 
 def build_kernels():
@@ -239,7 +290,7 @@ def build_kernels():
     from hprlp_tpu_torch.ops import spmm, spmv, spmv_variants
 
     sources = (spmv.TILED_SOURCE, spmv.SOURCE, spmv_variants.SOURCE,
-               spmm.SOURCE)
+               spmm.SOURCE, spmm.ROWWISE_SOURCE)
     logs = {src: [] for src in sources}
 
     def one(src):
@@ -305,10 +356,12 @@ def mps_phase(card, scale, cli_extra=()):
     """Phase 8: structured_lp(scale) written as MPS, solved by
     cli.main (native reader, presolve, tiled-kernel solve, postsolve,
     original-space KKT, solution file), checked against a presolve-off
-    solve.  Returns (tiled_spmv launches during cli.main, record)."""
+    solve.  Returns (tiled_spmv launches during cli.main, csr_spmm
+    launches there (the scaling's row sums), record)."""
     import hprlp_tpu_torch as hp
     from hprlp_tpu_torch import cli, native, presolve
     from hprlp_tpu_torch.io import native_mps
+    from hprlp_tpu_torch.ops.spmm import csr_spmm
     from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
     from hprlp_tpu_torch.prof.problems import structured_lp, write_mps
 
@@ -332,8 +385,7 @@ def mps_phase(card, scale, cli_extra=()):
         size = os.path.getsize(mps)
 
         record = []
-        csr_spmv.launches = 0
-        tiled_spmv.launches = 0
+        csr_spmv.launches = tiled_spmv.launches = csr_spmm.launches = 0
         with recorded(record, [(native_mps, "read_mps_native"),
                                (presolve, "presolve_problem"),
                                (presolve.PresolveHandle, "postsolve"),
@@ -344,6 +396,7 @@ def mps_phase(card, scale, cli_extra=()):
                            "--solution-out", sol, *cli_extra])
             cli_s = time.perf_counter() - t0
         launches, csr_launches = tiled_spmv.launches, csr_spmv.launches
+        row_sums = csr_spmm.launches
         stage = {name: (secs, out) for name, secs, out in record}
         check(set(stage) == {"read_mps_native", "presolve_problem",
                              "postsolve", "validate_original_kkt", "solve"},
@@ -366,7 +419,8 @@ def mps_phase(card, scale, cli_extra=()):
         phase(8, f"cli.main rc={rc} status={head['status']} "
                  f"iter={head['iter']} primal_obj={head['primal_obj']} "
                  f"kkt_f64={kkt['kkt']:.3e} launches={launches} "
-                 f"csr_launches={csr_launches}; file {size} bytes; stage "
+                 f"csr_launches={csr_launches} csr_spmm (row sums) "
+                 f"{row_sums}; file {size} bytes; stage "
                  f"times (s): " + ", ".join(f"{k}={v:.3f}"
                                             for k, v in times.items())
               + f" [{card}]")
@@ -406,10 +460,12 @@ def mps_phase(card, scale, cli_extra=()):
     check(csr_launches == 0, f"phase 8: cli.main launched the CSR kernel "
           f"{csr_launches} times")
     check(launches > 0, "phase 8: the tiled kernel was never launched")
+    check(row_sums > 0, "phase 8: the scaling's row sums never ran on the "
+          "SpMM kernel")
     check(proc.returncode == 0 and "status=OPTIMAL" in proc.stdout,
           f"phase 8: python -m hprlp_tpu_torch.cli failed: {proc.stdout}"
           f"{proc.stderr[-2000:]}")
-    return launches, {
+    return launches, row_sums, {
         "m": problem.m, "n": problem.n, "nnz": problem.nnz,
         "reduced": [reduced.m, reduced.n, reduced.nnz], "iter": res.iter,
         "iter_presolve_off": ref.iter, "kkt_f64": kkt["kkt"],
@@ -535,12 +591,23 @@ SPMM_TOL = {"f32": 1e-5, "f64": 1e-12}
 
 
 def spmm_check(card, problem):
-    """Phase 9 (a): the SpMM kernel against its plain version on the
-    unscaled A and A^T of `problem`.  Returns {(dtype tag, matrix, B):
-    record}."""
+    """Phase 9 (a): the SpMM kernel against its plain version and the
+    previous design on the unscaled A and A^T of `problem`.  Returns
+    {(dtype tag, matrix, B): record}."""
     from hprlp_tpu_torch.ops.device_problem import build_device_problem
-    from hprlp_tpu_torch.ops.spmm import csr_spmm, spmm_plan, spmm_reference
+    from hprlp_tpu_torch.ops import spmm as spmm_mod
+    from hprlp_tpu_torch.ops.spmm import (csr_spmm, csr_spmm_rowwise,
+                                          spmm_grid, spmm_plan,
+                                          spmm_reference)
     from hprlp_tpu_torch.prof.timing import spmv_bound
+
+    def uncapped(M, X):
+        """The solver's design with no L2 cap on its slices' width."""
+        G, V, n_slices = spmm_plan(X.shape[1], X.element_size(),
+                                   X.data_ptr())
+        plan = (G, V, *spmm_grid(M.nrows, G, n_slices))
+        Y = torch.empty((M.nrows, X.shape[1]), dtype=X.dtype, device="cuda")
+        return lambda: spmm_mod._launch(spmm_mod.STORE, M, X, Y, plan=plan)
 
     rng = np.random.default_rng(9)
     records = {}
@@ -555,6 +622,7 @@ def spmm_check(card, problem):
                                     device="cuda").to(dtype)
                 Y = csr_spmm(M, X)
                 Y_again = csr_spmm(M, X)
+                Y_prev = csr_spmm_rowwise(M, X)
                 Y_ref = spmm_reference(M, X)
                 scale = spmm_reference(absM, X.abs())
                 torch.cuda.synchronize()
@@ -566,34 +634,60 @@ def spmm_check(card, problem):
                       f"to |A||X| > {SPMM_TOL[tag]}")
                 check(torch.equal(Y, Y_again), f"{what}: two launches "
                       f"differ")
+                check(torch.equal(Y, Y_prev), f"{what}: not bitwise equal "
+                      f"to the previous design, which sums in the same "
+                      f"order (max diff {float((Y - Y_prev).abs().max())})")
                 bound_ms, bound_by = spmv_bound(M, dtype, B)
+                align = X.data_ptr()
                 rec = {"nnz": M.nnz, "err": err,
                        "max_abs_err": float(diff.max()),
-                       "plan": spmm_plan(B, X.element_size(), X.data_ptr()),
+                       "plan": spmm_plan(B, X.element_size(), align,
+                                         M.ncols),
+                       "prev_plan": spmm_plan(B, X.element_size(), align),
                        "ms": time_ms(lambda: csr_spmm(M, X)),
+                       "prev_ms": time_ms(lambda: csr_spmm_rowwise(M, X)),
+                       "uncapped_ms": (time_ms(uncapped(M, X))
+                                       if B >= 64 else None),
                        "plain_ms": time_ms(lambda: spmm_reference(M, X),
                                            reps=10),
                        "library_ms": time_ms(lambda: torch.sparse.mm(S, X)),
                        "bound_ms": bound_ms, "bound_by": bound_by}
                 records[tag, mat_name, B] = rec
+                unc = rec["uncapped_ms"]
                 phase(9, f"SpMM {tag} {mat_name} B={B} ({M.nnz} nnz, plan "
-                         f"G,V,slices={rec['plan']}): err {err:.3e} (<= "
-                         f"{SPMM_TOL[tag]:g} of |A||X|), repeat "
-                         f"bitwise-identical; kernel={rec['ms']:.5f} ms "
-                         f"({bound_ms / rec['ms']:.1%} of bound "
-                         f"{bound_ms:.5f} ms, {bound_by}) plain="
+                         f"G,V,slices={rec['plan']}, previous "
+                         f"{rec['prev_plan']}): err {err:.3e} (<= "
+                         f"{SPMM_TOL[tag]:g} of |A||X|), repeat and previous "
+                         f"design bitwise-identical; kernel={rec['ms']:.5f} "
+                         f"ms ({bound_ms / rec['ms']:.1%} of bound "
+                         f"{bound_ms:.5f} ms, {bound_by}) previous="
+                         f"{rec['prev_ms']:.5f} uncapped="
+                         f"{'-' if unc is None else f'{unc:.5f}'} plain="
                          f"{rec['plain_ms']:.5f} cusparse="
                          f"{rec['library_ms']:.5f} [{card}]")
+    for tag in ("f32", "f64"):
+        for B in (64, 256):
+            r = records[tag, "A", B]
+            check(r["ms"] < r["prev_ms"], f"phase 9: the SpMM at {tag} A "
+                  f"B={B} ({r['ms']} ms) is not faster than the previous "
+                  f"design ({r['prev_ms']} ms)")
     return records
 
 
-def batched_phase(card):
-    """Phase 9 (b) and (c).  Returns (SpMM launches in (b)'s solve, tiled
-    SpMV launches in it, record)."""
+# batched_large's iterations with the previous SpMM design and unfused
+# halves (PERF.md section 6), against which phase 9 (b) prints its own.
+PREVIOUS_BATCHED_ITERS = 1050
+
+
+def batched_phase(card, row_sums):
+    """Phase 9 (b) and (c).  `row_sums`: the SpMM launches of one
+    scale_matrix (phase 0).  Returns ({kernel: launches in (b)'s solve}
+    for the SpMM, the two fused halves and the tiled SpMV, record)."""
     import hprlp_tpu_torch as hp
     from hprlp_tpu_torch.ops.device_problem import csr_from_coo
     from hprlp_tpu_torch.ops.sparse import spmm, with_backend
-    from hprlp_tpu_torch.ops.spmm import csr_spmm
+    from hprlp_tpu_torch.ops.spmm import (csr_spmm, csr_spmm_rowwise,
+                                          spmm_x_half, spmm_y_half)
     from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
     from hprlp_tpu_torch.prof import prof_loop
     from hprlp_tpu_torch.prof.problems import batched_lp
@@ -606,11 +700,14 @@ def batched_phase(card):
     phase(9, f"batched_large: batched_lp(65536, 131072, 64, seed=3): "
              f"{A.shape[0]} x {A.shape[1]}, {A.nnz} nnz, B={B}, generated "
              f"in {time.perf_counter() - t0:.2f} s")
-    csr_spmm.launches = tiled_spmv.launches = csr_spmv.launches = 0
+    counted = {"csr_spmm": csr_spmm, "spmm_x_half": spmm_x_half,
+               "spmm_y_half": spmm_y_half, "tiled_spmv": tiled_spmv,
+               "csr_spmv": csr_spmv, "csr_spmm_rowwise": csr_spmm_rowwise}
+    for fn in counted.values():
+        fn.launches = 0
     res = hp.solve_batched(A, C, AL, AU, l, u, params=hp.Parameters(
         stop_tol=1e-4, verbose=False, time_limit=300))
-    spmm_l, tiled_l, csr_l = (csr_spmm.launches, tiled_spmv.launches,
-                              csr_spmv.launches)
+    launches = {name: fn.launches for name, fn in counted.items()}
     kkt = np.array([hp.LpProblem.from_arrays(
         A, AL[:, k], AU[:, k], l[:, k], u[:, k], C[:, k]).kkt_error(
         res.x[:, k], res.y[:, k], res.z[:, k])["kkt"] for k in range(B)])
@@ -620,9 +717,11 @@ def batched_phase(card):
              f"{res.iter.max()} mean {res.iter.mean():.1f}; setup="
              f"{res.setup_time:.3f}s power={res.power_time:.3f}s solve="
              f"{res.solve_time:.3f}s time={res.time:.3f}s it/s={its:.1f} "
-             f"(max iterations over solve time); host f64 KKT max "
-             f"{kkt.max():.3e} mean {kkt.mean():.3e}; launches csr_spmm="
-             f"{spmm_l} tiled_spmv={tiled_l} csr_spmv={csr_l} [{card}]")
+             f"(max iterations over solve time; {PREVIOUS_BATCHED_ITERS} "
+             f"with the previous SpMM and unfused halves); host f64 KKT max "
+             f"{kkt.max():.3e} mean {kkt.mean():.3e}; launches "
+             + ", ".join(f"{k}={v}" for k, v in launches.items())
+             + f" [{card}]")
     singles = {}
     for k in (0, B - 1):
         one = hp.solve(A, AL[:, k], AU[:, k], l[:, k], u[:, k], C[:, k],
@@ -644,10 +743,10 @@ def batched_phase(card):
              f"iterations): {prof['its']:.1f} it/s unprofiled; wall "
              f"{prof['wall_us']:.1f} us/it, device {prof['device_us']:.1f} "
              f"us/it, busy share {prof['busy']:.3f}, "
-             f"{prof['kernels']:.1f} kernels/it, SpMM "
+             f"{prof['kernels']:.1f} kernels/it, SpMM and fused halves "
              f"{prof['product_us']:.1f} us/it "
              f"({prof['product_share']:.1%}) [{card}]")
-    for us, count, key in prof["top"][:5]:
+    for us, count, key in prof["top"][:6]:
         phase(9, f"batched_large   {us:8.2f} us/it {count:6d}x {key}")
     del loop
 
@@ -659,28 +758,31 @@ def batched_phase(card):
               f"{r['status']}")
         check(r["rel"] < 1e-3, f"phase 9: member {k}: batched objective "
               f"{r['batched_obj']} against {r['primal_obj']} alone")
-    check(spmm_l > 0, "phase 9: the SpMM kernel was never launched")
-    check(tiled_l > 0, "phase 9: the tiled SpMV was never launched")
-    check(csr_l == 0, f"phase 9: the batched solve launched the CSR SpMV "
-          f"{csr_l} times")
+    for name in ("csr_spmm", "spmm_x_half", "spmm_y_half", "tiled_spmv"):
+        check(launches[name] > 0, f"phase 9: {name} was never launched")
+    for name in ("csr_spmv", "csr_spmm_rowwise"):
+        check(launches[name] == 0, f"phase 9: the batched solve launched "
+              f"{name} {launches[name]} times")
 
     # (c) the dense probe.
     arrays = batched_lp(2048, 4096, 256, seed=3)
     A, C, AL, AU, l, u = arrays
     runs = {}
     for backend in ("auto", "dense"):
-        csr_spmm.launches = 0
+        csr_spmm.launches = spmm_x_half.launches = 0
         r = hp.solve_batched(A, C, AL, AU, l, u, params=hp.Parameters(
             stop_tol=1e-4, verbose=False, time_limit=300,
             spmv_backend=backend))
         probe = hp.solve_batched.probe
-        runs[backend] = (r, probe, csr_spmm.launches)
+        runs[backend] = (r, probe, csr_spmm.launches + spmm_x_half.launches)
         phase(9, f"dense probe case ({A.shape[0]} x {A.shape[1]}, {A.nnz} "
                  f"nnz, B={C.shape[1]}), spmv_backend={backend!r}: "
                  f"{sum(s == 'OPTIMAL' for s in r.status)}/{C.shape[1]} "
                  f"OPTIMAL, iterations max {r.iter.max()}, solve="
                  f"{r.solve_time:.3f}s, csr_spmm launches "
-                 f"{csr_spmm.launches}; probe {probe} [{card}]")
+                 f"{csr_spmm.launches} ({row_sums} of them the scaling's "
+                 f"row sums), fused x-half {spmm_x_half.launches}; probe "
+                 f"{probe} [{card}]")
     (r_auto, probe, auto_l), (r_dense, _, dense_l) = runs["auto"], \
         runs["dense"]
     rel = np.abs(r_auto.primal_obj - r_dense.primal_obj) / np.maximum(
@@ -695,8 +797,12 @@ def batched_phase(card):
                      torch.float32, "cuda")
     D = with_backend(M, "dense")
     X = torch.randn(A.shape[1], C.shape[1], device="cuda")
-    spmm_ms = {f"{name}_{how}": timer(lambda Mx=Mx: spmm(Mx, X))
-               for name, Mx in (("kernel", M), ("dense", D))
+    # The previous design's wrapper (its plan recomputed on every call) at
+    # about the same device time: eager minus graph, side by side, is each
+    # wrapper's host cost per call.
+    calls = (("kernel", lambda: spmm(M, X)), ("dense", lambda: spmm(D, X)),
+             ("previous_kernel", lambda: csr_spmm_rowwise(M, X)))
+    spmm_ms = {f"{name}_{how}": timer(fn) for name, fn in calls
                for how, timer in (("graph", time_ms), ("eager", eager_ms))}
     phase(9, "dense probe case, one SpMM (ms): " + ", ".join(
         f"{k}={v:.5f}" for k, v in spmm_ms.items()) + f" [{card}]")
@@ -707,12 +813,14 @@ def batched_phase(card):
               f"{sorted(set(r.status))}")
     check(rel.max() < 1e-3, f"phase 9: auto and dense objectives differ by "
           f"{rel.max()}")
-    check(dense_l == 0, f"phase 9: the dense run launched the SpMM kernel "
-          f"{dense_l} times")
-    return spmm_l, tiled_l, {
+    check(dense_l == row_sums, f"phase 9: the dense run launched the SpMM "
+          f"kernels {dense_l} times, {row_sums} of them the scaling's row "
+          f"sums")
+    return launches, {
         "batched_large": {
             "m": 65536, "n": 131072, "B": 64, "iter_max": int(
                 res.iter.max()), "iter_mean": float(res.iter.mean()),
+            "iter_previous": PREVIOUS_BATCHED_ITERS,
             "setup_s": res.setup_time, "power_s": res.power_time,
             "solve_s": res.solve_time, "kkt_f64_max": float(kkt.max()),
             "singles": singles, "profile": {
@@ -722,6 +830,128 @@ def batched_phase(card):
         "dense_probe": {"probe": probe, "auto_launches": auto_l,
                         "obj_rel_max": float(rel.max()),
                         "one_spmm_ms": spmm_ms}}
+
+
+@contextlib.contextmanager
+def swapped(owner, **attrs):
+    """Set attributes of `owner` for the block's duration."""
+    saved = {name: getattr(owner, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(owner, name, value)
+
+
+# Members frozen in phase 9 (d)'s chunk.
+FROZEN = (3, 17, 40, 63)
+
+
+def fused_phase(card):
+    """Phase 9 (d): on batched_large's problem, f32 and f64, one
+    150-iteration run_batched_chunk from a warmed-up state with FROZEN
+    members inactive, once through the fused halves and once through the
+    plain ones on the card: every state tensor and metric bitwise equal,
+    the frozen members' iterates unchanged.  Each half timed by graph
+    replay, fused and plain, beside its byte bound; the f64 chunk
+    profiled.  Returns {dtype tag: record}."""
+    from hprlp_tpu_torch.ops.spmm import spmm_x_half, spmm_y_half
+    from hprlp_tpu_torch.prof import prof_loop
+    from hprlp_tpu_torch.prof.problems import batched_lp
+    from hprlp_tpu_torch.prof.timing import half_bound
+    from hprlp_tpu_torch.solver import batched
+
+    arrays = batched_lp(65536, 131072, 64, seed=3)
+    records = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        loop = prof_loop.BatchedLoop(arrays, dtype)
+        loop.run(1)
+        lp, st = loop.lp, loop.state
+        B = st.x.shape[1]
+        active = torch.ones(B, dtype=torch.bool, device="cuda")
+        active[list(FROZEN)] = False
+        flag = torch.zeros(B, dtype=torch.bool, device="cuda")
+        args = (lp, loop.row_norm, loop.col_norm, st, loop.sigma, loop.lam,
+                flag, active, loop.check)
+        spmm_x_half.launches = spmm_y_half.launches = 0
+        fused = batched.run_batched_chunk(*args)
+        fused_launches = (spmm_x_half.launches, spmm_y_half.launches)
+        with swapped(batched, x_half=batched.x_half_plain,
+                     y_half=batched.y_half_plain):
+            plain = batched.run_batched_chunk(*args)
+        torch.cuda.synchronize()
+        (st_f, m_f), (st_p, m_p) = fused, plain
+        fields = ("x", "y", "last_x", "last_y", "x_bar", "y_bar", "z_bar",
+                  "y_obj", "inner")
+        differ = [k for k in fields
+                  if not torch.equal(getattr(st_f, k), getattr(st_p, k))]
+        differ += [k for k in m_f if not torch.equal(m_f[k], m_p[k])]
+        frozen = list(FROZEN)
+        moved = [k for k in ("x", "y")
+                 if not torch.equal(getattr(st_f, k)[:, frozen],
+                                    getattr(st, k)[:, frozen])]
+        max_diff = max(float((getattr(st_f, k) - getattr(st_p, k)).abs()
+                             .max()) for k in ("x", "y"))
+
+        # Each middle half alone, at the warmed-up state.
+        sigma = loop.sigma.to(dtype)[None, :]
+        lam_sigma = loop.lam.to(dtype) * sigma
+        x, y, inner = st.x, st.y, st.inner
+        x_hat = batched.x_half(lp, x, y, st.last_x, sigma, inner, 0,
+                               active)[1]
+        halves = {
+            "x": (lambda: batched.x_half(lp, x, y, st.last_x, sigma, inner,
+                                         0, active),
+                  lambda: batched.x_half_plain(lp, x, y, st.last_x, sigma,
+                                               inner, 0, active),
+                  half_bound(lp.AT, dtype, B, "x")),
+            "y": (lambda: batched.y_half(lp, y, x_hat, st.last_y, lam_sigma,
+                                         inner, 0, active),
+                  lambda: batched.y_half_plain(lp, y, x_hat, st.last_y,
+                                               lam_sigma, inner, 0, active),
+                  half_bound(lp.A, dtype, B, "y"))}
+        rec = {"fused_launches": fused_launches, "differ": differ,
+               "max_abs_err": max_diff, "frozen_moved": moved}
+        for half, (fused_fn, plain_fn, (bound_ms, bound_by)) in \
+                halves.items():
+            rec[half] = {"ms": time_ms(fused_fn),
+                         "eager_ms": eager_ms(fused_fn),
+                         "plain_ms": time_ms(plain_fn, reps=10),
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+            r = rec[half]
+            phase(9, f"fused {half}-half {tag} B={B}: {r['ms']:.5f} ms "
+                     f"({bound_ms / r['ms']:.1%} of bound {bound_ms:.5f} "
+                     f"ms, {bound_by}), eager {r['eager_ms']:.5f} ms; plain "
+                     f"ops {r['plain_ms']:.5f} ms (graph replay) [{card}]")
+        phase(9, f"fused chunk {tag}: {loop.check} iterations, members "
+                 f"{frozen} frozen, fused launches x/y {fused_launches}; "
+                 f"fields differing from the plain halves: {differ or 'none'}"
+                 f" (max |diff| {max_diff:.3e}); frozen iterates moved: "
+                 f"{moved or 'none'} [{card}]")
+        if tag == "f64":
+            prof = prof_loop.profile(loop, prof_loop.SPMM_KERNELS, chunks=1)
+            rec["profile"] = {k: prof[k] for k in (
+                "its", "wall_us", "device_us", "busy", "kernels",
+                "product_us", "product_share")}
+            phase(9, f"batched_large f64 profile of one chunk: "
+                     f"{prof['its']:.1f} it/s unprofiled; wall "
+                     f"{prof['wall_us']:.1f} us/it, device "
+                     f"{prof['device_us']:.1f} us/it, busy share "
+                     f"{prof['busy']:.3f}, {prof['kernels']:.1f} kernels/it"
+                     f", SpMM and fused halves {prof['product_us']:.1f} "
+                     f"us/it ({prof['product_share']:.1%}) [{card}]")
+        records[tag] = rec
+        middle = loop.check - 2
+        del loop, fused, plain
+        check(fused_launches == (middle, middle), f"phase 9: the fused "
+              f"chunk launched the halves {fused_launches} times, not "
+              f"{middle} each")
+        check(not differ, f"phase 9: fused and plain chunks differ ({tag}) "
+              f"in {differ}")
+        check(not moved, f"phase 9: frozen members moved ({tag}): {moved}")
+    return records
 
 
 def main():
@@ -753,6 +983,7 @@ def main():
 
     prob4 = random_lp(65536, 131072, 20, seed=2)
     prob6 = random_lp(262144, 524288, 40, seed=4)
+    row_sums = repair_checks(card, prob4)
     rec = kernel_check(card, {"bench": prob4, "huge": prob6})
     for mat in ("A", "AT"):
         r = rec["huge", "f32", mat]
@@ -760,13 +991,18 @@ def main():
               f"({r['ms']} ms) is not faster than the CSR kernel "
               f"({r['csr_ms']} ms) at sparse_huge {mat} f32")
 
-    res4, kkt4, l32a = run_solve(
-        4, prob4,
-        Parameters(stop_tol=1e-4, verbose=False, max_iter=100_000), card)
+    params4 = Parameters(stop_tol=1e-4, verbose=False, max_iter=100_000)
+    res4, kkt4, l32a, s4 = run_solve(4, prob4, params4, card)
     check(kkt4 < 1e-3, f"phase 4: host f64 KKT {kkt4}")
+    again, _, _, _ = run_solve(4, prob4, params4, card)
+    phase(0, f"phase 4's f32 solve run twice: iterations {res4.iter} and "
+             f"{again.iter}, objectives {res4.primal_obj!r} and "
+             f"{again.primal_obj!r} [{card}]")
+    check(again.iter == res4.iter and again.primal_obj == res4.primal_obj,
+          "phase 0: phase 4's f32 solve is not bitwise repeatable")
 
     prob5 = assignment_problem(64)
-    res5, _, l64 = run_solve(5, prob5, Parameters(
+    res5, _, l64, s5 = run_solve(5, prob5, Parameters(
         stop_tol=1e-8, verbose=False, max_iter=100_000), card)
     from scipy.optimize import linear_sum_assignment
 
@@ -777,21 +1013,24 @@ def main():
     phase(5, f"linear_sum_assignment={exact:.10e} rel_err={rel:.3e}")
     check(rel < 1e-6, f"phase 5: objective off by {rel}")
 
-    res6, kkt6, l32b = run_solve(
+    res6, kkt6, l32b, s6 = run_solve(
         6, prob6, Parameters(stop_tol=1e-4, verbose=False, max_iter=50_000),
         card)
     check(kkt6 < 1e-3, f"phase 6: host f64 KKT {kkt6}")
 
     variant_records = variants_phase(card, built, prob6)
 
-    l8, mps_record = mps_phase(card, MPS_SCALE)
+    l8, s8, mps_record = mps_phase(card, MPS_SCALE)
 
-    lib, secs, _ = built[spmm_mod.SOURCE]
-    phase(9, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s")
+    for src in (spmm_mod.SOURCE, spmm_mod.ROWWISE_SOURCE):
+        lib, secs, _ = built[src]
+        phase(9, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s")
     for line in ptxas_summary(built[spmm_mod.SOURCE][2]):
         phase(9, f"ptxas {line}")
     spmm_rec = spmm_check(card, prob4)
-    l9, l9_tiled, batched_record = batched_phase(card)
+    l9, batched_record = batched_phase(card, row_sums)
+    l9_tiled = l9["tiled_spmv"]
+    fused_rec = fused_phase(card)
 
     def shapes(tag, keys):
         return {f"{size}_{mat}": {k: rec[size, tag, mat][k] for k in keys}
@@ -843,22 +1082,53 @@ def main():
     kernels[0]["mps_presolve"] = mps_record
     kernels += variant_records
     head = spmm_rec["f32", "A", 64]
-    kernels.append({
-        "name": "csr_spmm", "route": "cuda",
-        "source": os.path.relpath(spmm_mod.SOURCE, HERE),
+    spmm_common = {
+        "route": "cuda", "source": os.path.relpath(spmm_mod.SOURCE, HERE),
         "replaces": "hprlp_tpu/ops/sparse.py:594",
-        "note": "no Pallas kernel in the JAX package: spmm is an XLA "
-                "gather einsum; headline shape f32 A B=64",
-        "launches": l9, "launches_by_phase": {"9": l9},
         "max_abs_err": max(r["max_abs_err"] for r in spmm_rec.values()),
         "max_err_rel_abs_ax": max(r["err"] for r in spmm_rec.values()),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"]}
+    spmm_by_phase = {"4": s4, "5": s5, "6": s6, "8": s8, "9": l9["csr_spmm"]}
+    kernels.append({
+        "name": "csr_spmm", **spmm_common,
+        "note": "no Pallas kernel in the JAX package: spmm is an XLA "
+                "gather einsum; headline shape f32 A B=64; phases 4-8 "
+                "launch it for the scaling's row sums (B=1)",
+        "launches": sum(spmm_by_phase.values()),
+        "launches_by_phase": spmm_by_phase,
+        "ms": head["ms"],
         "shapes": {f"{tag}_{mat}_B{b}": {k: r[k] for k in (
-            "nnz", "ms", "plain_ms", "library_ms", "bound_ms", "err",
-            "plan")} for (tag, mat, b), r in spmm_rec.items()},
+            "nnz", "ms", "prev_ms", "uncapped_ms", "plain_ms", "library_ms",
+            "bound_ms", "err", "plan", "prev_plan")}
+            for (tag, mat, b), r in spmm_rec.items()},
         "batched": batched_record})
+    kernels.append({
+        "name": "csr_spmm_rowwise", **spmm_common,
+        "source": os.path.relpath(spmm_mod.ROWWISE_SOURCE, HERE),
+        "previous_design": "succeeded in the solver by csr_spmm; timed in "
+                           "phase 9 (a) only",
+        "launches": l9["csr_spmm_rowwise"], "ms": head["prev_ms"]})
+    for half, matrix in (("x", "A^T"), ("y", "A")):
+        r32, r64 = fused_rec["f32"][half], fused_rec["f64"][half]
+        kernels.append({
+            "name": f"spmm_{half}_half", "route": "cuda",
+            "source": os.path.relpath(spmm_mod.SOURCE, HERE),
+            "replaces": "hprlp_tpu/solver/batched.py:" + (
+                "77" if half == "x" else "85"),
+            "note": f"the middle iteration's {half}-half fused into the "
+                    f"SpMM over {matrix}'s rows; no Pallas kernel in the "
+                    f"JAX package (XLA fuses it); batched_large B=64 f32, "
+                    f"plain_ms the plain ops by graph replay",
+            "launches": l9[f"spmm_{half}_half"],
+            "max_abs_err": max(fused_rec[t]["max_abs_err"]
+                               for t in fused_rec),
+            "ms": r32["ms"], "plain_ms": r32["plain_ms"],
+            "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
+            "library_ms": None, "f64": r64})
+    kernels[-1]["chunks"] = {t: {k: v for k, v in r.items()
+                                 if k not in ("x", "y")}
+                             for t, r in fused_rec.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

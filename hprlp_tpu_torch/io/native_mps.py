@@ -7,15 +7,48 @@ reference in tests.
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
 import scipy.sparse as sp
 
 from ..native import get_lib
 from ..problem import LpProblem
 
+# The native reader loads a file of at least this many bytes whole
+# (native/src/mps_reader.cpp, "memory mode") and parses it as text.
+MEMORY_MODE_ENV = "HPRLP_MPS_PARALLEL_MIN_BYTES"
+
 
 def is_available() -> bool:
     return get_lib() is not None
+
+
+@contextlib.contextmanager
+def _stream_mode_for_misnamed_gzip(path: str):
+    """The native reader tells gzip by a ".gz" suffix alone before it
+    picks memory mode, which would parse a gzip file under another name as
+    text; its stream mode (zlib) reads both.  For a file that starts with
+    gzip's magic 1f 8b but lacks the suffix, raise the memory-mode
+    threshold above its size for the call, and restore it after."""
+    try:
+        with open(path, "rb") as f:
+            gzip_magic = f.read(2) == b"\x1f\x8b"
+    except OSError:  # the native reader reports the error
+        gzip_magic = False
+    if not gzip_magic or path.endswith(".gz"):
+        yield
+        return
+    old = os.environ.get(MEMORY_MODE_ENV)
+    os.environ[MEMORY_MODE_ENV] = str(os.path.getsize(path) + 1)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[MEMORY_MODE_ENV]
+        else:
+            os.environ[MEMORY_MODE_ENV] = old
 
 
 def read_mps_native(path: str, apply_objsense: bool = True,
@@ -35,8 +68,9 @@ def read_mps_native(path: str, apply_objsense: bool = True,
     lib = get_lib()
     if lib is None:
         raise RuntimeError("native library unavailable; use io.mps.read_mps")
-    h = lib.hpmps_read_ex(path.encode(), 1 if ignore_quadobj else 0,
-                          1 if mps_format == "fixed" else 0)
+    with _stream_mode_for_misnamed_gzip(path):
+        h = lib.hpmps_read_ex(path.encode(), 1 if ignore_quadobj else 0,
+                              1 if mps_format == "fixed" else 0)
     try:
         st = lib.hpmps_status(h)
         if st != 0:

@@ -132,8 +132,21 @@ def spmm(A: CsrMatrix, X: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported device {X.device}")
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
 def _row_reduce(A: CsrMatrix, per_entry: torch.Tensor, reduce: str
                 ) -> torch.Tensor:
+    """Per-row "sum" or "amax" of a per-entry value.  On the card a sum
+    runs on the SpMM kernel against a column of ones, which adds each row
+    in CSR order, so it is bitwise repeatable; scatter_reduce_ sums by
+    atomics there, in an order that changes from run to run.  A max does
+    not depend on the order, and the CPU keeps scatter_reduce_."""
+    if reduce == "sum" and _on_card(per_entry):
+        ones = torch.ones((A.ncols, 1), dtype=per_entry.dtype,
+                          device=per_entry.device)
+        return csr_spmm(A.with_vals(per_entry), ones).view(A.nrows)
     out = torch.zeros(A.nrows, dtype=per_entry.dtype, device=per_entry.device)
     return out.scatter_reduce_(0, row_of_entry(A), per_entry, reduce=reduce,
                                include_self=True)

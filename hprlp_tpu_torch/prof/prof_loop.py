@@ -47,6 +47,7 @@ BATCHED_SIZES = {"large": lambda B: batched_lp(65536, 131072, B, seed=3),
                  "huge": lambda B: batched_lp(262144, 524288, B, seed=4)}
 CHUNKS = 2
 SPMV_KERNELS = ("tiled_spmv_kernel", "group_sum_kernel")
+# The SpMM kernel, with or without a fused half-update (csrc/spmm.cu).
 SPMM_KERNELS = ("csr_spmm_kernel",)
 
 

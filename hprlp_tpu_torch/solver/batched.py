@@ -5,8 +5,10 @@ Port of hprlp_tpu/solver/batched.py (reference: src/batched_solver.cu:
 (m_pad, B) device tensors, row-major, so one row of an iterate holds the B
 members' values contiguously; SpMV becomes SpMM over the batch axis
 (ops/sparse.spmm: the hand-written CSR kernel of csrc/spmm.cu on the card,
-or a dense product); per-member sigma, Halpern counters and restart state
-are (B,) tensors; converged members are frozen with an active mask.
+or a dense product), and a middle iteration's two half-updates run fused
+into that kernel's row write on the card (x_half, y_half); per-member
+sigma, Halpern counters and restart state are (B,) tensors; converged
+members are frozen with an active mask.
 
 Differences from the single-LP path, matching the reference:
   * presolve is not applied (reference :953-955);
@@ -30,6 +32,7 @@ from ..constants import DENSE_BYTES_LIMIT_BATCHED
 from ..ops.device_problem import (HostMaps, LpDevice, attach_tiles,
                                   build_device_problem)
 from ..ops.sparse import CsrMatrix, spmm, with_backend
+from ..ops.spmm import spmm_x_half, spmm_y_half
 from ..ops.tiles import build_tiles
 from ..params import Parameters
 from ..problem import LpProblem, _normalize_inf
@@ -99,6 +102,55 @@ def _by_half(lp, y, x_hat, last_y, lam_sigma, f1, f2):
     y_bar = d / lam_sigma
     y_hat = 2.0 * y_bar - y
     return f2 * y_hat + f1 * last_y, y_bar, v + d
+
+
+def x_half_plain(lp, x, y, last_x, sigma, inner, t: int, active):
+    """A middle iteration's x-half in plain PyTorch: _bx_half, then the
+    frozen members' x kept.  sigma: (1, B); inner: (B,) int32, the Halpern
+    counters at the first middle iteration; t: this iteration's index
+    among them (an active member's counter has advanced by t); active:
+    (B,) bool.  Returns (x_new, x_hat)."""
+    f1, f2 = _bfactors(torch.where(active, inner + t, inner), x.dtype)
+    x_new, x_hat, _, _ = _bx_half(lp, x, y, last_x, sigma, f1, f2)
+    return torch.where(active[None, :], x_new, x), x_hat
+
+
+def y_half_plain(lp, y, x_hat, last_y, lam_sigma, inner, t: int, active):
+    """A middle iteration's y-half in plain PyTorch: _by_half, then the
+    frozen members' y kept; arguments as for x_half_plain, lam_sigma
+    (1, B).  Returns y_new."""
+    f1, f2 = _bfactors(torch.where(active, inner + t, inner), y.dtype)
+    y_new, _, _ = _by_half(lp, y, x_hat, last_y, lam_sigma, f1, f2)
+    return torch.where(active[None, :], y_new, y)
+
+
+def _fused(M: CsrMatrix, v: torch.Tensor) -> bool:
+    """The rule of ops/sparse.spmm: a dense copy keeps the plain ops around
+    torch.matmul; else a CUDA tensor goes to the fused kernel (which raises
+    on failure) and a CPU tensor to the plain version."""
+    if M.dense is None and v.device.type == "cuda":
+        return True
+    if M.dense is not None or v.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {v.device}")
+
+
+def x_half(lp, x, y, last_x, sigma, inner, t: int, active):
+    """x_half_plain, fused into A^T y's row write on the card
+    (ops/spmm.spmm_x_half)."""
+    if _fused(lp.AT, x):
+        return spmm_x_half(lp.AT, y, x, last_x, lp.c, lp.l, lp.u,
+                           sigma.reshape(-1), inner, active, t)
+    return x_half_plain(lp, x, y, last_x, sigma, inner, t, active)
+
+
+def y_half(lp, y, x_hat, last_y, lam_sigma, inner, t: int, active):
+    """y_half_plain, fused into A x_hat's row write on the card
+    (ops/spmm.spmm_y_half)."""
+    if _fused(lp.A, y):
+        return spmm_y_half(lp.A, x_hat, y, last_y, lp.AL, lp.AU,
+                           lam_sigma.reshape(-1), inner, active, t)
+    return y_half_plain(lp, y, x_hat, last_y, lam_sigma, inner, t, active)
 
 
 def _bgap_parts(lp, dx, dy):
@@ -172,14 +224,13 @@ def run_batched_chunk(lp: BatchedLpDevice, row_norm, col_norm,
     x1, y1 = freeze(x1, x), freeze(y1, y)
     inner = torch.where(active, inner + 1, inner)
 
-    # Middle iterations: plain updates.
+    # Middle iterations: plain updates, each half fused into its SpMM on
+    # the card; the Halpern counters advance by one per iteration.
     x2, y2 = x1, y1
-    for _ in range(1, n_iters - 1):
-        f1, f2 = _bfactors(inner, dtype)
-        x_new, x_hat, _, _ = _bx_half(lp, x2, y2, last_x, sigma, f1, f2)
-        y_new, _, _ = _by_half(lp, y2, x_hat, last_y, lam_sigma, f1, f2)
-        x2, y2 = freeze(x_new, x2), freeze(y_new, y2)
-        inner = torch.where(active, inner + 1, inner)
+    for t in range(n_iters - 2):
+        x2, x_hat = x_half(lp, x2, y2, last_x, sigma, inner, t, active)
+        y2 = y_half(lp, y2, x_hat, last_y, lam_sigma, inner, t, active)
+    inner = torch.where(active, inner + (n_iters - 2), inner)
 
     # Final iteration (check-style) + per-member residuals.
     f1, f2 = _bfactors(inner, dtype)

@@ -482,3 +482,112 @@ def test_failing_kernel_raises_through_the_solve(monkeypatch):
             ht.solve_batched(*args, params=quiet(), device="cpu")
     finally:
         spmm_mod._library.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# The middle iteration's halves (fused on the card, plain here)
+# ---------------------------------------------------------------------------
+
+ACTIVE = np.array([True, False, True, True, False])
+
+
+@pytest.mark.parametrize("t", [0, 7])
+def test_plain_halves_match_jax_halves_and_freeze(pair, t):
+    """x_half_plain / y_half_plain against JAX's _bx_half / _by_half and
+    the freeze of its fori_loop body (hprlp_tpu/solver/batched.py:162-168),
+    with the Halpern counters advanced by t for active members, f64, to
+    1e-12; frozen members keep x and y bit for bit."""
+    lp_j, lp_t, _, state = pair
+    sigma = np.array([0.7, 1.3, 0.2, 4.0, 1.0])
+    lam_sigma = 3.1 * sigma
+    inner = state["inner"]
+    f1, f2 = jb._bfactors(jnp.asarray(np.where(ACTIVE, inner + t, inner)),
+                          jnp.float64)
+    x_new, x_hat, _, _ = jb._bx_half(
+        lp_j, *(jnp.asarray(state[k]) for k in ("x", "y", "last_x")),
+        jnp.asarray(sigma)[None, :], f1, f2)
+    y_new, _, _ = jb._by_half(lp_j, jnp.asarray(state["y"]), x_hat,
+                              jnp.asarray(state["last_y"]),
+                              jnp.asarray(lam_sigma)[None, :], f1, f2)
+    keep = ACTIVE[None, :]
+    want_x = np.where(keep, np.asarray(x_new), state["x"])
+    want_y = np.where(keep, np.asarray(y_new), state["y"])
+
+    tt = {k: torch.as_tensor(v) for k, v in state.items()}
+    active = torch.as_tensor(ACTIVE)
+    got_x, got_hat = tb.x_half_plain(
+        lp_t, tt["x"], tt["y"], tt["last_x"],
+        torch.as_tensor(sigma)[None, :], tt["inner"], t, active)
+    got_y = tb.y_half_plain(lp_t, tt["y"], got_hat, tt["last_y"],
+                            torch.as_tensor(lam_sigma)[None, :], tt["inner"],
+                            t, active)
+    _close(got_hat.numpy(), np.asarray(x_hat), 1e-12, "x_hat")
+    _close(got_x.numpy(), want_x, 1e-12, "x")
+    _close(got_y.numpy(), want_y, 1e-12, "y")
+    for got, old in ((got_x, tt["x"]), (got_y, tt["y"])):
+        assert torch.equal(got[:, ~active], old[:, ~active])
+
+
+def test_halves_dispatch_to_the_plain_version_on_the_cpu(pair, monkeypatch):
+    """A CPU tensor goes to the plain halves, bitwise; a dense copy too,
+    whatever the device; the fused kernels' wrappers are never called."""
+    def no_kernel(*a, **k):
+        raise AssertionError("the fused kernel was called on the CPU")
+
+    monkeypatch.setattr(tb, "spmm_x_half", no_kernel)
+    monkeypatch.setattr(tb, "spmm_y_half", no_kernel)
+    _, lp_t, _, state = pair
+    tt = {k: torch.as_tensor(v) for k, v in state.items()}
+    sigma = torch.full((1, B), 0.9, dtype=F64)
+    active = torch.as_tensor(ACTIVE)
+    dense = dataclasses.replace(lp_t, A=sparse.with_backend(lp_t.A, "dense"),
+                                AT=sparse.with_backend(lp_t.AT, "dense"))
+    for lp in (lp_t, dense):
+        xs = tb.x_half(lp, tt["x"], tt["y"], tt["last_x"], sigma,
+                       tt["inner"], 3, active)
+        want = tb.x_half_plain(lp_t, tt["x"], tt["y"], tt["last_x"], sigma,
+                               tt["inner"], 3, active)
+        for got, ref in zip(xs, want):
+            _close(got.numpy(), ref.numpy(), 1e-13, "x")
+        ys = tb.y_half(lp, tt["y"], xs[1], tt["last_y"], sigma * 3.0,
+                       tt["inner"], 3, active)
+        _close(ys.numpy(), tb.y_half_plain(
+            lp_t, tt["y"], xs[1], tt["last_y"], sigma * 3.0, tt["inner"], 3,
+            active).numpy(), 1e-13, "y")
+    assert torch.equal(tb.x_half(lp_t, tt["x"], tt["y"], tt["last_x"], sigma,
+                                 tt["inner"], 3, active)[0],
+                       tb.x_half_plain(lp_t, tt["x"], tt["y"], tt["last_x"],
+                                       sigma, tt["inner"], 3, active)[0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tb.x_half(lp_t, tt["x"].to("meta"), tt["y"], tt["last_x"], sigma,
+                  tt["inner"], 3, active)
+
+
+def test_failing_fused_kernel_raises_and_does_not_fall_back(pair,
+                                                            monkeypatch):
+    """Where the halves go to the fused kernel (the device check stood in
+    for here), a kernel that does not build raises from run_batched_chunk;
+    the plain halves are never run in its place."""
+    def no_build(source=None, ptxas_log=None):
+        raise RuntimeError("nvcc failed (1): stand-in")
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain halves")
+
+    monkeypatch.setattr(spmm_mod, "build", no_build)
+    monkeypatch.setattr(spmm_mod, "check_half_args", lambda *a: None)
+    monkeypatch.setattr(tb, "_fused", lambda M, v: True)
+    monkeypatch.setattr(tb, "x_half_plain", no_plain)
+    monkeypatch.setattr(tb, "y_half_plain", no_plain)
+    spmm_mod._library.cache_clear()
+    _, lp_t, (rn, cn), state = pair
+    _, st = _states(state)
+    one = torch.ones(B, dtype=F64)
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            tb.run_batched_chunk(lp_t, torch.as_tensor(rn),
+                                 torch.as_tensor(cn), st, one, one * 3.0,
+                                 torch.zeros(B, dtype=torch.bool),
+                                 torch.as_tensor(ACTIVE), 5)
+    finally:
+        spmm_mod._library.cache_clear()

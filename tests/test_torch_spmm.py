@@ -173,3 +173,155 @@ def test_byte_bound_counts_b_columns():
         timing.spmv_bytes(Shape, torch.float32)
     ms, by = timing.spmv_bound(Shape, torch.float32, 64)
     assert by == "bytes" and ms == pytest.approx(61_078_900 / 3.35e9)
+
+
+# ---------------------------------------------------------------------------
+# The solver design's launch plan and the fused halves' wrappers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("ncols", [16, 65536, 131072, 524288, 2**24])
+@pytest.mark.parametrize("B", [1, 3, 8, 33, 64, 100, 256, 1000])
+def test_plan_caps_each_slice_under_the_l2_budget(B, ncols, itemsize):
+    """A slice's window of X (ncols x G x V x itemsize) stays within
+    L2_BUDGET unless one group of one lane is already wider; G is the
+    widest group that does, or covers B, or is a warp; the slices cover
+    B; the loads are as wide as B and the alignment allow."""
+    for address in (0, itemsize, 16, 512):
+        G, V, n_slices = spmm_plan(B, itemsize, address, ncols)
+        assert (G, V, n_slices)[1] == spmm_plan(B, itemsize, address)[1]
+        assert G in (1, 2, 4, 8, 16, 32)
+        window = ncols * G * V * itemsize
+        assert window <= spmm_mod.L2_BUDGET or G == 1
+        assert G == 32 or G * V >= B or 2 * window > spmm_mod.L2_BUDGET
+        assert n_slices * G * V >= B > (n_slices - 1) * G * V
+
+
+def test_plan_at_sparse_large():
+    """sparse_large's A (131,072 columns): 64 f32 or 32 f64 columns a
+    slice, so B = 256 runs in 4 or 8 slices; its A^T (65,536 columns)
+    takes 128 f32 or 64 f64 columns."""
+    assert spmm_plan(64, 4, 0, 131072) == (16, 4, 1)
+    assert spmm_plan(256, 4, 0, 131072) == (16, 4, 4)
+    assert spmm_plan(64, 8, 0, 131072) == (16, 2, 2)
+    assert spmm_plan(256, 8, 0, 131072) == (16, 2, 8)
+    assert spmm_plan(256, 4, 0, 65536) == (32, 4, 2)
+    assert spmm_plan(256, 8, 0, 65536) == (32, 2, 4)
+    assert spmm_plan(8, 4, 0, 131072) == (2, 4, 1)
+    assert spmm_plan(1, 8, 0, 131072) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("nrows", [1, 15, 16, 17, 255, 256, 257, 65536])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32])
+def test_grid_runs_the_slices_one_after_another(nrows, G):
+    """The grid is (row blocks, slices): blocks start rows fastest, so all
+    of one slice's rows are in flight before the next slice's; a block of
+    BLOCK threads owns BLOCK // G consecutive rows, and the blocks cover
+    every row once."""
+    for n_slices in (1, 3):
+        gx, gy = spmm_mod.spmm_grid(nrows, G, n_slices)
+        assert gy == n_slices
+        per_block = spmm_mod.BLOCK // G
+        assert gx * per_block >= nrows > (gx - 1) * per_block
+
+
+def test_launch_plan_is_cached_per_shape_dtype_and_alignment():
+    """(G, V, grid_x, n_slices) per shape, dtype and alignment."""
+    plan = spmm_mod._launch_plan
+    a = plan(65536, 131072, 64, 4, 0)
+    assert a == (16, 4, 65536 // (spmm_mod.BLOCK // 16), 1)
+    assert plan(65536, 131072, 64, 4, 0) is a
+    assert plan(65536, 131072, 64, 4, 4)[1] == 1
+
+
+@pytest.mark.parametrize("wrapper, library, source", [
+    ("csr_spmm", "_library", "SOURCE"),
+    ("csr_spmm_rowwise", "_rowwise_library", "ROWWISE_SOURCE")])
+def test_each_design_builds_only_its_own_source(monkeypatch, wrapper,
+                                                library, source):
+    """The solver's kernels and the previous design are separate
+    libraries: a solve builds only csrc/spmm.cu, and the previous design
+    only csrc/spmm_rowwise.cu."""
+    built = []
+
+    def no_build(src=None, ptxas_log=None):
+        built.append(src)
+        raise RuntimeError("nvcc failed (1): stand-in")
+
+    monkeypatch.setattr(spmm_mod, "build", no_build)
+    monkeypatch.setattr(spmm_mod, "check_spmm_args", lambda A, X: None)
+    getattr(spmm_mod, library).cache_clear()
+    M = csr_from_coo([0], [0], [1.0], 4, 4, torch.float32, "cpu")
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            getattr(spmm_mod, wrapper)(M, torch.ones(4, 2))
+    finally:
+        getattr(spmm_mod, library).cache_clear()
+    assert built == [getattr(spmm_mod, source)]
+    assert spmm_mod.SOURCE != spmm_mod.ROWWISE_SOURCE
+
+
+def _half_inputs(n=6, m=4, B=3, dtype=torch.float32, device="cpu"):
+    M = csr_from_coo([0, 1, 2, 3], [0, 1, 2, 3], [1.0] * 4, n, m, dtype,
+                     device)
+    rows = {k: torch.ones(n, B, dtype=dtype, device=device)
+            for k in ("x", "last_x", "c", "l", "u")}
+    y = torch.ones(m, B, dtype=dtype, device=device)
+    return (M, y, *rows.values(), torch.ones(B, dtype=dtype, device=device),
+            torch.zeros(B, dtype=torch.int32, device=device),
+            torch.ones(B, dtype=torch.bool, device=device), 0)
+
+
+def test_fused_wrappers_refuse_cpu_tensors_and_bad_arguments(monkeypatch):
+    """No hidden fallback: the fused halves take only CUDA tensors; past
+    the device check (stood in for here), a wrong shape, dtype or length
+    raises."""
+    args = _half_inputs()
+    with pytest.raises(ValueError, match="CUDA"):
+        spmm_mod.spmm_x_half(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmm_mod.spmm_y_half(*args[:6], *args[7:])
+    monkeypatch.setattr(spmm_mod, "check_csr_matrix", lambda A, X: None)
+    M, y, x, last_x, c, l, u, sigma, inner, active, _ = args
+
+    def check(**kw):
+        rows = {"x": x, "last_x": last_x, "c": c, "l": l, "u": u}
+        rows.update({k: v for k, v in kw.items() if k in rows})
+        spmm_mod.check_half_args(M, kw.get("y", y), rows,
+                                 kw.get("sigma", sigma),
+                                 kw.get("inner", inner),
+                                 kw.get("active", active))
+
+    check()
+    for kw, err in (({"x": x[:, :2].contiguous()}, ValueError),
+                    ({"last_x": x.t()}, ValueError),
+                    ({"u": u.double()}, TypeError),
+                    ({"sigma": sigma[:2]}, ValueError),
+                    ({"inner": inner.long()}, TypeError),
+                    ({"active": active.int()}, TypeError),
+                    ({"y": y[:3]}, ValueError)):
+        with pytest.raises(err):
+            check(**kw)
+
+
+@pytest.mark.parametrize("half", ["x", "y"])
+def test_failed_build_of_the_fused_halves_raises(monkeypatch, half):
+    """A fused half whose kernel does not build raises from its wrapper,
+    and its launch count stays."""
+    def no_build(source=None, ptxas_log=None):
+        raise RuntimeError("nvcc failed (1): stand-in")
+
+    monkeypatch.setattr(spmm_mod, "build", no_build)
+    monkeypatch.setattr(spmm_mod, "check_half_args", lambda *a: None)
+    spmm_mod._library.cache_clear()
+    M, y, x, last_x, c, l, u, sigma, inner, active, t = _half_inputs()
+    fn = spmm_mod.spmm_x_half if half == "x" else spmm_mod.spmm_y_half
+    args = ((M, y, x, last_x, c, l, u, sigma, inner, active, t)
+            if half == "x" else (M, x, y, y, y, y, sigma, inner, active, t))
+    before = fn.launches
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fn(*args)
+    finally:
+        spmm_mod._library.cache_clear()
+    assert fn.launches == before

@@ -1,4 +1,5 @@
-"""The CUDA SpMM kernel (csrc/spmm.cu) and the batched solve on the card.
+"""The CUDA SpMM kernels (csrc/spmm.cu: the solver's design and the
+previous, row-wise one) and the batched solve on the card.
 
 Every test here needs a CUDA device (the kernel has no CPU mode) and skips
 without one.  The file imports neither JAX nor the JAX package, so that it
@@ -19,7 +20,9 @@ import torch
 import hprlp_tpu_torch as ht
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
 from hprlp_tpu_torch.ops.sparse import spmm, with_backend
-from hprlp_tpu_torch.ops.spmm import csr_spmm, spmm_plan, spmm_reference
+from hprlp_tpu_torch.ops import spmm as spmm_mod
+from hprlp_tpu_torch.ops.spmm import (csr_spmm, csr_spmm_rowwise, spmm_grid,
+                                      spmm_plan, spmm_reference)
 from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
 
 pytestmark = pytest.mark.gpu
@@ -98,6 +101,28 @@ def test_dense_backend_matches_kernel(cuda):
     Y = spmm(with_backend(M, "dense"), X)
     assert csr_spmm.launches == before
     assert _err(Y, csr_spmm(M, X), M, X) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", BATCHES)
+def test_new_design_equals_the_previous_bitwise(cuda, B, dtype):
+    """Both designs sum each output in CSR order, one fma an entry: the
+    same bits, whatever the slices; other plans of the solver's design
+    (one-lane groups, so many slices, or no L2 cap) change nothing
+    either."""
+    M = _port(dtype, cuda)
+    X = torch.as_tensor(np.random.default_rng(B + 1).normal(
+        size=(N_COLS, B)), device=cuda).to(dtype)
+    before = csr_spmm_rowwise.launches
+    Y = csr_spmm(M, X)
+    assert torch.equal(Y, csr_spmm_rowwise(M, X))
+    assert csr_spmm_rowwise.launches == before + 1
+    G, V, n_slices = spmm_plan(B, X.element_size(), X.data_ptr())
+    for g, s in ((1, -(-B // V)), (G, n_slices)):
+        Y_other = torch.empty_like(Y)
+        spmm_mod._launch(spmm_mod.STORE, M, X, Y_other,
+                         plan=(g, V, *spmm_grid(M_ROWS, g, s)))
+        assert torch.equal(Y, Y_other)
 
 
 def test_kernel_rejects_bad_arguments(cuda):
