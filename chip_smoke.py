@@ -6,7 +6,12 @@ Builds the kernels and the host library from the checkout's sources,
 holds each kernel against its plain PyTorch version at its path's shapes,
 drives the main path (hprlp_tpu_torch.solve) on three LPs, the SpMV
 variant studies, the CLI on an MPS file with presolve, then the batched
-solver (hprlp_tpu_torch.solve_batched):
+solver (hprlp_tpu_torch.solve_batched), the solve loops' CUDA graphs
+against their eager steps, and the SpMV backend autotune.  Every solve
+on the card replays its chunk boundary from a CUDA graph captured before
+its clock starts, and (single LP) runs the SpMV backend the autotune
+chose; a solve fails its phase unless it launched that backend's kernel
+and no other SpMV kernel (the probes' launches are counted apart):
 
   1. toolchain   nvidia-smi name/power limit, torch, CUDA, nvcc, Triton
   2. build       the four kernel libraries (nvcc, sm_90a, one process per
@@ -25,10 +30,13 @@ solver (hprlp_tpu_torch.solve_batched):
                  the tiled kernel's stages and of torch.mv on a sparse CSR
                  tensor (cuSPARSE, the library yardstick), the bound, and
                  the tiles' build time
-  4. main f32    solve of the first LP at stop_tol=1e-4 (auto -> f32)
+  4. main f32    solve of the first LP at stop_tol=1e-4 (auto -> f32),
+                 with the autotune's probe times and the graph's capture
+                 time
   5. main f64    assignment_problem(64) at 1e-8 (auto -> f64), objective
                  against scipy's linear_sum_assignment
-  6. real size   solve of the second LP (10.5M nnz) at 1e-4
+  6. real size   solve of the second LP (10.5M nnz) at 1e-4, and its peak
+                 device memory
   7. variants    the four prof_* studies (hprlp_tpu_torch/prof/) on the
                  bench LP (A, A^T) and on phase 6's LP (A), every variant
                  against its plain version and the exact ones against A @ x
@@ -68,6 +76,21 @@ solver (hprlp_tpu_torch.solve_batched):
                  fused halves and one through the plain halves, bitwise
                  equal; each half's time by graph replay, fused and
                  plain, beside its byte bound; the f64 chunk profiled
+ 10. graphs      at sparse_large f32 (1e-4), assignment64 f64 (1e-8) and
+                 batched_large f32 (1e-4): run_superchunk (or
+                 run_batched_superchunk) from the solve's starting point,
+                 eagerly and by the replays of a captured graph: the same
+                 chunks, bitwise-equal stacked tables and final state; the
+                 capture time, the host time per replay, it/s both ways,
+                 the busy share over replays (prof_loop), and phase 6's
+                 peak memory
+ 11. autotune    autotune_backends twice on sparse_large f32, sparse_large
+                 f64 and random_lp(4096, 8192, 128, seed=5) (1.56% dense):
+                 each candidate's probe time, the choice, whether the two
+                 choices agree; each LP solved with spmv_backend "gather"
+                 (and "dense" and "auto" where a dense copy is eligible) to
+                 OPTIMAL with host-f64 KKT < 1e-3, launching only its
+                 backend; cli.main --cusparse-spmv true on data/model.mps
 
 Any failure raises (exit code != 0).  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -253,32 +276,66 @@ def repair_checks(card, problem):
     return sums
 
 
-def run_solve(n, problem, params, card):
-    """One solve on the main path.  Returns (result, host f64 KKT, tiled
-    SpMV launches, SpMM launches: the scaling's row sums)."""
+def check_backend(n, backend, launches):
+    """Fail unless a solve on `backend` launched its SpMV kernel and no
+    other.  launches: {"tiled": tiled_spmv's, "gather": csr_spmv's}; a
+    dense product launches neither."""
+    for name, count in launches.items():
+        if name == backend:
+            check(count > 0, f"phase {n}: the {name} kernel was never "
+                  f"launched")
+        else:
+            check(count == 0, f"phase {n}: a solve on {backend} launched "
+                  f"the {name} kernel {count} times")
+
+
+def probe_text(rec):
+    """The autotune record as one phrase."""
+    if rec is None:
+        return "no probe"
+    return ("probes " + ", ".join(f"{k}={v * 1e3:.4f} ms"
+                                  for k, v in rec["seconds"].items())
+            + f" -> {rec['choice']}")
+
+
+def run_solve(n, problem, params, card, peak=False):
+    """One solve on the main path.  Returns (result, host f64 KKT, SpMV
+    launches by backend, SpMM launches: the scaling's row sums, peak
+    device bytes or None)."""
     import hprlp_tpu_torch as hp
     from hprlp_tpu_torch.ops.spmm import csr_spmm
     from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
+    from hprlp_tpu_torch.solver.autotune import autotune_backends
+    from hprlp_tpu_torch.solver.loop import solve_problem
 
     csr_spmv.launches = tiled_spmv.launches = csr_spmm.launches = 0
+    if peak:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     res = hp.solve(problem.A, problem.AL, problem.AU, problem.l, problem.u,
                    problem.c, params, obj_constant=problem.obj_constant)
-    launches, row_sums = tiled_spmv.launches, csr_spmm.launches
-    check(csr_spmv.launches == 0, f"phase {n}: the solve launched the CSR "
-          f"kernel {csr_spmv.launches} times")
+    peak_bytes = torch.cuda.max_memory_allocated() if peak else None
+    launches = {"tiled": tiled_spmv.launches, "gather": csr_spmv.launches}
+    row_sums = csr_spmm.launches
     kkt = problem.kkt_error(res.x, res.y, res.z)["kkt"]
     its = res.iter / res.time if res.time > 0 else float("nan")
+    probes = probe_text(autotune_backends.record)
     phase(n, f"{problem.name}: status={res.status} iter={res.iter} "
              f"setup={res.setup_time:.3f}s scaling={res.scaling_time:.3f}s "
-             f"power={res.power_time:.3f}s solve={res.time:.3f}s "
-             f"it/s={its:.1f} launches={launches} csr_spmm (row sums) "
-             f"{row_sums} primal_obj={res.primal_obj:.10e} kkt_f64={kkt:.3e} "
-             f"[{card}]")
-    check(launches > 0, f"phase {n}: the tiled kernel was never launched")
+             f"autotune={res.autotune_time:.3f}s ({probes}) "
+             f"power={res.power_time:.3f}s "
+             f"graph capture={solve_problem.capture_time:.3f}s "
+             f"solve={res.time:.3f}s it/s={its:.1f} "
+             f"backend={res.spmv_backend} launches={launches} csr_spmm "
+             f"(row sums) {row_sums} primal_obj={res.primal_obj:.10e} "
+             f"kkt_f64={kkt:.3e}"
+             + ("" if peak_bytes is None else
+                f" peak_memory={peak_bytes / 2**30:.3f} GiB") + f" [{card}]")
+    check_backend(n, res.spmv_backend, launches)
     check(row_sums > 0, f"phase {n}: the scaling's row sums never ran on "
           f"the SpMM kernel")
     check(res.status == "OPTIMAL", f"phase {n}: status {res.status}")
-    return res, kkt, launches, row_sums
+    return res, kkt, launches, row_sums, peak_bytes
 
 
 def build_kernels():
@@ -356,7 +413,7 @@ def mps_phase(card, scale, cli_extra=()):
     """Phase 8: structured_lp(scale) written as MPS, solved by
     cli.main (native reader, presolve, tiled-kernel solve, postsolve,
     original-space KKT, solution file), checked against a presolve-off
-    solve.  Returns (tiled_spmv launches during cli.main, csr_spmm
+    solve.  Returns (SpMV launches by backend during cli.main, csr_spmm
     launches there (the scaling's row sums), record)."""
     import hprlp_tpu_torch as hp
     from hprlp_tpu_torch import cli, native, presolve
@@ -418,8 +475,9 @@ def mps_phase(card, scale, cli_extra=()):
                  "cli_main": cli_s}
         phase(8, f"cli.main rc={rc} status={head['status']} "
                  f"iter={head['iter']} primal_obj={head['primal_obj']} "
-                 f"kkt_f64={kkt['kkt']:.3e} launches={launches} "
-                 f"csr_launches={csr_launches} csr_spmm (row sums) "
+                 f"kkt_f64={kkt['kkt']:.3e} backend={res.spmv_backend} "
+                 f"launches={launches} csr_launches={csr_launches} "
+                 f"autotune={res.autotune_time:.3f}s csr_spmm (row sums) "
                  f"{row_sums}; file {size} bytes; stage "
                  f"times (s): " + ", ".join(f"{k}={v:.3f}"
                                             for k, v in times.items())
@@ -457,16 +515,16 @@ def mps_phase(card, scale, cli_extra=()):
           f"{ref.status}")
     check(rel < 1e-3, f"phase 8: objective {obj} against {ref.primal_obj} "
           f"with presolve off")
-    check(csr_launches == 0, f"phase 8: cli.main launched the CSR kernel "
-          f"{csr_launches} times")
-    check(launches > 0, "phase 8: the tiled kernel was never launched")
+    by_backend = {"tiled": launches, "gather": csr_launches}
+    check_backend(8, res.spmv_backend, by_backend)
     check(row_sums > 0, "phase 8: the scaling's row sums never ran on the "
           "SpMM kernel")
     check(proc.returncode == 0 and "status=OPTIMAL" in proc.stdout,
           f"phase 8: python -m hprlp_tpu_torch.cli failed: {proc.stdout}"
           f"{proc.stderr[-2000:]}")
-    return launches, row_sums, {
+    return by_backend, row_sums, {
         "m": problem.m, "n": problem.n, "nnz": problem.nnz,
+        "spmv_backend": res.spmv_backend,
         "reduced": [reduced.m, reduced.n, reduced.nnz], "iter": res.iter,
         "iter_presolve_off": ref.iter, "kkt_f64": kkt["kkt"],
         "times_s": times}
@@ -715,7 +773,8 @@ def batched_phase(card, row_sums):
     n_opt = sum(s == "OPTIMAL" for s in res.status)
     phase(9, f"batched_large: {n_opt}/{B} OPTIMAL, iterations max "
              f"{res.iter.max()} mean {res.iter.mean():.1f}; setup="
-             f"{res.setup_time:.3f}s power={res.power_time:.3f}s solve="
+             f"{res.setup_time:.3f}s power={res.power_time:.3f}s graph "
+             f"capture={hp.solve_batched.capture_time:.3f}s solve="
              f"{res.solve_time:.3f}s time={res.time:.3f}s it/s={its:.1f} "
              f"(max iterations over solve time; {PREVIOUS_BATCHED_ITERS} "
              f"with the previous SpMM and unfused halves); host f64 KKT max "
@@ -954,6 +1013,193 @@ def fused_phase(card):
     return records
 
 
+def same_tables(a, b):
+    """The stacked keys whose chunk records differ bitwise."""
+    return [k for k in a if not np.array_equal(a[k], b[k])]
+
+
+def graph_phase(card, prob4, prob5, peak6):
+    """Phase 10: the single-LP loop at sparse_large f32 and assignment64
+    f64, and the batched loop at batched_large f32, from the solve's
+    starting point, eagerly and by graph replay.  Returns {cell: record}."""
+    from hprlp_tpu_torch.prof import prof_loop
+    from hprlp_tpu_torch.prof.problems import batched_lp
+    from hprlp_tpu_torch.solver.batched_device_loop import (
+        capture_batched_superchunk, run_batched_superchunk)
+    from hprlp_tpu_torch.solver.device_loop import (capture_superchunk,
+                                                    run_superchunk)
+    from hprlp_tpu_torch.params import Parameters
+
+    patience = Parameters().stall_recovery
+    records = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cells = (("sparse_large_f32", prob4, torch.float32, 1e-4, None),
+             ("assignment64_f64", prob5, torch.float64, 1e-8, None),
+             ("batched_large_f32", None, torch.float32, 1e-4,
+              batched_lp(65536, 131072, 64, seed=3)))
+    for cell, problem, dtype, tol, arrays in cells:
+        if arrays is None:
+            loop = prof_loop.Loop(problem, dtype)
+            args = (loop.lp, loop.scal, loop.state, loop.rd, loop.sigma,
+                    loop.lam, loop.metrics)
+            tail = (loop.obj_c, tol, loop.check, patience)
+
+            def run(graph, n=128):
+                return run_superchunk(*args, 0, tail[0], tol, n, loop.check,
+                                      patience, None, graph)
+
+            graph = capture_superchunk(*args, *tail)
+            k_at, table_at, state_at = 6, 5, 0
+            product = prof_loop.SPMV_KERNELS
+        else:
+            loop = prof_loop.BatchedLoop(arrays, dtype)
+            args = (loop.lp, loop.row_norm, loop.col_norm, loop.state,
+                    loop.rd, loop.sigma, loop.lam, loop.active, loop.metrics)
+
+            def run(graph, n=32):
+                return run_batched_superchunk(*args, 0, *loop.scales, tol,
+                                              n, loop.check, graph)
+
+            graph = capture_batched_superchunk(*args, *loop.scales, tol,
+                                               loop.check, 32)
+            k_at, table_at, state_at = 7, 6, 0
+            product = prof_loop.SPMM_KERNELS
+        eager, eager_s = timed(lambda: run(False))
+        replayed, graph_s = timed(lambda: run(graph))
+        k_e, k_g = eager[k_at], replayed[k_at]
+        differ = same_tables(eager[table_at], replayed[table_at])
+        st_e, st_g = eager[state_at], replayed[state_at]
+        state_differ = [f for f in ("x", "y", "x_bar", "y_bar", "z_bar")
+                        if not torch.equal(getattr(st_e, f),
+                                           getattr(st_g, f))]
+        iters = k_g * loop.check
+        prof = prof_loop.profile(loop, product, chunks=2)
+        rec = {"chunks_eager": k_e, "chunks_graph": k_g, "iter": iters,
+               "capture_s": graph.capture_s,
+               "replay_host_us": graph.replay_host_s / graph.replays * 1e6,
+               "its_graph": iters / graph_s, "its_eager": k_e * loop.check
+               / eager_s, "profile": {k: prof[k] for k in (
+                   "its", "wall_us", "device_us", "busy", "kernels",
+                   "product_us", "product_share")},
+               "busy_unprofiled": prof["device_us"] * prof["its"] / 1e6,
+               "tables_differ": differ, "state_differ": state_differ}
+        records[cell] = rec
+        phase(10, f"{cell}: eager {k_e} chunks in {eager_s:.3f} s "
+                  f"({rec['its_eager']:.1f} it/s), graph {k_g} chunks in "
+                  f"{graph_s:.3f} s ({rec['its_graph']:.1f} it/s); capture "
+                  f"{graph.capture_s:.3f} s, host {rec['replay_host_us']:.1f}"
+                  f" us per replay; stacked tables bitwise equal: "
+                  f"{not differ}, final state bitwise equal: "
+                  f"{not state_differ} [{card}]")
+        phase(10, f"{cell} over replays (prof_loop, {prof['iters']} "
+                  f"iterations): {prof['its']:.1f} it/s unprofiled, wall "
+                  f"{prof['wall_us']:.1f} us/it profiled, device "
+                  f"{prof['device_us']:.1f} us/it, busy share "
+                  f"{prof['busy']:.3f} profiled and "
+                  f"{rec['busy_unprofiled']:.3f} unprofiled (device us/it "
+                  f"over unprofiled wall us/it), {prof['kernels']:.1f} "
+                  f"kernels/it, sparse products {prof['product_us']:.1f} "
+                  f"us/it ({prof['product_share']:.1%}) [{card}]")
+        del loop, graph, eager, replayed
+        check(k_e == k_g, f"phase 10: {cell}: {k_e} eager chunks, {k_g} "
+              f"replayed")
+        check(not differ, f"phase 10: {cell}: stacked tables differ in "
+              f"{differ}")
+        check(not state_differ, f"phase 10: {cell}: final state differs "
+              f"in {state_differ}")
+    phase(10, f"sparse_huge f32 solve (phase 6): peak device memory "
+              f"{peak6 / 2**30:.3f} GiB (torch.cuda.max_memory_allocated) "
+              f"[{card}]")
+    records["sparse_huge_peak_bytes"] = peak6
+    return records
+
+
+def autotune_phase(card, prob4):
+    """Phase 11: the autotune twice on three LPs, forced backends, and the
+    CLI's --cusparse-spmv true.  Returns ({dtype tag: csr_spmv launches of
+    the solves}, record)."""
+    import hprlp_tpu_torch as hp
+    from hprlp_tpu_torch import cli
+    from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
+    from hprlp_tpu_torch.prof import prof_loop
+    from hprlp_tpu_torch.solver.autotune import autotune_backends
+
+    dense_lp = random_lp(4096, 8192, 128, seed=5)
+    cells = (("sparse_large_f32", prob4, torch.float32, "f32"),
+             ("sparse_large_f64", prob4, torch.float64, "f64"),
+             ("dense_lp_f32", dense_lp, torch.float32, "f32"))
+    csr_launches = {"f32": 0, "f64": 0}
+    records = {}
+    for cell, problem, dtype, tag in cells:
+        loop = prof_loop.Loop(problem, dtype, graph=False)
+        probe_args = (loop.scal, loop.state, loop.sigma,
+                      torch.tensor(4.0, dtype=dtype, device="cuda"),
+                      torch.tensor(False, device="cuda"), 20)
+        runs = []
+        for _ in range(2):
+            autotune_backends(loop.lp, probe_args)
+            runs.append(autotune_backends.record)
+        del loop
+        same = runs[0]["choice"] == runs[1]["choice"]
+        eligible = "dense" in runs[0]["seconds"]
+        phase(11, f"{cell} ({problem.nnz} nnz, dense eligible: {eligible}):"
+                  f" run 1 {probe_text(runs[0])}; run 2 "
+                  f"{probe_text(runs[1])}; the same choice both runs: "
+                  f"{same} [{card}]")
+        solves = {}
+        for backend in ("gather",) + (("dense", "auto") if eligible
+                                      else ()):
+            csr_spmv.launches = tiled_spmv.launches = 0
+            res = hp.solve(problem.A, problem.AL, problem.AU, problem.l,
+                           problem.u, problem.c, hp.Parameters(
+                               stop_tol=1e-4, verbose=False,
+                               precision=tag, spmv_backend=backend,
+                               max_iter=100_000))
+            launches = {"tiled": tiled_spmv.launches,
+                        "gather": csr_spmv.launches}
+            kkt = problem.kkt_error(res.x, res.y, res.z)["kkt"]
+            solves[backend] = {"status": res.status, "iter": res.iter,
+                               "time_s": res.time, "kkt_f64": kkt,
+                               "spmv_backend": res.spmv_backend,
+                               "launches": launches,
+                               "primal_obj": res.primal_obj}
+            csr_launches[tag] += launches["gather"]
+            phase(11, f"{cell} spmv_backend={backend!r}: status="
+                      f"{res.status} iter={res.iter} solve={res.time:.3f}s "
+                      f"it/s={res.iter / max(res.time, 1e-12):.1f} backend="
+                      f"{res.spmv_backend} launches={launches} primal_obj="
+                      f"{res.primal_obj:.10e} kkt_f64={kkt:.3e} [{card}]")
+            check(res.status == "OPTIMAL", f"phase 11: {cell} {backend}: "
+                  f"status {res.status}")
+            check(kkt < 1e-3, f"phase 11: {cell} {backend}: host f64 KKT "
+                  f"{kkt}")
+            check_backend(11, res.spmv_backend, launches)
+            if backend != "auto":
+                check(res.spmv_backend == backend, f"phase 11: {cell}: "
+                      f"forced {backend}, ran {res.spmv_backend}")
+        records[cell] = {"probes": runs, "same_choice": same,
+                         "dense_eligible": eligible, "solves": solves}
+    csr_spmv.launches = 0
+    rc = cli.main(["-i", os.path.join(HERE, "data", "model.mps"), "--quiet",
+                   "--cusparse-spmv", "true"])
+    phase(11, f"cli.main -i data/model.mps --cusparse-spmv true: rc={rc}, "
+              f"csr_spmv launches {csr_spmv.launches}")
+    check(rc == 0, f"phase 11: cli.main --cusparse-spmv true: rc {rc}")
+    check(csr_spmv.launches > 0, "phase 11: --cusparse-spmv true never "
+          "launched the CSR kernel")
+    csr_launches["f32"] += csr_spmv.launches
+    records["cli_cusparse_spmv"] = {"rc": rc,
+                                    "csr_spmv_launches": csr_spmv.launches}
+    return csr_launches, records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -992,17 +1238,19 @@ def main():
               f"({r['csr_ms']} ms) at sparse_huge {mat} f32")
 
     params4 = Parameters(stop_tol=1e-4, verbose=False, max_iter=100_000)
-    res4, kkt4, l32a, s4 = run_solve(4, prob4, params4, card)
+    res4, kkt4, l4, s4, _ = run_solve(4, prob4, params4, card)
     check(kkt4 < 1e-3, f"phase 4: host f64 KKT {kkt4}")
-    again, _, _, _ = run_solve(4, prob4, params4, card)
+    again, _, _, _, _ = run_solve(4, prob4, params4, card)
     phase(0, f"phase 4's f32 solve run twice: iterations {res4.iter} and "
              f"{again.iter}, objectives {res4.primal_obj!r} and "
-             f"{again.primal_obj!r} [{card}]")
-    check(again.iter == res4.iter and again.primal_obj == res4.primal_obj,
+             f"{again.primal_obj!r}, backends {res4.spmv_backend} and "
+             f"{again.spmv_backend} [{card}]")
+    check(again.iter == res4.iter and again.primal_obj == res4.primal_obj
+          and again.spmv_backend == res4.spmv_backend,
           "phase 0: phase 4's f32 solve is not bitwise repeatable")
 
     prob5 = assignment_problem(64)
-    res5, _, l64, s5 = run_solve(5, prob5, Parameters(
+    res5, _, l5, s5, _ = run_solve(5, prob5, Parameters(
         stop_tol=1e-8, verbose=False, max_iter=100_000), card)
     from scipy.optimize import linear_sum_assignment
 
@@ -1013,9 +1261,9 @@ def main():
     phase(5, f"linear_sum_assignment={exact:.10e} rel_err={rel:.3e}")
     check(rel < 1e-6, f"phase 5: objective off by {rel}")
 
-    res6, kkt6, l32b, s6 = run_solve(
+    res6, kkt6, l6, s6, peak6 = run_solve(
         6, prob6, Parameters(stop_tol=1e-4, verbose=False, max_iter=50_000),
-        card)
+        card, peak=True)
     check(kkt6 < 1e-3, f"phase 6: host f64 KKT {kkt6}")
 
     variant_records = variants_phase(card, built, prob6)
@@ -1031,6 +1279,10 @@ def main():
     l9, batched_record = batched_phase(card, row_sums)
     l9_tiled = l9["tiled_spmv"]
     fused_rec = fused_phase(card)
+    graph_rec = graph_phase(card, prob4, prob5, peak6)
+    csr11, autotune_rec = autotune_phase(card, prob4)
+    # Each phase's SpMV launches, by the backend each solve ran.
+    by_phase = {"4": l4, "5": l5, "6": l6, "8": l8}
 
     def shapes(tag, keys):
         return {f"{size}_{mat}": {k: rec[size, tag, mat][k] for k in keys}
@@ -1038,10 +1290,10 @@ def main():
 
     kernels = []
     for tag, launches, replaces, also in (
-            ("f32", l32a + l32b + l8 + l9_tiled,
+            ("f32", l4["tiled"] + l6["tiled"] + l8["tiled"] + l9_tiled,
              "hprlp_tpu/ops/pallas_spmv.py:67",
              "thin_spmv hprlp_tpu/ops/pallas_spmv.py:272"),
-            ("f64", l64, "hprlp_tpu/ops/pallas_spmv.py:178",
+            ("f64", l5["tiled"], "hprlp_tpu/ops/pallas_spmv.py:178",
              "thin_spmv_df64 hprlp_tpu/ops/pallas_spmv.py:394")):
         a = rec["bench", tag, "A"]
         kernels.append({
@@ -1067,9 +1319,13 @@ def main():
             "name": f"csr_spmv_{tag}", "route": "cuda",
             "source": os.path.relpath(spmv_mod.SOURCE, HERE),
             "replaces": replaces, "also_replaces": also,
-            "previous_design": "succeeded on the main path by "
-                               f"spmv_tiled_{tag}; timed in phase 3 only",
-            "launches": 0,
+            "note": "the autotune's \"gather\" candidate and the "
+                    "--cusparse-spmv true backend; launches: phase 11's "
+                    "solves (forced and chosen) and, where the autotune "
+                    "chose it, phases 4-6 and 8",
+            "launches": csr11[tag] + sum(
+                v["gather"] for k, v in by_phase.items()
+                if (k == "5") == (tag == "f64")),
             "max_abs_err": max(r["err_csr"] for (_, t, _), r in rec.items()
                                if t == tag),
             "ms": a["csr_ms"], "plain_ms": a["csr_plain_ms"],
@@ -1077,9 +1333,11 @@ def main():
             "library_ms": a["library_ms"],
             "shapes": shapes(tag, ("csr_ms", "csr_plain_ms", "bound_ms",
                                    "library_ms"))})
-    kernels[0]["launches_by_phase"] = {"4": l32a, "6": l32b, "8": l8,
-                                       "9": l9_tiled}
+    kernels[0]["launches_by_phase"] = {"4": l4["tiled"], "6": l6["tiled"],
+                                       "8": l8["tiled"], "9": l9_tiled}
     kernels[0]["mps_presolve"] = mps_record
+    kernels[0]["graphs"] = graph_rec
+    kernels[2]["autotune"] = autotune_rec
     kernels += variant_records
     head = spmm_rec["f32", "A", 64]
     spmm_common = {

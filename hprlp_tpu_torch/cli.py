@@ -3,9 +3,10 @@
 Port of hprlp_tpu/cli.py: the same flags, defaults, solution file and exit
 codes (0 OPTIMAL, 1 input or parse error, 2 any other status).  --device
 takes a CUDA device index (default 0) or ``cpu``; without CUDA the CLI
-fails unless ``--device cpu`` is given.  Flags whose feature the port
-does not have yet exit 1 with a message that names them: --precision
-mixed, --mesh, --cusparse-spmv true and --malloc-tune.
+fails unless ``--device cpu`` is given.  --cusparse-spmv true forces the
+CSR SpMV backend ("gather"), as the JAX CLI does.  Flags whose feature the
+port does not have yet exit 1 with a message that names them: --precision
+mixed, --mesh and --malloc-tune.
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Check interval (default: 150)")
     p.add_argument("--cusparse-spmv", type=_bool, default=False,
                    metavar="true/false",
-                   help="Force the plain (non-fused) SpMV backend (not "
-                        "ported: true exits 1)")
+                   help="Force the plain (non-fused) SpMV backend: the "
+                        "CSR kernel in place of the autotuned choice")
     p.add_argument("--autotune-verbose", type=_bool, default=False,
                    metavar="true/false",
                    help="Print SpMV backend autotune results")
@@ -122,8 +123,6 @@ def unported_flags(args) -> list[str]:
         out.append("--precision mixed (iterative refinement)")
     if args.mesh is not None:
         out.append("--mesh (multi-device solves)")
-    if args.cusparse_spmv:
-        out.append("--cusparse-spmv true (spmv_backend 'gather')")
     if args.malloc_tune:
         out.append("--malloc-tune (host allocator tuning)")
     return out
@@ -155,6 +154,7 @@ def main(argv=None) -> int:
         time_limit=args.time_limit,
         device_number=0 if args.device == "cpu" else args.device,
         check_iter=args.check_iter,
+        spmv_backend="gather" if args.cusparse_spmv else "auto",
         autotune_verbose=args.autotune_verbose,
         use_CR_scaling=args.cr,
         use_Ruiz_scaling=args.ruiz,

@@ -7,7 +7,9 @@ indptr/indices), A and A^T are both stored, each over the other's padded
 index space, and the solver attaches to each its column-strip tiles
 (ops/tiles.py), on which the main-path SpMV runs.  The batched solver's
 SpMM runs on the CSR arrays (ops/spmm.py), or on a dense copy of the
-matrix that `with_backend(A, "dense")` attaches.
+matrix that `with_backend(A, "dense")` attaches.  A single LP's SpMV
+runs on the tiles, on the CSR arrays (the "gather" backend) or on a dense
+copy, as `with_spmv_backend` sets it up.
 """
 
 from __future__ import annotations
@@ -78,9 +80,12 @@ def csr_from_numpy(indptr, indices, vals, nrows: int, ncols: int,
 
 
 def spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x.  A CUDA tensor goes to a hand-written kernel (which
-    raises on failure): the tiled kernel when A carries tiles, else the CSR
-    kernel.  A CPU tensor goes to the matching plain version."""
+    """y = A @ x.  A dense copy, where attached, goes to the dense product.
+    Else a CUDA tensor goes to a hand-written kernel (which raises on
+    failure): the tiled kernel when A carries tiles, else the CSR kernel.
+    A CPU tensor goes to the matching plain version."""
+    if A.dense is not None:
+        return _dense_matmul(A.dense, x)
     if x.device.type == "cuda":
         return csr_spmv(A, x) if A.tiles is None else tiled_spmv(A.tiles, x)
     if x.device.type == "cpu":
@@ -105,6 +110,31 @@ def with_backend(A: CsrMatrix, backend: str) -> CsrMatrix:
     if backend == "gather":
         return dataclasses.replace(A, dense=None)
     raise ValueError(f"unknown SpMM backend {backend!r}")
+
+
+def spmv_backend(A: CsrMatrix) -> str:
+    """The SpMV backend `spmv` runs A on: "tiled" (the tiled kernel),
+    "gather" (the CSR kernel) or "dense" (a dense product); the JAX
+    package's "lane", "gather" and "dense"."""
+    if A.dense is not None:
+        return "dense"
+    return "gather" if A.tiles is None else "tiled"
+
+
+def with_spmv_backend(A: CsrMatrix, backend: str) -> CsrMatrix:
+    """A configured for a single LP's SpMV: "tiled" keeps A's tiles (which
+    it must carry) and drops a dense copy, "gather" drops both, "dense"
+    attaches a dense copy (built on A's device) and drops the tiles.  Unlike with_backend, for
+    the batched SpMM, "gather" here leaves no tiles."""
+    if backend == "tiled":
+        if A.tiles is None:
+            raise ValueError("the tiled backend needs A's tiles")
+        return dataclasses.replace(A, dense=None)
+    if backend == "gather":
+        return dataclasses.replace(A, tiles=None, dense=None)
+    if backend == "dense":
+        return dataclasses.replace(with_backend(A, "dense"), tiles=None)
+    raise ValueError(f"unknown SpMV backend {backend!r}")
 
 
 def _dense_matmul(D: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

@@ -4,14 +4,17 @@ card.
 
     python -m hprlp_tpu_torch.prof.prof_loop [--size large|huge|assign64]
                                              [--dtype f32|f64] [--batch B]
+                                             [--eager]
 
 Sets the LP up as solve_problem does (layout and tiles, scaling, power
-method), runs one warm-up chunk, times CHUNKS chunks unprofiled (stop_tol
-0, so none stops early), then profiles CHUNKS more and prints per HPR
-iteration: unprofiled it/s, host wall us, device us (kernel rows only),
-the device's busy share (device time over wall time), kernels launched,
-the sparse-product kernels' share of device time, and the top kernels by
-device time; with the card's name and power limit.  --batch B sets up B
+method, the chunk boundary captured in a CUDA graph), runs one warm-up
+chunk, times CHUNKS chunks unprofiled (stop_tol 0, so none stops early),
+then profiles CHUNKS more and prints per HPR iteration: unprofiled it/s,
+host wall us, device us (kernel rows only), the device's busy share
+(device time over wall time), kernels launched, the sparse-product
+kernels' share of device time, and the top kernels by device time; with
+the card's name and power limit.  The chunks are the graph's replays, as
+the solve runs them; --eager runs the same steps eagerly instead.  --batch B sets up B
 members that share one A as solve_batched does (--size large is
 prof.problems.batched_lp(65536, 131072, B, seed=3), huge
 batched_lp(262144, 524288, B, seed=4)), and the share is the SpMM
@@ -34,7 +37,9 @@ from ..solver import batched
 from ..solver.batched_device_loop import (init_batched_restart_dev,
                                           run_batched_superchunk)
 from ..solver.chunk import init_state, initial_metrics
-from ..solver.device_loop import init_restart_dev, run_superchunk
+from ..solver.batched_device_loop import capture_batched_superchunk
+from ..solver.device_loop import (capture_superchunk, init_restart_dev,
+                                  run_superchunk)
 from ..solver.power_iteration import power_method
 from ..solver.scaling import scale_problem
 from .problems import assignment_problem, batched_lp, random_lp
@@ -46,15 +51,18 @@ SIZES = {"large": lambda: random_lp(65536, 131072, 20, seed=2),
 BATCHED_SIZES = {"large": lambda B: batched_lp(65536, 131072, B, seed=3),
                  "huge": lambda B: batched_lp(262144, 524288, B, seed=4)}
 CHUNKS = 2
+# The most chunks one run() call replays.
+MAX_CHUNKS = 8
 SPMV_KERNELS = ("tiled_spmv_kernel", "group_sum_kernel")
 # The SpMM kernel, with or without a fused half-update (csrc/spmm.cu).
 SPMM_KERNELS = ("csr_spmm_kernel",)
 
 
 class Loop:
-    """The solver's device state for one LP, advanced chunk by chunk."""
+    """The solver's device state for one LP, advanced chunk by chunk by the
+    replays of its captured chunk boundary (graph=False: eagerly)."""
 
-    def __init__(self, problem, dtype):
+    def __init__(self, problem, dtype, graph: bool = True):
         dev = torch.device("cuda")
         self.check = Parameters().check_iter
         raw, _ = build_device_problem(problem, dtype=dtype, device=dev)
@@ -73,21 +81,25 @@ class Loop:
                                   device=dev)
         self.best = None
         self.it = 0
+        self.graph = graph and capture_superchunk(
+            self.lp, self.scal, self.state, self.rd, self.sigma, self.lam,
+            self.metrics, self.obj_c, 0.0, self.check, 0, MAX_CHUNKS)
 
     def run(self, n_chunks: int) -> None:
         (self.state, self.rd, self.sigma, self.lam, self.metrics, _, k,
          self.best) = run_superchunk(
             self.lp, self.scal, self.state, self.rd, self.sigma, self.lam,
             self.metrics, self.it, self.obj_c, 0.0, n_chunks, self.check, 0,
-            self.best)
+            self.best, self.graph)
         self.it += k * self.check
 
 
 class BatchedLoop:
     """The batched solver's device state for B members sharing one A,
-    advanced chunk by chunk (every member stays active)."""
+    advanced chunk by chunk (every member stays active) by the replays of
+    its captured chunk boundary (graph=False: eagerly)."""
 
-    def __init__(self, arrays, dtype, device="cuda"):
+    def __init__(self, arrays, dtype, device="cuda", graph: bool = True):
         dev = torch.device(device)
         params = Parameters()
         self.check = params.check_iter
@@ -114,13 +126,17 @@ class BatchedLoop:
         self.metrics = batched.initial_bmetrics(self.lp, self.row_norm,
                                                 self.col_norm, self.state)
         self.it = 0
+        self.graph = graph and capture_batched_superchunk(
+            self.lp, self.row_norm, self.col_norm, self.state, self.rd,
+            self.sigma, self.lam, self.active, self.metrics, *self.scales,
+            0.0, self.check, MAX_CHUNKS)
 
     def run(self, n_chunks: int) -> None:
         (self.state, self.rd, self.sigma, self.lam, self.active,
          self.metrics, _, k) = run_batched_superchunk(
             self.lp, self.row_norm, self.col_norm, self.state, self.rd,
             self.sigma, self.lam, self.active, self.metrics, self.it,
-            *self.scales, 0.0, n_chunks, self.check)
+            *self.scales, 0.0, n_chunks, self.check, self.graph)
         self.it += k * self.check
 
 
@@ -171,6 +187,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=("f32", "f64"), default="f32")
     ap.add_argument("--batch", type=int, default=0, metavar="B",
                     help="profile the batched loop with B members")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the chunk boundaries eagerly, not as the "
+                         "replays of their CUDA graph")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prof_loop: no CUDA device", file=sys.stderr)
@@ -180,14 +199,16 @@ def main(argv=None) -> int:
     if args.batch:
         if args.size not in BATCHED_SIZES:
             ap.error(f"--batch takes --size {' or '.join(BATCHED_SIZES)}")
-        loop = BatchedLoop(BATCHED_SIZES[args.size](args.batch), dtype)
+        loop = BatchedLoop(BATCHED_SIZES[args.size](args.batch), dtype,
+                           graph=not args.eager)
         what, product = "SpMM", SPMM_KERNELS
         head = f"{args.size} B={args.batch} {args.dtype}"
     else:
-        loop = Loop(SIZES[args.size](), dtype)
+        loop = Loop(SIZES[args.size](), dtype, graph=not args.eager)
         what, product = "SpMV", SPMV_KERNELS
         head = f"{args.size} {args.dtype}"
     r = profile(loop, product)
+    head += " eager" if args.eager else " graph"
     print(f"{head}: {r['its']:.1f} it/s unprofiled; profiled {r['iters']} "
           f"iterations: wall {r['wall_us']:.1f} us/it, device "
           f"{r['device_us']:.1f} us/it, busy share {r['busy']:.3f}, "

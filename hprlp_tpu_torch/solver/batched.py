@@ -37,6 +37,7 @@ from ..ops.tiles import build_tiles
 from ..params import Parameters
 from ..problem import LpProblem, _normalize_inf
 from ..results import BatchedResults
+from .graph import time_probe
 from .loop import _sync, resolve_device, resolve_dtype
 from .power_iteration import power_method
 from .scaling import scale_matrix
@@ -287,30 +288,29 @@ def _check_supported(params: Parameters) -> None:
 def _probe_dense(lp, row_norm_d, col_norm_d, state, sigma, lam, log):
     """The batched autotune (reference protocol: >= 5% faster and merit
     within 1%, src/main_iterate.cu:517-595): PROBE_ITERS iterations of
-    every member on the kernel and on dense copies of A and A^T.  Returns
-    (lp to solve with, record).  A failing kernel raises; only the dense
+    every member on the kernel and on dense copies of A and A^T, each
+    timed by graph.time_probe (on the card, replays of a captured CUDA
+    graph between CUDA events: device time, which host noise does not
+    move).  Returns (lp to solve with, record); the record's
+    "probe_launches" are the probes' kernel launches, which the wrappers'
+    own counters do not see.  A failing kernel raises; only the dense
     candidate's allocation may fail, and then the kernel is kept."""
     B = sigma.shape[0]
     device = lp.c.device
     probe = (sigma, lam, torch.zeros(B, dtype=torch.bool, device=device),
              torch.ones(B, dtype=torch.bool, device=device))
+    counts = {}
 
     def time_cand(cand):
-        _, mm = run_batched_chunk(cand, row_norm_d, col_norm_d, state,
-                                  *probe, PROBE_ITERS)
-        _sync(device)
-        best = float("inf")
-        for _ in range(2):
-            t0 = time.perf_counter()
-            _, mm = run_batched_chunk(cand, row_norm_d, col_norm_d, state,
-                                      *probe, PROBE_ITERS)
-            _sync(device)
-            best = min(best, time.perf_counter() - t0)
-        return best, mm["nrm_Rp"].cpu().numpy().astype(np.float64)
+        secs, (_, mm) = time_probe(
+            lambda: run_batched_chunk(cand, row_norm_d, col_norm_d, state,
+                                      *probe, PROBE_ITERS),
+            device, counts=counts)
+        return secs, mm["nrm_Rp"].cpu().numpy().astype(np.float64)
 
     t_k, rp_k = time_cand(lp)
     record = {"kernel_ms": t_k * 1e3, "dense_ms": None, "merit_ok": None,
-              "backend": "gather"}
+              "backend": "gather", "probe_launches": counts}
     try:
         dense_lp = dataclasses.replace(lp, A=with_backend(lp.A, "dense"),
                                        AT=with_backend(lp.AT, "dense"))
@@ -459,7 +459,9 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
     the card also probes a dense product (below); "dense" runs the dense
     product when it fits DENSE_BYTES_LIMIT_BATCHED; "lane" has no SpMM and
     runs the kernel.  After the call, solve_batched.probe holds the dense
-    probe's record, or None when no probe ran.
+    probe's record, or None when no probe ran, and
+    solve_batched.capture_time the seconds of the CUDA graph's warm-up and
+    capture (None on the CPU).
     """
     params = params or Parameters()
     params.validate()
@@ -468,6 +470,7 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
     dtype = resolve_dtype(params, device)
     log = print if params.verbose else (lambda *a, **k: None)
     solve_batched.probe = None
+    solve_batched.capture_time = None
 
     C = np.asarray(C, np.float64)
     AL = _normalize_inf(np.asarray(AL, np.float64))
@@ -521,7 +524,8 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
         lp, solve_batched.probe = _probe_dense(
             lp, row_norm_d, col_norm_d, state, sigma_d, lam_d, log)
 
-    from .batched_device_loop import (init_batched_restart_dev,
+    from .batched_device_loop import (capture_batched_superchunk,
+                                      init_batched_restart_dev,
                                       run_batched_superchunk)
 
     status = np.array(["CONTINUE"] * B, object)
@@ -573,6 +577,19 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
     n_quiet = 1 if params.verbose else 32
     n_quiet = max(1, min(n_quiet, (params.max_iter + check - 1) // check))
 
+    # On the card, one chunk boundary captured in a CUDA graph (warmed up
+    # on a copy of the state) before the algorithm clock, as in
+    # solver/loop.py.
+    graph = None
+    if device.type == "cuda":
+        graph = capture_batched_superchunk(
+            lp, row_norm_d, col_norm_d, state, rd, sigma_d, lam_d,
+            torch.ones(B, dtype=torch.bool, device=device), metrics_prev,
+            b_scale_d, c_scale_d, nb_d, nc_d, oc_d, params.stop_tol, check,
+            n_quiet)
+        solve_batched.capture_time = graph.capture_s
+        log(f"CUDA graph capture time = {graph.capture_s:.2f} seconds")
+
     # --- algorithm clock: iteration work only from here on ---
     _sync(device)
     t_alg = time.perf_counter()
@@ -609,7 +626,7 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
          k_done) = run_batched_superchunk(
             lp, row_norm_d, col_norm_d, state, rd, sigma_d, lam_d, active_d,
             metrics_prev, it, b_scale_d, c_scale_d, nb_d, nc_d, oc_d,
-            params.stop_tol, n_chunks, check)
+            params.stop_tol, n_chunks, check, graph)
 
         for k in range(k_done):
             it += check
@@ -647,3 +664,4 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
 
 
 solve_batched.probe = None
+solve_batched.capture_time = None

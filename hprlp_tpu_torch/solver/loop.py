@@ -2,9 +2,11 @@
 src/HPRLP.cu:116-310, restart/sigma logic src/main_iterate.cu:312-420).
 
 Port of hprlp_tpu/solver/loop.py.  The pipeline is layout and upload ->
-scaling -> power method -> restart/sigma/stopping loop over chunks
-(device_loop.run_superchunk) -> unscale.  Chunk boundaries reproduce the
-reference's schedule: every check_iter iterations (restart + stopping).
+scaling -> SpMV backend (autotune.py) -> power method -> on the card, the
+capture of one chunk boundary in a CUDA graph -> restart/sigma/stopping
+loop over chunks (device_loop.run_superchunk, replaying the graph) ->
+unscale.  Chunk boundaries reproduce the reference's schedule: every
+check_iter iterations (restart + stopping).
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ import numpy as np
 import torch
 
 from ..ops.device_problem import attach_tiles, build_device_problem
+from ..ops.sparse import spmv_backend
 from ..ops.tiles import build_tiles
 from ..params import Parameters
 from ..problem import LpProblem
 from ..results import Results
 from .chunk import init_state, initial_metrics, unscale_solution
-from .device_loop import init_restart_dev, run_superchunk
+from .autotune import autotune_backends, set_spmv_backend
+from .device_loop import capture_superchunk, init_restart_dev, run_superchunk
 from .power_iteration import power_method
 from .scaling import scale_problem
 
@@ -95,10 +99,6 @@ def resolve_dtype(params: Parameters, device: torch.device) -> torch.dtype:
 
 
 def _check_supported(params: Parameters) -> None:
-    if params.spmv_backend in ("gather", "dense"):
-        raise NotImplementedError(
-            f"spmv_backend={params.spmv_backend!r} is not ported yet "
-            f"(ROADMAP.md queue 1, autotune); 'auto' runs the tiled kernel")
     if params.mesh_shape:
         raise NotImplementedError("mesh_shape (multi-device solves) is not "
                                   "ported yet (ROADMAP.md queue 1, multi-GPU)")
@@ -111,12 +111,20 @@ def _sync(device: torch.device) -> None:
 
 def solve_problem(problem: LpProblem, params: Parameters | None = None,
                   x0=None, y0=None, sigma0=None, device=None) -> Results:
-    """Full solve: upload -> scale -> power method -> HPR loop -> unscale.
+    """Full solve: upload -> scale -> SpMV backend -> power method -> HPR
+    loop -> unscale.
 
     Parity: solve() + HPRLP_main_solve() (reference: src/HPRLP.cu:116-310)
     minus presolve.  x0/y0: optional warm-start points in the ORIGINAL
     space; sigma0: resume sigma from a prior solve of the same problem.
     device: a torch device; None means cuda:{params.device_number}.
+
+    spmv_backend: "auto" runs the autotune's choice on the card
+    (autotune.py) and the tiled kernel's plain version on the CPU; "lane"
+    is the tiled kernel without the autotune; "gather" and "dense" force
+    the CSR kernel or a dense product (on the CPU their plain versions).  After the call, solve_problem.capture_time holds the
+    seconds of the CUDA graph's warm-up and capture (None on the CPU),
+    which no field of Results counts.
     """
     params = params or Parameters()
     params.validate()
@@ -128,10 +136,13 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     out = Results()
 
     t_setup = time.perf_counter()
+    solve_problem.capture_time = None
     lp_raw, maps = build_device_problem(problem, dtype=dtype, device=device)
     # The SpMV tiles' structure (ops/tiles.py) is layout and counts here;
     # the scaled values are gathered into it below, in scaling_time.
-    tiles = (build_tiles(lp_raw.A), build_tiles(lp_raw.AT))
+    # "gather" and "dense" never run on them.
+    tiled = params.spmv_backend in ("auto", "lane")
+    tiles = (build_tiles(lp_raw.A), build_tiles(lp_raw.AT)) if tiled else None
     _sync(device)
     out.setup_time = time.perf_counter() - t_setup
     log(f"Setup (layout and upload) time = {out.setup_time:.2f} seconds")
@@ -143,7 +154,8 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
                              use_pc=params.use_Pock_Chambolle_scaling,
                              use_bc=params.use_bc_scaling)
     del lp_raw
-    lp = attach_tiles(lp, *tiles)
+    if tiled:
+        lp = attach_tiles(lp, *tiles)
     del tiles
     scal_host = {k: float(getattr(scal, k)) for k in
                  ("b_scale", "c_scale", "norm_b", "norm_c",
@@ -173,14 +185,29 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
               / scal.c_scale)
         state = dataclasses.replace(state, y=ys, last_y=ys, y_bar=ys)
 
+    def scalar(v):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    # SpMV backend selection BEFORE the power method, so that it also runs
+    # on the chosen backend (reference autotuner analogue, src/
+    # main_iterate.cu:517-595).  Probes run 20 iterations with a
+    # placeholder lambda_max: every candidate sees the same value.
+    t_tune = time.perf_counter()
+    if params.spmv_backend == "auto":
+        probe_args = (scal, state, scalar(sigma), scalar(4.0),
+                      torch.tensor(False, device=device),
+                      min(20, params.check_iter))
+        lp = autotune_backends(lp, probe_args,
+                               verbose=params.autotune_verbose)
+    elif params.spmv_backend in ("gather", "dense"):
+        lp = set_spmv_backend(lp, params.spmv_backend)
+    out.autotune_time = time.perf_counter() - t_tune
+
     t_pm = time.perf_counter()
     # Floor guards the degenerate all-zero-A case (zero-constraint LPs).
     lambda_max = max(float(power_method(lp)) * 1.01, 1e-12)
     out.power_time = time.perf_counter() - t_pm
     log(f"ESTIMATING MAXIMUM EIGENVALUE time = {out.power_time:.2f} seconds")
-
-    def scalar(v):
-        return torch.tensor(v, dtype=dtype, device=device)
 
     obj_constant = maps.obj_constant
     obj_c_dev = scalar(obj_constant)
@@ -189,8 +216,20 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     lam_dev = scalar(lambda_max)
     check = params.check_iter
     metrics_prev = initial_metrics(lp, scal, state)
-    best_pt = {"x_bar": state.x_bar, "y_bar": state.y_bar,
-               "sigma": sigma_dev}
+    best_pt = None  # the stall-recovery best point: the start, at first
+    stall_patience = int(params.stall_recovery or 0)
+
+    # On the card, one chunk boundary captured in a CUDA graph, warmed up
+    # on a copy of the state, before the algorithm clock, as the JAX
+    # package compiles its superchunk before its clock (and the reference
+    # captures its graphs in setup, src/HPRLP.cu:99-114).
+    graph = None
+    if device.type == "cuda":
+        graph = capture_superchunk(lp, scal, state, rd, sigma_dev, lam_dev,
+                                   metrics_prev, obj_c_dev, params.stop_tol,
+                                   check, stall_patience)
+        solve_problem.capture_time = graph.capture_s
+        log(f"CUDA graph capture time = {graph.capture_s:.2f} seconds")
 
     # --- algorithm clock starts here, after the power method ---
     _sync(device)
@@ -209,8 +248,11 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
         return _derive_residuals(m_host, scal_host, obj_constant, at_it == 0)
 
     def finish(status, at_it, res, sigma_val, restarts):
+        # The card may still run the replay queued behind the last chunk
+        # read (graph.StepGraph.run's lookahead): the point is ready after.
+        _sync(device)
         out.status = status
-        out.spmv_backend = "tiled"
+        out.spmv_backend = spmv_backend(lp.A)
         out.iter = at_it
         out.gap = res.rel_gap
         out.residuals = res.kkt
@@ -271,7 +313,7 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
          best_pt) = run_superchunk(lp, scal, state, rd, sigma_dev, lam_dev,
                                    metrics_prev, it, obj_c_dev,
                                    params.stop_tol, n_chunks, check,
-                                   int(params.stall_recovery or 0), best_pt)
+                                   stall_patience, best_pt, graph)
         t_done = time.perf_counter()
 
         for k in range(k_done):
@@ -302,3 +344,6 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
                 best_kkt, best_kkt_it = res.kkt, it
             elif it - best_kkt_it > params.stall_window:
                 return finish("STALLED", it, res, sigma, restarts)
+
+
+solve_problem.capture_time = None

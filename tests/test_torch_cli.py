@@ -139,9 +139,8 @@ def test_input_errors_exit_1_as_jax(tmp_path, case, libraries, capsys):
 @pytest.mark.parametrize("flags,name", [
     (["--precision", "mixed"], "--precision mixed"),
     (["--mesh", "2"], "--mesh"),
-    (["--cusparse-spmv", "true"], "--cusparse-spmv true"),
     (["--malloc-tune"], "--malloc-tune"),
-], ids=["precision_mixed", "mesh", "cusparse_spmv", "malloc_tune"])
+], ids=["precision_mixed", "mesh", "malloc_tune"])
 def test_unported_flags_exit_1(flags, name, capsys):
     assert cli.main(["-i", MODEL, "--device", "cpu", *flags]) == 1
     captured = capsys.readouterr()

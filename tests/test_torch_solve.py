@@ -129,9 +129,7 @@ def test_no_device_without_cuda_raises(monkeypatch):
         ht.solve(*CASES["demo"](), ht.Parameters(verbose=False))
 
 
-@pytest.mark.parametrize("kw", [{"spmv_backend": "gather"},
-                                {"spmv_backend": "dense"},
-                                {"precision": "mixed"},
+@pytest.mark.parametrize("kw", [{"precision": "mixed"},
                                 {"mesh_shape": 2}])
 def test_options_not_ported_raise(kw):
     with pytest.raises(NotImplementedError):
