@@ -7,7 +7,8 @@ holds each kernel against its plain PyTorch version at its path's shapes,
 drives the main path (hprlp_tpu_torch.solve) on three LPs, the SpMV
 variant studies, the CLI on an MPS file with presolve, then the batched
 solver (hprlp_tpu_torch.solve_batched), the solve loops' CUDA graphs
-against their eager steps, and the SpMV backend autotune.  Every solve
+against their eager steps, the SpMV backend autotune, the solver server
+and the C ABI with their workers on the card, and precision="mixed".  Every solve
 on the card replays its chunk boundary from a CUDA graph captured before
 its clock starts, and (single LP) runs the SpMV backend the autotune
 chose; a solve fails its phase unless it launched that backend's kernel
@@ -91,6 +92,30 @@ and no other SpMV kernel (the probes' launches are counted apart):
                  (and "dense" and "auto" where a dense copy is eligible) to
                  OPTIMAL with host-f64 KKT < 1e-3, launching only its
                  backend; cli.main --cusparse-spmv true on data/model.mps
+ 12. service     (a) `python -m hprlp_tpu_torch.server` on the default
+                 device over pipes: its stderr names the card; ping,
+                 mps_dims and solve_mps on data/model.mps, sparse_large as
+                 a `solve` request (1e-4, presolve off, spmv_backend
+                 "lane"), bitwise the in-process solve (iterations,
+                 objective, x), solve_batched of batched_lp(2048, 4096,
+                 256, seed=3) ("gather") with the in-process statuses,
+                 iterations and objectives, sparse_large four more times
+                 (client wall time beside Results.time), the card's used
+                 memory after requests 2 and 5 within MEMORY_SLACK_MIB,
+                 shutdown, exit 0, and the worker's kernel launches; (b)
+                 the port's C ABI library and launcher (capi.py), the
+                 three examples/c programs built against it and run, each
+                 worker on the card, and a ctypes consumer's f32 solve of
+                 sparse_large in (a)'s iteration count
+ 13. mixed       precision="mixed" on assignment_problem(64) and (128) at
+                 1e-8 (benchmarks/run.py's configurations): OPTIMAL,
+                 host-f64 KKT < 1e-8, the objective within 1e-6 of
+                 linear_sum_assignment, each stage's zoom, iterations,
+                 KKT, backend and launches and the f64 tail's attempts,
+                 beside the direct f64 solve; refine_stage_precision="f64"
+                 on assignment64; sparse_large at 1e-6 (OPTIMAL, host-f64
+                 KKT < 1e-6); every stage and tail launches the SpMV
+                 kernel of the backend it ran and no other
 
 Any failure raises (exit code != 0).  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -100,6 +125,7 @@ Needs torch, numpy and scipy only; imports neither JAX nor hprlp_tpu.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -1200,6 +1226,556 @@ def autotune_phase(card, prob4):
     return csr_launches, records
 
 
+MODEL = os.path.join(HERE, "data", "model.mps")
+# Phase 12's sparse_large request, pinned to the tiled kernel (no probe),
+# so that the worker's answer is comparable bit for bit with an in-process
+# solve; and its batched request, on the SpMM kernel (no dense probe).
+SERVER_SOLVE = {"stop_tol": 1e-4, "use_presolve": False,
+                "spmv_backend": "lane"}
+SERVER_BATCHED = {"stop_tol": 1e-4, "spmv_backend": "gather"}
+MEMORY_SLACK_MIB = 64
+EXAMPLES = (("example_direct_lp.c", ()), ("example_mps_file.c", (MODEL,)),
+            ("example_batched_lp.c", ()))
+
+
+def worker_lines(text):
+    """The worker's own stderr lines: (its device line or None, its kernel
+    launches at exit or None)."""
+    device = launches = None
+    for line in text.splitlines():
+        if line.startswith("device ") and device is None:
+            device = line
+        elif line.startswith("kernel launches "):
+            launches = json.loads(line[len("kernel launches "):])
+    return device, launches
+
+
+def used_memory_mib(pid):
+    """(MiB that nvidia-smi lists for process `pid`, or None where it
+    lists no such process; MiB in use on the whole card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout
+    mine = None
+    for line in out.splitlines():
+        fields = [f.strip() for f in line.split(",")]
+        if len(fields) == 2 and fields[0] == str(pid):
+            try:
+                mine = float(fields[1])
+            except ValueError:
+                pass
+    free, total = torch.cuda.mem_get_info()
+    return mine, (total - free) / 2**20
+
+
+def solve_request(problem, params):
+    from hprlp_tpu_torch.server import _enc
+
+    A = problem.A.tocsr()
+    return {"op": "solve", "m": problem.m, "n": problem.n,
+            "Ap": _enc(A.indptr.astype(np.int64)),
+            "Ai": _enc(A.indices.astype(np.int64)),
+            "Ax": _enc(A.data.astype(np.float64)),
+            "AL": _enc(problem.AL), "AU": _enc(problem.AU),
+            "l": _enc(problem.l), "u": _enc(problem.u),
+            "c": _enc(problem.c), "obj_constant": problem.obj_constant,
+            "params": params}
+
+
+def batched_request(arrays, params):
+    from hprlp_tpu_torch.server import _enc
+
+    A, C, AL, AU, l, u = arrays
+    A = A.tocsr()
+    col = lambda a: _enc(np.asarray(a, np.float64).ravel(order="F"))
+    return {"op": "solve_batched", "m": A.shape[0], "n": A.shape[1],
+            "batch": C.shape[1], "Ap": _enc(A.indptr.astype(np.int64)),
+            "Ai": _enc(A.indices.astype(np.int64)),
+            "Ax": _enc(A.data.astype(np.float64)), "C": col(C),
+            "AL": col(AL), "AU": col(AU), "l": col(l), "u": col(u),
+            "params": params}
+
+
+def _dec(text, dtype="<f8"):
+    import base64
+
+    return np.frombuffer(base64.b64decode(text), dtype=dtype)
+
+
+def server_pipes(card, prob4, built_paths):
+    """Phase 12 (a): `python -m hprlp_tpu_torch.server` on the default
+    device, over pipes.  Returns (record, the worker's launches, the
+    sparse_large iteration count)."""
+    import hprlp_tpu_torch as hp
+
+    from hprlp_tpu_torch.prof.problems import batched_lp
+
+    warm = {os.path.relpath(p, HERE): os.path.exists(p) for p in built_paths}
+    phase(12, f"kernel libraries built before the worker starts (warm "
+              f"builds): {warm}")
+    check(all(warm.values()), f"phase 12: libraries missing: {warm}")
+    # The in-process references first, then this process's cached blocks
+    # returned: it holds the same device memory through the worker's run.
+    t0 = time.perf_counter()
+    ref = hp.Model.from_arrays(prob4.A, prob4.AL, prob4.AU, prob4.l,
+                               prob4.u, prob4.c, prob4.obj_constant).solve(
+        hp.Parameters(verbose=False, **SERVER_SOLVE))
+    bargs = batched_lp(2048, 4096, 256, seed=3)
+    bref = hp.solve_batched(*bargs, params=hp.Parameters(verbose=False,
+                                                         **SERVER_BATCHED))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    solve_text = json.dumps(solve_request(prob4, SERVER_SOLVE))
+    batched_text = json.dumps(batched_request(bargs, SERVER_BATCHED))
+    phase(12, f"in-process references: sparse_large {ref.status} "
+              f"iter={ref.iter} backend={ref.spmv_backend}; batched "
+              f"{bref.batch_size} members, iterations max "
+              f"{int(np.max(bref.iter))}; request sizes {len(solve_text)} "
+              f"and {len(batched_text)} bytes "
+              f"({time.perf_counter() - t0:.2f} s)")
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    err = tempfile.TemporaryFile(mode="w+")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "hprlp_tpu_torch.server"],
+                            cwd=HERE, env=env, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    walls, times, memory = [], [], {}
+    try:
+        def ask(text):
+            t = time.perf_counter()
+            proc.stdin.write(text + "\n")
+            proc.stdin.flush()
+            line = proc.stdout.readline()
+            check(line, "phase 12: the server closed its output")
+            return json.loads(line), time.perf_counter() - t
+
+        pong, _ = ask(json.dumps({"op": "ping"}))
+        startup = time.perf_counter() - t_start
+        check(pong == {"ok": True, "result": "pong"}, f"phase 12: {pong}")
+        err.seek(0)
+        device = err.readline().strip()
+        phase(12, f"worker pid {proc.pid} up in {startup:.2f} s: {device!r}")
+        check(device == f"device cuda:0 ({torch.cuda.get_device_name(0)})",
+              f"phase 12: the server's device line {device!r}")
+        dims, _ = ask(json.dumps({"op": "mps_dims", "path": MODEL}))
+        check(dims == {"ok": True, "result": {"m": 2, "n": 2, "nnz": 4}},
+              f"phase 12: mps_dims {dims}")
+        mps, wall = ask(json.dumps({"op": "solve_mps", "path": MODEL,
+                                    "params": {}}))
+        check(mps["ok"] and mps["result"]["status"] == "OPTIMAL"
+              and abs(mps["result"]["primal_obj"] + 26.4) < 1e-3,
+              f"phase 12: solve_mps {mps}")
+        phase(12, f"solve_mps data/model.mps: {mps['result']['status']} "
+                  f"iter={mps['result']['iter']} obj="
+                  f"{mps['result']['primal_obj']!r} client wall {wall:.3f} s")
+        memory["after 2"] = used_memory_mib(proc.pid)
+
+        def same_solve(resp, k):
+            check(resp["ok"], f"phase 12: solve {k}: {resp}")
+            r = resp["result"]
+            x = _dec(r["x"])
+            same = (r["status"] == "OPTIMAL" and r["iter"] == ref.iter
+                    and r["primal_obj"] == ref.primal_obj
+                    and x.tobytes() == np.asarray(ref.x, "<f8").tobytes())
+            check(same, f"phase 12: solve {k} of sparse_large is not the "
+                  f"in-process solve's: {r['status']} iter {r['iter']} "
+                  f"(in process {ref.iter}), objective {r['primal_obj']!r} "
+                  f"({ref.primal_obj!r})")
+            return r
+
+        resp, wall = ask(solve_text)
+        first = same_solve(resp, 1)
+        walls.append(wall)
+        times.append(first["time"])
+        memory["after 3"] = used_memory_mib(proc.pid)
+        bresp, bwall = ask(batched_text)
+        check(bresp["ok"], f"phase 12: solve_batched {bresp}")
+        b = bresp["result"]
+        obj = _dec(b["primal_obj"])
+        check(b["status"] == list(bref.status)
+              and np.array_equal(_dec(b["iter"], "<i8"), bref.iter)
+              and obj.tobytes() == np.asarray(bref.primal_obj,
+                                              "<f8").tobytes(),
+              "phase 12: solve_batched differs from the in-process solve")
+        phase(12, f"solve_batched batched_lp(2048, 4096, 256, seed=3) "
+                  f"{SERVER_BATCHED}: {b['status'].count('OPTIMAL')}/"
+                  f"{b['batch']} OPTIMAL, statuses, iterations and "
+                  f"objectives equal to in-process; solve {b['time']:.3f} s,"
+                  f" client wall {bwall:.3f} s [{card}]")
+        memory["after 4"] = used_memory_mib(proc.pid)
+        for k in range(2, 6):
+            resp, wall = ask(solve_text)
+            r = same_solve(resp, k)
+            walls.append(wall)
+            times.append(r["time"])
+            memory[f"after 5.{k - 1}"] = used_memory_mib(proc.pid)
+        memory["after 5"] = memory["after 5.4"]
+        phase(12, f"sparse_large {SERVER_SOLVE} x5: {first['status']} "
+                  f"iter={first['iter']} objective {first['primal_obj']!r}, "
+                  f"x bitwise the in-process solve's every time; client "
+                  f"wall s {[round(w, 4) for w in walls]} against "
+                  f"Results.time s {[round(t, 4) for t in times]} [{card}]")
+        bye, _ = ask(json.dumps({"op": "shutdown"}))
+        check(bye == {"ok": True}, f"phase 12: shutdown {bye}")
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err.seek(0)
+    _, launches = worker_lines(err.read())
+    err.close()
+    (mine2, card2), (mine5, card5) = memory["after 2"], memory["after 5"]
+    phase(12, f"worker exit {rc}; its kernel launches {launches}; used "
+              f"memory after requests 2 and 5: worker (nvidia-smi) "
+              f"{mine2} / {mine5} MiB, whole card {card2:.1f} / "
+              f"{card5:.1f} MiB; whole card after each request: "
+              + ", ".join(f"{k} {v[1]:.1f}" for k, v in memory.items()))
+    check(rc == 0, f"phase 12: the server exited {rc}")
+    for name in ("tiled_spmv", "csr_spmm", "spmm_x_half", "spmm_y_half"):
+        check(launches and launches[name] > 0,
+              f"phase 12: the worker never launched {name}: {launches}")
+    check(abs(card5 - card2) <= MEMORY_SLACK_MIB,
+          f"phase 12: the card's used memory moved {card5 - card2:.1f} MiB "
+          f"between requests 2 and 5")
+    if mine2 is not None and mine5 is not None:
+        check(abs(mine5 - mine2) <= MEMORY_SLACK_MIB,
+              f"phase 12: the worker's memory moved {mine5 - mine2} MiB")
+    record = {"startup_s": startup, "client_wall_s": walls,
+              "results_time_s": times, "iter": first["iter"],
+              "batched_client_wall_s": bwall, "batched_time_s": b["time"],
+              "memory_mib": memory, "launches": launches}
+    return record, launches, first["iter"]
+
+
+class CParams(ctypes.Structure):
+    """hprlp_parameters (native/include/hprlp_tpu.h)."""
+    _fields_ = [("stop_tol", ctypes.c_double),
+                ("time_limit", ctypes.c_double),
+                ("max_iter", ctypes.c_int64), ("check_iter", ctypes.c_int),
+                ("use_CR_scaling", ctypes.c_int),
+                ("use_Ruiz_scaling", ctypes.c_int),
+                ("use_Pock_Chambolle_scaling", ctypes.c_int),
+                ("use_bc_scaling", ctypes.c_int),
+                ("use_presolve", ctypes.c_int),
+                ("precision", ctypes.c_char * 8)]
+
+
+class CResults(ctypes.Structure):
+    """hprlp_results (native/include/hprlp_tpu.h)."""
+    _fields_ = [("status", ctypes.c_char * 16), ("iter", ctypes.c_int64),
+                ("time", ctypes.c_double), ("primal_obj", ctypes.c_double),
+                ("dual_obj", ctypes.c_double), ("gap", ctypes.c_double),
+                ("residuals", ctypes.c_double),
+                ("iter4", ctypes.c_int64), ("iter6", ctypes.c_int64),
+                ("iter8", ctypes.c_int64), ("time4", ctypes.c_double),
+                ("time6", ctypes.c_double), ("time8", ctypes.c_double),
+                ("n", ctypes.c_int64), ("m", ctypes.c_int64),
+                ("x", ctypes.POINTER(ctypes.c_double)),
+                ("y", ctypes.POINTER(ctypes.c_double)),
+                ("z", ctypes.POINTER(ctypes.c_double))]
+
+
+@contextlib.contextmanager
+def stderr_to(f):
+    """File descriptor 2 pointed at `f` for the block: a worker forked
+    inside it writes its stderr there."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    os.dup2(f.fileno(), 2)
+    try:
+        yield f
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+
+
+def ctypes_solve(lib_path, launcher, problem):
+    """hprlp_create_model_from_arrays on `problem` and one hprlp_solve in
+    f32 at 1e-4 without presolve, then hprlp_shutdown, from this process.
+    Returns (status, iterations, objective, client wall seconds, the
+    worker's stderr)."""
+    dp = ctypes.POINTER(ctypes.c_double)
+    L = ctypes.CDLL(lib_path)
+    L.hprlp_parameters_default.argtypes = [ctypes.POINTER(CParams)]
+    L.hprlp_parameters_default.restype = None
+    L.hprlp_create_model_from_arrays.restype = ctypes.c_void_p
+    L.hprlp_create_model_from_arrays.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32), dp, dp, dp, dp, dp, dp,
+        ctypes.c_double]
+    L.hprlp_solve.restype = ctypes.POINTER(CResults)
+    L.hprlp_solve.argtypes = [ctypes.c_void_p, ctypes.POINTER(CParams)]
+    L.hprlp_free_results.argtypes = [ctypes.POINTER(CResults)]
+    L.hprlp_free_results.restype = None
+    L.hprlp_free_model.argtypes = [ctypes.c_void_p]
+    L.hprlp_free_model.restype = None
+    L.hprlp_last_error.restype = ctypes.c_char_p
+    L.hprlp_shutdown.restype = None
+    A = problem.A.tocsr()
+    keep = [np.ascontiguousarray(A.indptr, np.int64),
+            np.ascontiguousarray(A.indices, np.int32)] + [
+        np.ascontiguousarray(v, np.float64) for v in (
+            A.data, problem.AL, problem.AU, problem.l, problem.u, problem.c)]
+    ptrs = [keep[0].ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            keep[1].ctypes.data_as(ctypes.POINTER(ctypes.c_int32))] + [
+        k.ctypes.data_as(dp) for k in keep[2:]]
+    p = CParams()
+    L.hprlp_parameters_default(ctypes.byref(p))
+    p.stop_tol, p.use_presolve, p.precision = 1e-4, 0, b"f32"
+    saved = {k: os.environ.get(k) for k in ("HPRLP_TPU_PYTHON",
+                                            "HPRLP_TPU_ROOT")}
+    os.environ.update(HPRLP_TPU_PYTHON=launcher, HPRLP_TPU_ROOT=HERE)
+    err = tempfile.TemporaryFile(mode="w+")
+    try:
+        with stderr_to(err):
+            model = L.hprlp_create_model_from_arrays(
+                problem.m, problem.n, ptrs[0], ptrs[1], *ptrs[2:],
+                problem.obj_constant)
+            t = time.perf_counter()
+            res = L.hprlp_solve(model, ctypes.byref(p))
+            wall = time.perf_counter() - t
+            error = L.hprlp_last_error()
+            out = ((res.contents.status.decode(), res.contents.iter,
+                    res.contents.primal_obj) if res else (None, None, None))
+            if res:
+                L.hprlp_free_results(res)
+            L.hprlp_free_model(model)
+            L.hprlp_shutdown()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    err.seek(0)
+    text = err.read()
+    err.close()
+    check(out[0] is not None, f"phase 12: hprlp_solve failed: {error}")
+    return (*out, wall, text)
+
+
+def capi_phase(card, prob4, iters_a):
+    """Phase 12 (b): the port's C ABI library and launcher, the C examples
+    and a ctypes consumer, each worker on the card.  Returns (record,
+    {source: the worker's launches})."""
+    from hprlp_tpu_torch import capi
+
+    t0 = time.perf_counter()
+    lib = capi.build()
+    launcher = capi.write_launcher()
+    phase(12, f"built {os.path.relpath(lib, HERE)} (g++) and the launcher "
+              f"{os.path.relpath(launcher, HERE)} in "
+              f"{time.perf_counter() - t0:.2f} s")
+    libdir = os.path.dirname(lib)
+    env = dict(os.environ, HPRLP_TPU_PYTHON=launcher, HPRLP_TPU_ROOT=HERE)
+    env["LD_LIBRARY_PATH"] = os.pathsep.join(
+        [libdir] + ([env["LD_LIBRARY_PATH"]] if env.get("LD_LIBRARY_PATH")
+                    else []))
+    want = f"device cuda:0 ({torch.cuda.get_device_name(0)})"
+    cc = shutil.which("gcc") or shutil.which("cc")
+    check(cc, "phase 12: no C compiler")
+    record, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args in EXAMPLES:
+            exe = os.path.join(tmp, name[:-2])
+            subprocess.run([cc, os.path.join(HERE, "examples", "c", name),
+                            "-I" + os.path.join(HERE, "native", "include"),
+                            "-L" + libdir, "-lhprlp_tpu", "-o", exe],
+                           check=True)
+            t = time.perf_counter()
+            r = subprocess.run([exe, *args], env=env, capture_output=True,
+                               text=True, timeout=600)
+            wall = time.perf_counter() - t
+            device, counts = worker_lines(r.stderr)
+            summary = " | ".join(x for x in r.stdout.splitlines()
+                                 if "status" in x or "iter" in x)
+            phase(12, f"examples/c/{name}: rc={r.returncode} {summary} "
+                      f"wall {wall:.2f} s; worker {device!r}, launches "
+                      f"{counts}")
+            check(r.returncode == 0 and "OPTIMAL" in r.stdout,
+                  f"phase 12: {name}: rc {r.returncode}\n{r.stdout}\n"
+                  f"{r.stderr[-2000:]}")
+            check(device == want, f"phase 12: {name}: worker device line "
+                  f"{device!r}")
+            check(counts and counts["tiled_spmv"] + counts["csr_spmm"] > 0,
+                  f"phase 12: {name}: the worker launched no kernel")
+            record[name] = {"rc": r.returncode, "wall_s": wall,
+                            "launches": counts}
+            launches[name] = counts
+    status, iters, obj, wall, text = ctypes_solve(lib, launcher, prob4)
+    device, counts = worker_lines(text)
+    phase(12, f"ctypes hprlp_solve of sparse_large (f32, 1e-4, presolve "
+              f"off): {status} iter={iters} (server {iters_a}) obj={obj!r} "
+              f"client wall {wall:.3f} s; worker {device!r}, launches "
+              f"{counts} [{card}]")
+    check(status == "OPTIMAL" and iters == iters_a,
+          f"phase 12: the ctypes solve: {status} in {iters} iterations, "
+          f"the server's {iters_a}")
+    check(device == want and counts and counts["tiled_spmv"] > 0,
+          f"phase 12: the ctypes worker: {device!r} {counts}")
+    record["ctypes"] = {"status": status, "iter": iters, "wall_s": wall,
+                        "launches": counts}
+    launches["ctypes"] = counts
+    return record, launches
+
+
+REFINE_LINE = re.compile(r"\[refine\] stage (\d+): zoom=(\S+) "
+                         r"stage_iter=(\d+) kkt=(\S+)")
+
+
+def refined_solve(card, name, problem, **kw):
+    """One Model.solve with precision="mixed", every stage and tail solve
+    recorded (precision, iterations, clocks, backend, SpMV launches) and
+    the stage lines of HPRLP_REFINE_LOG read.  Returns (result, host-f64
+    KKT, wall seconds, the solve_problem calls, the stage lines)."""
+    import io
+
+    import hprlp_tpu_torch as hp
+    from hprlp_tpu_torch.ops.spmm import csr_spmm
+    from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
+    from hprlp_tpu_torch.solver import loop as loop_mod
+
+    inner = loop_mod.solve_problem
+    calls = []
+
+    def recording(prob, params, *args, **kwargs):
+        before = (tiled_spmv.launches, csr_spmv.launches, csr_spmm.launches)
+        t = time.perf_counter()
+        res = inner(prob, params, *args, **kwargs)
+        calls.append({
+            "precision": params.precision, "stop_tol": params.stop_tol,
+            "warm": kwargs.get("x0") is not None, "status": res.status,
+            "iter": res.iter, "time_s": res.time,
+            "wall_s": time.perf_counter() - t,
+            # The solve sets capture_time on whatever its module calls
+            # solve_problem: this wrapper, while it is installed.
+            "capture_s": recording.capture_time,
+            "backend": res.spmv_backend,
+            "launches": {"tiled": tiled_spmv.launches - before[0],
+                         "gather": csr_spmv.launches - before[1]},
+            "csr_spmm": csr_spmm.launches - before[2]})
+        return res
+
+    log = io.StringIO()
+    saved = os.environ.get("HPRLP_REFINE_LOG")
+    os.environ["HPRLP_REFINE_LOG"] = "1"
+    loop_mod.solve_problem = recording
+    try:
+        with contextlib.redirect_stderr(log):
+            t = time.perf_counter()
+            res = hp.Model(problem).solve(hp.Parameters(
+                precision="mixed", verbose=False, max_iter=500_000, **kw))
+            wall = time.perf_counter() - t
+    finally:
+        loop_mod.solve_problem = inner
+        if saved is None:
+            os.environ.pop("HPRLP_REFINE_LOG")
+        else:
+            os.environ["HPRLP_REFINE_LOG"] = saved
+    stages = [{"stage": int(m[1]), "zoom": float(m[2]), "iter": int(m[3]),
+               "kkt": float(m[4])} for m in REFINE_LINE.finditer(
+                   log.getvalue())]
+    kkt = problem.kkt_error(res.x, res.y, res.z)["kkt"]
+    stage_calls = [c for c in calls if c["precision"] != "f64"
+                   or kw.get("refine_stage_precision") == "f64"]
+    tail = calls[len(stage_calls):]
+    for st, c in zip(stages, stage_calls):
+        phase(13, f"{name} stage {st['stage']}: {c['precision']} zoom="
+                  f"{st['zoom']:.1e} iter={c['iter']} kkt_f64={st['kkt']:.3e}"
+                  f" status={c['status']} backend={c['backend']} "
+                  f"launches={c['launches']} solve={c['time_s']:.3f}s "
+                  f"capture={c['capture_s']:.3f}s wall={c['wall_s']:.3f}s")
+    for k, c in enumerate(tail):
+        phase(13, f"{name} f64 tail attempt {k + 1} "
+                  f"({'warm' if c['warm'] else 'cold'}): iter={c['iter']} "
+                  f"status={c['status']} backend={c['backend']} "
+                  f"launches={c['launches']} solve={c['time_s']:.3f}s "
+                  f"capture={c['capture_s']:.3f}s wall={c['wall_s']:.3f}s")
+    phase(13, f"{name} mixed {kw}: status={res.status} iter={res.iter} "
+              f"stages={len(stage_calls)} tail attempts={len(tail)} "
+              f"Results.time={res.time:.3f}s wall={wall:.3f}s "
+              f"primal_obj={res.primal_obj:.12e} kkt_f64={kkt:.3e} [{card}]")
+    check(len(stages) == len(stage_calls),
+          f"phase 13: {name}: {len(stages)} stage lines for "
+          f"{len(stage_calls)} stage solves")
+    for c in calls:
+        check_backend(13, c["backend"], c["launches"])
+    return res, kkt, wall, calls, stages
+
+
+def mixed_phase(card, prob4):
+    """Phase 13: precision="mixed" on assignment64 and assignment128 at
+    1e-8 against linear_sum_assignment, each beside the direct f64 solve;
+    f64 stages once on assignment64; sparse_large at 1e-6.  Returns
+    (record, {"f32": {backend: launches}, "f64": {...}, "csr_spmm": n})."""
+    import hprlp_tpu_torch as hp
+    from scipy.optimize import linear_sum_assignment
+
+    record = {}
+    launches = {"f32": {"tiled": 0, "gather": 0},
+                "f64": {"tiled": 0, "gather": 0}, "csr_spmm": 0}
+
+    def tally(calls):
+        for c in calls:
+            for k, v in c["launches"].items():
+                launches[c["precision"]][k] += v
+            launches["csr_spmm"] += c["csr_spmm"]
+
+    runs = [("assignment64", 64, {}), ("assignment128", 128, {}),
+            ("assignment64", 64, {"refine_stage_precision": "f64"})]
+    for name, size, extra in runs:
+        problem = assignment_problem(size)
+        res, kkt, wall, calls, stages = refined_solve(
+            card, name, problem, stop_tol=1e-8, time_limit=300.0, **extra)
+        tally(calls)
+        side = int(np.sqrt(problem.n))
+        cost = problem.c.reshape(side, side)
+        r, c = linear_sum_assignment(cost)
+        exact = float(cost[r, c].sum())
+        rel = abs(res.primal_obj - exact) / abs(exact)
+        t = time.perf_counter()
+        direct = hp.Model(problem).solve(hp.Parameters(
+            stop_tol=1e-8, precision="f64", verbose=False, max_iter=500_000,
+            time_limit=300.0))
+        dwall = time.perf_counter() - t
+        phase(13, f"{name}: linear_sum_assignment={exact:.10e} rel_err="
+                  f"{rel:.3e}; direct f64 solve: {direct.status} iter="
+                  f"{direct.iter} Results.time={direct.time:.3f}s wall="
+                  f"{dwall:.3f}s [{card}]")
+        check(res.status == "OPTIMAL", f"phase 13: {name} {extra}: status "
+              f"{res.status}")
+        check(kkt < 1e-8, f"phase 13: {name} {extra}: host f64 KKT {kkt}")
+        check(rel < 1e-6, f"phase 13: {name} {extra}: objective off by "
+              f"{rel}")
+        key = name + ("_f64_stages" if extra else "")
+        record[key] = {"status": res.status, "iter": res.iter,
+                       "time_s": res.time, "wall_s": wall, "kkt_f64": kkt,
+                       "rel_err": rel, "stages": stages, "calls": calls,
+                       "direct_f64": {"iter": direct.iter,
+                                      "time_s": direct.time,
+                                      "wall_s": dwall}}
+    res, kkt, wall, calls, stages = refined_solve(
+        card, "sparse_large", prob4, stop_tol=1e-6, time_limit=300.0)
+    tally(calls)
+    check(res.status == "OPTIMAL", f"phase 13: sparse_large: status "
+          f"{res.status}")
+    check(kkt < 1e-6, f"phase 13: sparse_large: host f64 KKT {kkt}")
+    record["sparse_large_1e-6"] = {
+        "status": res.status, "iter": res.iter, "time_s": res.time,
+        "wall_s": wall, "kkt_f64": kkt, "stages": stages, "calls": calls}
+    phase(13, f"SpMV launches by stage precision: {launches}")
+    for tag in ("f32", "f64"):
+        check(launches[tag]["tiled"] + launches[tag]["gather"] > 0,
+              f"phase 13: no {tag} SpMV launched")
+    return record, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1281,6 +1857,24 @@ def main():
     fused_rec = fused_phase(card)
     graph_rec = graph_phase(card, prob4, prob5, peak6)
     csr11, autotune_rec = autotune_phase(card, prob4)
+    t_service = time.perf_counter()
+    server_rec, l12a, iters12 = server_pipes(
+        card, prob4, [built[spmv_mod.TILED_SOURCE][0],
+                      built[spmm_mod.SOURCE][0], native.LIB_PATH])
+    capi_rec, l12b = capi_phase(card, prob4, iters12)
+    mixed_rec, l13 = mixed_phase(card, prob4)
+    phase(13, f"phases 12 and 13 took {time.perf_counter() - t_service:.1f}"
+              f" s [{card}]")
+    # Phase 12's workers by the precision they solved in: the server and
+    # the ctypes consumer f32 (1e-4), the C examples f64 (f64 or 1e-6).
+    w32 = [l12a, l12b["ctypes"]]
+    w64 = [l12b[name] for name, _ in EXAMPLES]
+
+    def worker_sum(workers, kernel):
+        return sum(w[kernel] for w in workers)
+
+    p12 = {k: worker_sum(w32 + w64, k) for k in (
+        "csr_spmv", "csr_spmm", "spmm_x_half", "spmm_y_half")}
     # Each phase's SpMV launches, by the backend each solve ran.
     by_phase = {"4": l4, "5": l5, "6": l6, "8": l8}
 
@@ -1290,10 +1884,12 @@ def main():
 
     kernels = []
     for tag, launches, replaces, also in (
-            ("f32", l4["tiled"] + l6["tiled"] + l8["tiled"] + l9_tiled,
+            ("f32", l4["tiled"] + l6["tiled"] + l8["tiled"] + l9_tiled
+             + worker_sum(w32, "tiled_spmv") + l13["f32"]["tiled"],
              "hprlp_tpu/ops/pallas_spmv.py:67",
              "thin_spmv hprlp_tpu/ops/pallas_spmv.py:272"),
-            ("f64", l5["tiled"], "hprlp_tpu/ops/pallas_spmv.py:178",
+            ("f64", l5["tiled"] + worker_sum(w64, "tiled_spmv")
+             + l13["f64"]["tiled"], "hprlp_tpu/ops/pallas_spmv.py:178",
              "thin_spmv_df64 hprlp_tpu/ops/pallas_spmv.py:394")):
         a = rec["bench", tag, "A"]
         kernels.append({
@@ -1323,7 +1919,8 @@ def main():
                     "--cusparse-spmv true backend; launches: phase 11's "
                     "solves (forced and chosen) and, where the autotune "
                     "chose it, phases 4-6 and 8",
-            "launches": csr11[tag] + sum(
+            "launches": csr11[tag] + l13[tag]["gather"] + worker_sum(
+                w32 if tag == "f32" else w64, "csr_spmv") + sum(
                 v["gather"] for k, v in by_phase.items()
                 if (k == "5") == (tag == "f64")),
             "max_abs_err": max(r["err_csr"] for (_, t, _), r in rec.items()
@@ -1333,10 +1930,17 @@ def main():
             "library_ms": a["library_ms"],
             "shapes": shapes(tag, ("csr_ms", "csr_plain_ms", "bound_ms",
                                    "library_ms"))})
-    kernels[0]["launches_by_phase"] = {"4": l4["tiled"], "6": l6["tiled"],
-                                       "8": l8["tiled"], "9": l9_tiled}
+    kernels[0]["launches_by_phase"] = {
+        "4": l4["tiled"], "6": l6["tiled"], "8": l8["tiled"], "9": l9_tiled,
+        "12": worker_sum(w32, "tiled_spmv"), "13": l13["f32"]["tiled"]}
+    kernels[1]["launches_by_phase"] = {
+        "5": l5["tiled"], "12": worker_sum(w64, "tiled_spmv"),
+        "13": l13["f64"]["tiled"]}
     kernels[0]["mps_presolve"] = mps_record
     kernels[0]["graphs"] = graph_rec
+    kernels[0]["server"] = server_rec
+    kernels[0]["capi"] = capi_rec
+    kernels[0]["mixed"] = mixed_rec
     kernels[2]["autotune"] = autotune_rec
     kernels += variant_records
     head = spmm_rec["f32", "A", 64]
@@ -1347,7 +1951,8 @@ def main():
         "max_err_rel_abs_ax": max(r["err"] for r in spmm_rec.values()),
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"]}
-    spmm_by_phase = {"4": s4, "5": s5, "6": s6, "8": s8, "9": l9["csr_spmm"]}
+    spmm_by_phase = {"4": s4, "5": s5, "6": s6, "8": s8, "9": l9["csr_spmm"],
+                     "12": p12["csr_spmm"], "13": l13["csr_spmm"]}
     kernels.append({
         "name": "csr_spmm", **spmm_common,
         "note": "no Pallas kernel in the JAX package: spmm is an XLA "
@@ -1378,7 +1983,9 @@ def main():
                     f"SpMM over {matrix}'s rows; no Pallas kernel in the "
                     f"JAX package (XLA fuses it); batched_large B=64 f32, "
                     f"plain_ms the plain ops by graph replay",
-            "launches": l9[f"spmm_{half}_half"],
+            "launches": l9[f"spmm_{half}_half"] + p12[f"spmm_{half}_half"],
+            "launches_by_phase": {"9": l9[f"spmm_{half}_half"],
+                                  "12": p12[f"spmm_{half}_half"]},
             "max_abs_err": max(fused_rec[t]["max_abs_err"]
                                for t in fused_rec),
             "ms": r32["ms"], "plain_ms": r32["plain_ms"],

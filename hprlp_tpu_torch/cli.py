@@ -4,9 +4,10 @@ Port of hprlp_tpu/cli.py: the same flags, defaults, solution file and exit
 codes (0 OPTIMAL, 1 input or parse error, 2 any other status).  --device
 takes a CUDA device index (default 0) or ``cpu``; without CUDA the CLI
 fails unless ``--device cpu`` is given.  --cusparse-spmv true forces the
-CSR SpMV backend ("gather"), as the JAX CLI does.  Flags whose feature the
-port does not have yet exit 1 with a message that names them: --precision
-mixed, --mesh and --malloc-tune.
+CSR SpMV backend ("gather"), as the JAX CLI does.  --precision mixed
+solves by f32 stages refined in host f64 (solver/refine.py).  Flags whose
+feature the port does not have yet exit 1 with a message that names them:
+--mesh and --malloc-tune.
 """
 
 from __future__ import annotations
@@ -74,8 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision",
                    choices=("auto", "f32", "f64", "mixed"),
                    default="auto",
-                   help="Solve precision (default: auto; mixed is not "
-                        "ported and exits 1)")
+                   help="Solve precision (default: auto; mixed: f32 "
+                        "stages refined in host f64, then an f64 tail)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
                    help="Shard the solve over N devices (not ported: "
                         "exits 1)")
@@ -119,8 +120,6 @@ def write_solution(path: str, res) -> None:
 def unported_flags(args) -> list[str]:
     """The flags given whose feature the port does not have yet."""
     out = []
-    if args.precision == "mixed":
-        out.append("--precision mixed (iterative refinement)")
     if args.mesh is not None:
         out.append("--mesh (multi-device solves)")
     if args.malloc_tune:

@@ -50,24 +50,29 @@ _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
-def _stale() -> bool:
-    """True if the library is missing or older than a source or header
-    (make's rule)."""
-    if not os.path.exists(LIB_PATH):
+def _stale(path: str, inputs) -> bool:
+    """True if `path` is missing or older than one of `inputs` (make's
+    rule)."""
+    if not os.path.exists(path):
         return True
-    built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(p) > built for p in SOURCES + HEADERS)
+    built = os.path.getmtime(path)
+    return any(os.path.getmtime(p) > built for p in inputs)
 
 
-def build(timeout: float = BUILD_TIMEOUT_S) -> str:
-    """Compile the host library if it is missing or stale.  Returns its
-    path.  Raises RuntimeError if g++ fails or another process holds the
-    build lock for longer than `timeout` seconds."""
-    if not _stale():
-        return LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def build_library(path: str, sources, headers, flags=(), libs=(),
+                  timeout: float = BUILD_TIMEOUT_S) -> str:
+    """Compile `sources` with g++ (native/Makefile's CXXFLAGS and LDFLAGS,
+    then `flags`, linking `libs`) into the shared library `path` if it is
+    missing or older than a source or header.  Returns `path`.  Raises
+    RuntimeError if g++ fails or another process holds the build lock
+    for longer than `timeout` seconds."""
+    inputs = tuple(sources) + tuple(headers)
+    if not _stale(path, inputs):
+        return path
+    build_dir = os.path.dirname(path)
+    os.makedirs(build_dir, exist_ok=True)
     deadline = time.monotonic() + timeout
-    with open(os.path.join(BUILD_DIR, "libhprlp_host.lock"), "w") as lock:
+    with open(os.path.splitext(path)[0] + ".lock", "w") as lock:
         while True:
             try:
                 fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
@@ -76,16 +81,16 @@ def build(timeout: float = BUILD_TIMEOUT_S) -> str:
                 if time.monotonic() > deadline:
                     raise RuntimeError(f"timed out after {timeout:.0f} s "
                                        f"waiting for the build lock of "
-                                       f"{LIB_PATH}") from None
+                                       f"{path}") from None
                 time.sleep(0.1)
         try:
-            if not _stale():  # another process built it while we waited
-                return LIB_PATH
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            if not _stale(path, inputs):  # built while we waited
+                return path
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
             os.close(fd)
-            cmd = ["g++", *CXXFLAGS, *LDFLAGS,
-                   "-I" + os.path.join(_NATIVE_DIR, "include"), *SOURCES,
-                   "-o", tmp, "-lz"]
+            cmd = ["g++", *CXXFLAGS, *LDFLAGS, *flags,
+                   "-I" + os.path.join(_NATIVE_DIR, "include"), *sources,
+                   "-o", tmp, *libs]
             try:
                 proc = subprocess.run(
                     cmd, capture_output=True, text=True,
@@ -93,13 +98,21 @@ def build(timeout: float = BUILD_TIMEOUT_S) -> str:
                 if proc.returncode != 0:
                     raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
                                        f"{proc.stderr[-4000:]}")
-                os.replace(tmp, LIB_PATH)
+                os.replace(tmp, path)
             finally:
                 if os.path.exists(tmp):
                     os.remove(tmp)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
-    return LIB_PATH
+    return path
+
+
+def build(timeout: float = BUILD_TIMEOUT_S) -> str:
+    """Compile the host library if it is missing or stale.  Returns its
+    path.  Raises RuntimeError if g++ fails or another process holds the
+    build lock for longer than `timeout` seconds."""
+    return build_library(LIB_PATH, SOURCES, HEADERS, libs=("-lz",),
+                         timeout=timeout)
 
 
 def _configure(lib):

@@ -5,10 +5,12 @@ include/structs.h:25-40) plus TPU-specific knobs (precision, sharding).
 
 Copy of hprlp_tpu/params.py, so that one Parameters object drives either
 package; tests/test_torch_copies.py pins the fields and defaults together.
-The port's solver (solver/loop.py) honours a subset: precision "auto",
-"f32" and "f64" (on CUDA, "auto" is f32 at stop_tol >= 1e-5 and f64 below),
-spmv_backend "auto" and "lane" (both run the tiled SpMV kernel, the port
-of the lane kernels), and no mesh; the others raise NotImplementedError there.
+The port's solver (solver/loop.py) honours every precision: "auto",
+"f32", "f64" (on CUDA, "auto" is f32 at stop_tol >= 1e-5 and native f64
+below) and "mixed" (f32 stages refined in host f64 with an f64 tail,
+solver/refine.py; refine_stage_precision="f64" runs native f64 stages).
+spmv_backend "auto" and "lane" run the tiled SpMV kernel, the port of the
+lane kernels.  mesh_shape is not ported and raises NotImplementedError.
 """
 
 from __future__ import annotations

@@ -275,10 +275,6 @@ def initial_bmetrics(lp: BatchedLpDevice, row_norm, col_norm,
 
 
 def _check_supported(params: Parameters) -> None:
-    if params.precision == "mixed":
-        raise NotImplementedError(
-            "precision='mixed' (iterative refinement) is not ported yet "
-            "(ROADMAP.md queue 1 item 8, mixed precision)")
     if params.mesh_shape:
         raise NotImplementedError(
             "mesh_shape (batched solves over several devices) is not ported "
@@ -454,6 +450,8 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
     reference bindings solve_batched, bindings/python/hprlp/solver.py:335,
     src/batched_solver.cu:939).  device: a torch device; None means
     cuda:{params.device_number}, and raises without CUDA.
+    precision="mixed" solves in f64 on the CPU and f32 on CUDA with no
+    refinement, as the JAX package's solve_batched does.
 
     spmv_backend: "auto" and "gather" run the CSR SpMM kernel; "auto" on
     the card also probes a dense product (below); "dense" runs the dense

@@ -31,7 +31,8 @@ from .power_iteration import power_method
 from .scaling import scale_problem
 
 # On a CUDA device, precision="auto" runs f32 at stop_tol >= this and f64
-# below it (the GPU's f64 is native, so no mixed-precision route).
+# below it (the GPU's f64 is native, so "auto" never routes to the
+# refinement of precision="mixed").
 F64_BELOW_TOL = 1e-5
 
 
@@ -84,15 +85,15 @@ def resolve_device(params: Parameters, device=None) -> torch.device:
 
 def resolve_dtype(params: Parameters, device: torch.device) -> torch.dtype:
     """precision -> dtype.  "auto" is f64 on the CPU; on CUDA it is f32 at
-    stop_tol >= F64_BELOW_TOL and native f64 below."""
+    stop_tol >= F64_BELOW_TOL and native f64 below.  "mixed" reaches here
+    only from solve_batched, which has no refinement: f64 on the CPU and
+    f32 on CUDA, the JAX package's batched route."""
     if params.precision == "f64":
         return torch.float64
     if params.precision == "f32":
         return torch.float32
     if params.precision == "mixed":
-        raise NotImplementedError(
-            "precision='mixed' (iterative refinement) is not ported yet "
-            "(ROADMAP.md queue 1, mixed precision)")
+        return torch.float64 if device.type == "cpu" else torch.float32
     if device.type == "cpu" or params.stop_tol < F64_BELOW_TOL:
         return torch.float64
     return torch.float32
@@ -118,6 +119,8 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     minus presolve.  x0/y0: optional warm-start points in the ORIGINAL
     space; sigma0: resume sigma from a prior solve of the same problem.
     device: a torch device; None means cuda:{params.device_number}.
+    precision="mixed" runs refine.solve_refined (f32 stages, an f64 tail)
+    on that device.
 
     spmv_backend: "auto" runs the autotune's choice on the card
     (autotune.py) and the tiled kernel's plain version on the CPU; "lane"
@@ -130,6 +133,10 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     params.validate()
     _check_supported(params)
     device = resolve_device(params, device)
+    if params.precision == "mixed":
+        from .refine import solve_refined
+
+        return solve_refined(problem, params, x0=x0, y0=y0, device=device)
     dtype = resolve_dtype(params, device)
     log = print if params.verbose else (lambda *a, **k: None)
 

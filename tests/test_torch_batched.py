@@ -396,8 +396,8 @@ def test_no_device_without_cuda_raises(monkeypatch):
         ht.solve_batched(*args, params=quiet())
 
 
-@pytest.mark.parametrize("kw,item", [({"precision": "mixed"}, "item 8"),
-                                     ({"mesh_shape": 2}, "item 6")])
+@pytest.mark.parametrize("kw,item", [({"mesh_shape": 2}, "item 6")],
+                         ids=["kw1-item 6"])
 def test_options_not_ported_raise(kw, item):
     args, _, _ = _demo()
     with pytest.raises(NotImplementedError, match=item):

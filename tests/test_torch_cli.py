@@ -137,10 +137,9 @@ def test_input_errors_exit_1_as_jax(tmp_path, case, libraries, capsys):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--precision", "mixed"], "--precision mixed"),
     (["--mesh", "2"], "--mesh"),
     (["--malloc-tune"], "--malloc-tune"),
-], ids=["precision_mixed", "mesh", "malloc_tune"])
+], ids=["mesh", "malloc_tune"])
 def test_unported_flags_exit_1(flags, name, capsys):
     assert cli.main(["-i", MODEL, "--device", "cpu", *flags]) == 1
     captured = capsys.readouterr()

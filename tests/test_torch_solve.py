@@ -129,8 +129,7 @@ def test_no_device_without_cuda_raises(monkeypatch):
         ht.solve(*CASES["demo"](), ht.Parameters(verbose=False))
 
 
-@pytest.mark.parametrize("kw", [{"precision": "mixed"},
-                                {"mesh_shape": 2}])
+@pytest.mark.parametrize("kw", [{"mesh_shape": 2}], ids=["kw1"])
 def test_options_not_ported_raise(kw):
     with pytest.raises(NotImplementedError):
         ht.solve_problem(LpProblem.from_arrays(*CASES["demo"]()),
