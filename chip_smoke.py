@@ -12,35 +12,50 @@ and the C ABI with their workers on the card, and precision="mixed".  Every solv
 on the card replays its chunk boundary from a CUDA graph captured before
 its clock starts, and (single LP) runs the SpMV backend the autotune
 chose; a solve fails its phase unless it launched that backend's kernel
-and no other SpMV kernel (the probes' launches are counted apart):
+and no other SpMV kernel (the probes' launches are counted apart), on
+"gather" its fused halves too, and never the previous designs:
 
   1. toolchain   nvidia-smi name/power limit, torch, CUDA, nvcc, Triton
-  2. build       the four kernel libraries (nvcc, sm_90a, one process per
+  2. build       the six kernel libraries (nvcc, sm_90a, one process per
                  source, started together) and the host library (g++,
                  native/src), with their build times
   0. repairs     scale_matrix twice on the first LP's A and A^T (f32):
                  bitwise-equal values and norms (its row sums run on the
                  SpMM kernel in CSR order); after phase 4, its solve run a
                  second time: the same iterations and a bitwise-equal
-                 objective
-  3. kernel      the tiled SpMV (main path) and the CSR kernel (previous
-                 design), f32 and f64, on A and A^T of random_lp(65536,
-                 131072, 20, seed=2) and random_lp(262144, 524288, 40,
-                 seed=4): each against its plain version, the tiled one
-                 also for bitwise-identical repeats; timings of both, of
-                 the tiled kernel's stages and of torch.mv on a sparse CSR
-                 tensor (cuSPARSE, the library yardstick), the bound, and
-                 the tiles' build time
+                 objective; then MEMORY_SOLVES more in-process solves of
+                 it with no release_device_memory: torch.cuda.
+                 memory_reserved() and nvidia-smi's used memory flat
+                 within MEMORY_FLAT_MIB after the second (one warm-up
+                 stream and one graph pool per device), and, for the
+                 record, FAULT_SOLVES solves with a new stream and a
+                 private pool per capture
+  3. kernel      the tiled SpMV (main path), the CSR kernel ("gather":
+                 csrc/spmv_csr.cu on its row-block plan) and the first
+                 row-group design (csrc/spmv.cu), f32 and f64, on A and
+                 A^T of random_lp(65536, 131072, 20, seed=2) and
+                 random_lp(262144, 524288, 40, seed=4): each against its
+                 plain version (the CSR kernel bitwise, on its plan), the
+                 tiled and CSR ones also for bitwise-identical repeats;
+                 timings of all three, of the CSR kernel without its
+                 random x gather, of the tiled kernel's stages and of
+                 torch.mv on a sparse CSR tensor (cuSPARSE, the library
+                 yardstick), the bound and share of it, and the tiles'
+                 and plans' build times
   4. main f32    solve of the first LP at stop_tol=1e-4 (auto -> f32),
-                 with the autotune's probe times and the graph's capture
-                 time
+                 with the autotune's probe times, its choice and the
+                 graph's capture time; the chosen backend's chunk
+                 profiled (device us/it, kernels/it, busy share)
   5. main f64    assignment_problem(64) at 1e-8 (auto -> f64), objective
                  against scipy's linear_sum_assignment
-  6. real size   solve of the second LP (10.5M nnz) at 1e-4, and its peak
-                 device memory
+  6. real size   solve of the second LP (10.5M nnz) at 1e-4, its peak
+                 device memory and its chunk profiled, as in phase 4
   7. variants    the four prof_* studies (hprlp_tpu_torch/prof/) on the
                  bench LP (A, A^T) and on phase 6's LP (A), every variant
-                 against its plain version and the exact ones against A @ x
+                 against its plain version and the exact ones against A @
+                 x; segsum full (one-hot tensor-core row sums on the
+                 tiles) beside the tiled kernel on the same tiles and
+                 cuSPARSE
   8. mps + presolve   structured_lp(scale=1.0, seed=7) (950,000 x
                  1,000,000, 10.50M nnz) written as MPS to a temporary
                  directory and solved by hprlp_tpu_torch.cli.main at 1e-4:
@@ -77,18 +92,25 @@ and no other SpMV kernel (the probes' launches are counted apart):
                  fused halves and one through the plain halves, bitwise
                  equal; each half's time by graph replay, fused and
                  plain, beside its byte bound; the f64 chunk profiled
- 10. graphs      at sparse_large f32 (1e-4), assignment64 f64 (1e-8) and
-                 batched_large f32 (1e-4): run_superchunk (or
+ 10. graphs      at sparse_large f32 (1e-4) on the tiled and on the gather
+                 backend, assignment64 f64 (1e-8) and batched_large f32
+                 (1e-4): run_superchunk (or
                  run_batched_superchunk) from the solve's starting point,
                  eagerly and by the replays of a captured graph: the same
                  chunks, bitwise-equal stacked tables and final state; the
                  capture time, the host time per replay, it/s both ways,
                  the busy share over replays (prof_loop), and phase 6's
-                 peak memory
+                 peak memory; (b) at sparse_large on the gather backend,
+                 f32 and f64: one 150-iteration run_chunk through the
+                 single-LP halves fused into the CSR kernel, one through
+                 the plain halves and the fused chunk's graph replay,
+                 bitwise equal; each half timed fused and plain, beside
+                 its byte bound
  11. autotune    autotune_backends twice on sparse_large f32, sparse_large
                  f64 and random_lp(4096, 8192, 128, seed=5) (1.56% dense):
                  each candidate's probe time, the choice, whether the two
-                 choices agree; each LP solved with spmv_backend "gather"
+                 choices agree, no probe failed, the chosen chunk
+                 profiled; each LP solved with spmv_backend "gather"
                  (and "dense" and "auto" where a dense copy is eligible) to
                  OPTIMAL with host-f64 KKT < 1e-3, launching only its
                  backend; cli.main --cusparse-spmv true on data/model.mps
@@ -126,6 +148,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -186,7 +209,9 @@ def kernel_check(card, problems):
     {(size, dtype tag, matrix): record}."""
     from hprlp_tpu_torch.ops.device_problem import build_device_problem
     from hprlp_tpu_torch.ops.spmv import (MAIN_STAGE, TILED_STAGES,
-                                          csr_spmv, max_active_clusters,
+                                          csr_spmv, csr_spmv_no_gather,
+                                          csr_spmv_plain, csr_spmv_rowgroup,
+                                          max_active_clusters, row_blocks,
                                           spmv_reference, tiled_spmv)
     from hprlp_tpu_torch.ops.tiles import build_tiles, tiled_spmv_reference
 
@@ -202,17 +227,26 @@ def kernel_check(card, problems):
                 T = build_tiles(M)
                 torch.cuda.synchronize()
                 tiles_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                P = row_blocks(M)
+                torch.cuda.synchronize()
+                blocks_s = time.perf_counter() - t0
+                M = dataclasses.replace(M, blocks=P)
                 x = torch.as_tensor(rng.normal(size=M.ncols), device="cuda"
                                     ).to(dtype)
                 y = tiled_spmv(T, x)
                 y_again = tiled_spmv(T, x)
                 y_ref = tiled_spmv_reference(T, x)
                 y_csr = csr_spmv(M, x)
+                y_csr_again = csr_spmv(M, x)
+                y_csr_plain = csr_spmv_plain(M, x)
                 y_csr_ref = spmv_reference(M, x)
+                y_prev = csr_spmv_rowgroup(M, x)
                 torch.cuda.synchronize()
                 scale = float(y_ref.abs().max())
                 err = float((y - y_ref).abs().max())
                 err_csr = float((y_csr - y_csr_ref).abs().max())
+                err_prev = float((y_prev - y_csr_ref).abs().max())
                 what = f"{size} {tag} {mat_name}"
                 check(err <= rtol * scale, f"{what}: tiled max abs err "
                       f"{err} > {rtol} * {scale}")
@@ -220,6 +254,12 @@ def kernel_check(card, problems):
                       f"{what}: two tiled launches differ")
                 check(err_csr <= rtol * scale, f"{what}: CSR max abs err "
                       f"{err_csr} > {rtol} * {scale}")
+                check(torch.equal(y_csr, y_csr_plain), f"{what}: the CSR "
+                      f"kernel differs from its plain version on the plan")
+                check(torch.equal(y_csr, y_csr_again),
+                      f"{what}: two CSR launches differ")
+                check(err_prev <= rtol * scale, f"{what}: row-group CSR max "
+                      f"abs err {err_prev} > {rtol} * {scale}")
                 # The stages: each x path on the main tiles, and x staged
                 # per block on tiles of one strip group (row blocks only).
                 one_group = build_tiles(M, strip_groups=1)
@@ -237,7 +277,9 @@ def kernel_check(card, problems):
                 bound_ms, bound_by = spmv_bound(M, dtype)
                 rec = {
                     "err": err, "scale": scale, "err_csr": err_csr,
-                    "nnz": M.nnz, "tiles_s": tiles_s,
+                    "err_rowgroup": err_prev, "nnz": M.nnz,
+                    "tiles_s": tiles_s, "blocks_s": blocks_s,
+                    "blocks": P.n_blocks, "blocks_bytes": P.nbytes,
                     "strips": T.n_strips, "strip_width": T.strip_width,
                     "groups": T.n_groups, "chunks": T.n_chunks,
                     "blocks": T.n_blocks, "smem": T.smem_bytes,
@@ -245,7 +287,11 @@ def kernel_check(card, problems):
                     "ms": stages[MAIN_STAGE],
                     "plain_ms": time_ms(lambda: tiled_spmv_reference(T, x)),
                     "csr_ms": time_ms(lambda: csr_spmv(M, x)),
-                    "csr_plain_ms": time_ms(lambda: spmv_reference(M, x)),
+                    "csr_plain_ms": eager_ms(lambda: csr_spmv_plain(M, x),
+                                             reps=3),
+                    "rowgroup_ms": time_ms(lambda: csr_spmv_rowgroup(M, x)),
+                    "no_gather_ms": time_ms(lambda: csr_spmv_no_gather(M, x)),
+                    "reference_ms": time_ms(lambda: spmv_reference(M, x)),
                     "library_ms": time_ms(library_call(M, x)),
                     "eager_ms": eager_ms(lambda: tiled_spmv(T, x)),
                     "bound_ms": bound_ms, "bound_by": bound_by,
@@ -259,11 +305,25 @@ def kernel_check(card, problems):
                          f"repeat bitwise-identical; tiled={rec['ms']:.5f} ms "
                          f"({rec['bound_ms'] / rec['ms']:.1%} of bound "
                          f"{bound_ms:.5f} ms, {bound_by}) plain="
-                         f"{rec['plain_ms']:.5f} csr={rec['csr_ms']:.5f} "
-                         f"(err {err_csr:.3e}) csr_plain="
-                         f"{rec['csr_plain_ms']:.5f} library="
+                         f"{rec['plain_ms']:.5f} library="
                          f"{rec['library_ms']:.5f} eager_tiled="
                          f"{rec['eager_ms']:.5f} [{card}]")
+                phase(3, f"{what} CSR kernel (csrc/spmv_csr.cu) on "
+                         f"{P.n_blocks} row blocks ({P.nbytes} B, built in "
+                         f"{blocks_s:.4f} s): {rec['csr_ms']:.5f} ms "
+                         f"({bound_ms / rec['csr_ms']:.1%} of bound), "
+                         f"bitwise its plain version and its repeat, "
+                         f"max_abs_err={err_csr:.3e} against spmv_reference; "
+                         f"plain {rec['csr_plain_ms']:.5f} ms (eager); "
+                         f"without the random x gather (x read at the "
+                         f"entry's index) {rec['no_gather_ms']:.5f} ms: the "
+                         f"gather {1 - rec['no_gather_ms'] / rec['csr_ms']:.0%}"
+                         f" of the time; previous "
+                         f"design (row groups, csrc/spmv.cu) "
+                         f"{rec['rowgroup_ms']:.5f} ms "
+                         f"({bound_ms / rec['rowgroup_ms']:.1%}, err "
+                         f"{err_prev:.3e}); library (cuSPARSE) "
+                         f"{rec['library_ms']:.5f} ms [{card}]")
                 phase(3, f"{what} stages (ms, graph replay): " + ", ".join(
                     f"{k}={v:.5f}" for k, v in stages.items())
                     + f"; {rec['clusters8']} clusters of 8 fit at once")
@@ -302,17 +362,56 @@ def repair_checks(card, problem):
     return sums
 
 
+# The single-LP SpMV wrappers by the name of their launches in a record:
+# the tiled kernel, the CSR kernel ("gather") and its fused halves, and
+# the previous row-group design, which no solve may launch.
+SPMV_COUNTERS = {"tiled": "tiled_spmv", "gather": "csr_spmv",
+                 "x_half": "spmv_x_half", "y_half": "spmv_y_half",
+                 "rowgroup": "csr_spmv_rowgroup"}
+
+
+def spmv_counters():
+    from hprlp_tpu_torch.ops import spmv
+
+    return {k: getattr(spmv, name) for k, name in SPMV_COUNTERS.items()}
+
+
+def reset_spmv_launches():
+    for fn in spmv_counters().values():
+        fn.launches = 0
+
+
+def spmv_launches():
+    """{"tiled", "gather", "x_half", "y_half", "rowgroup": launches}."""
+    return {k: fn.launches for k, fn in spmv_counters().items()}
+
+
 def check_backend(n, backend, launches):
     """Fail unless a solve on `backend` launched its SpMV kernel and no
-    other.  launches: {"tiled": tiled_spmv's, "gather": csr_spmv's}; a
-    dense product launches neither."""
-    for name, count in launches.items():
+    other: on "gather" its fused halves too, elsewhere never; the row-group
+    design never.  launches: spmv_launches() (a worker's record may hold
+    the first four only); a dense product launches none."""
+    for name in ("tiled", "gather"):
+        count = launches.get(name, 0)
         if name == backend:
             check(count > 0, f"phase {n}: the {name} kernel was never "
                   f"launched")
         else:
             check(count == 0, f"phase {n}: a solve on {backend} launched "
                   f"the {name} kernel {count} times")
+    for half in ("x_half", "y_half"):
+        count = launches.get(half, 0)
+        check((count > 0) == (backend == "gather"), f"phase {n}: a solve on "
+              f"{backend} launched the fused {half} {count} times")
+    check(launches.get("rowgroup", 0) == 0, f"phase {n}: a solve launched "
+          f"the previous CSR design")
+
+
+def check_probes(n, rec):
+    """Fail if an autotune probe failed (the autotune keeps the baseline
+    then, and says so on stderr)."""
+    check(rec is None or not rec["failed"], f"phase {n}: autotune probes "
+          f"failed: {rec and rec['failed']}")
 
 
 def probe_text(rec):
@@ -326,22 +425,22 @@ def probe_text(rec):
 
 def run_solve(n, problem, params, card, peak=False):
     """One solve on the main path.  Returns (result, host f64 KKT, SpMV
-    launches by backend, SpMM launches: the scaling's row sums, peak
-    device bytes or None)."""
+    launches by kernel (spmv_launches), SpMM launches: the scaling's row
+    sums, peak device bytes or None)."""
     import hprlp_tpu_torch as hp
     from hprlp_tpu_torch.ops.spmm import csr_spmm
-    from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
     from hprlp_tpu_torch.solver.autotune import autotune_backends
     from hprlp_tpu_torch.solver.loop import solve_problem
 
-    csr_spmv.launches = tiled_spmv.launches = csr_spmm.launches = 0
+    reset_spmv_launches()
+    csr_spmm.launches = 0
     if peak:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     res = hp.solve(problem.A, problem.AL, problem.AU, problem.l, problem.u,
                    problem.c, params, obj_constant=problem.obj_constant)
     peak_bytes = torch.cuda.max_memory_allocated() if peak else None
-    launches = {"tiled": tiled_spmv.launches, "gather": csr_spmv.launches}
+    launches = spmv_launches()
     row_sums = csr_spmm.launches
     kkt = problem.kkt_error(res.x, res.y, res.z)["kkt"]
     its = res.iter / res.time if res.time > 0 else float("nan")
@@ -358,6 +457,7 @@ def run_solve(n, problem, params, card, peak=False):
              + ("" if peak_bytes is None else
                 f" peak_memory={peak_bytes / 2**30:.3f} GiB") + f" [{card}]")
     check_backend(n, res.spmv_backend, launches)
+    check_probes(n, autotune_backends.record)
     check(row_sums > 0, f"phase {n}: the scaling's row sums never ran on "
           f"the SpMM kernel")
     check(res.status == "OPTIMAL", f"phase {n}: status {res.status}")
@@ -372,8 +472,8 @@ def build_kernels():
     from hprlp_tpu_torch import native
     from hprlp_tpu_torch.ops import spmm, spmv, spmv_variants
 
-    sources = (spmv.TILED_SOURCE, spmv.SOURCE, spmv_variants.SOURCE,
-               spmm.SOURCE, spmm.ROWWISE_SOURCE)
+    sources = (spmv.TILED_SOURCE, spmv.SOURCE, spmv.ROWGROUP_SOURCE,
+               spmv_variants.SOURCE, spmm.SOURCE, spmm.ROWWISE_SOURCE)
     logs = {src: [] for src in sources}
 
     def one(src):
@@ -445,7 +545,6 @@ def mps_phase(card, scale, cli_extra=()):
     from hprlp_tpu_torch import cli, native, presolve
     from hprlp_tpu_torch.io import native_mps
     from hprlp_tpu_torch.ops.spmm import csr_spmm
-    from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
     from hprlp_tpu_torch.prof.problems import structured_lp, write_mps
 
     check(native.is_available(), f"phase 8: the host library did not load: "
@@ -468,7 +567,8 @@ def mps_phase(card, scale, cli_extra=()):
         size = os.path.getsize(mps)
 
         record = []
-        csr_spmv.launches = tiled_spmv.launches = csr_spmm.launches = 0
+        reset_spmv_launches()
+        csr_spmm.launches = 0
         with recorded(record, [(native_mps, "read_mps_native"),
                                (presolve, "presolve_problem"),
                                (presolve.PresolveHandle, "postsolve"),
@@ -478,7 +578,8 @@ def mps_phase(card, scale, cli_extra=()):
             rc = cli.main(["-i", mps, "--tol", "1e-4", "--quiet",
                            "--solution-out", sol, *cli_extra])
             cli_s = time.perf_counter() - t0
-        launches, csr_launches = tiled_spmv.launches, csr_spmv.launches
+        by_backend = spmv_launches()
+        launches, csr_launches = by_backend["tiled"], by_backend["gather"]
         row_sums = csr_spmm.launches
         stage = {name: (secs, out) for name, secs, out in record}
         check(set(stage) == {"read_mps_native", "presolve_problem",
@@ -541,7 +642,6 @@ def mps_phase(card, scale, cli_extra=()):
           f"{ref.status}")
     check(rel < 1e-3, f"phase 8: objective {obj} against {ref.primal_obj} "
           f"with presolve off")
-    by_backend = {"tiled": launches, "gather": csr_launches}
     check_backend(8, res.spmv_backend, by_backend)
     check(row_sums > 0, "phase 8: the scaling's row sums never ran on the "
           "SpMM kernel")
@@ -594,6 +694,7 @@ REPLACES = {
 def variants_phase(card, built, huge_problem):
     """Phase 7: the variant-study path at the bench LP (A, A^T) and at
     phase 6's LP (A).  Returns the four families' JSON records."""
+    from hprlp_tpu_torch.ops import spmv as spmv_mod
     from hprlp_tpu_torch.ops import spmv_variants as sv
     from hprlp_tpu_torch.prof import (prof_dual_acc, prof_flush_variants,
                                       prof_kernel_variants, prof_lane_ablate,
@@ -601,7 +702,8 @@ def variants_phase(card, built, huge_problem):
 
     lib, secs, log = built[sv.SOURCE]
     phase(7, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s "
-             f"(beside the CSR kernel's build)")
+             f"(beside the CSR kernels' builds; segsum full is built with "
+             f"the tiled kernel)")
     for line in ptxas_summary(log):
         phase(7, f"ptxas {line}")
     sizes = {"bench": study.device_matrices(make_problem()),
@@ -649,16 +751,38 @@ def variants_phase(card, built, huge_problem):
                        for size, mats in sizes.items() for mat in mats},
                 "max_abs_err": max(c["err"] for c in errs),
                 "tol_abs": min(c["tol"] * c["scale"] for c in errs)}
+        extra = {}
+        if fam == "segsum":
+            # full runs on the main path's tiles (csrc/spmv_tiled.cu,
+            # ONEHOT): beside it, the tiled kernel on the same tiles.
+            extra = {"full_source": os.path.relpath(spmv_mod.TILED_SOURCE,
+                                                    HERE),
+                     "mm_source": os.path.relpath(sv.SOURCE, HERE)}
+            for size, mats in sizes.items():
+                for mat, Mt in mats.items():
+                    xt = study.study_x(Mt)
+                    t_ms = time_ms(lambda: spmv_mod.tiled_spmv(Mt.tiles, xt))
+                    extra[f"tiled_ms_{size}_{mat}"] = t_ms
+                    seg = t[mat, head, size]["ms"]
+                    phase(7, f"segsum full {size} {mat}: {seg * 1e3:.3f} us"
+                             f" against the tiled kernel on the same tiles "
+                             f"{t_ms * 1e3:.3f} us and cuSPARSE "
+                             f"{library[size, mat] * 1e3:.3f} us [{card}]")
         records.append({
             "name": f"spmv_{fam}", "route": "cuda",
-            "source": os.path.relpath(sv.SOURCE, HERE),
+            "source": os.path.relpath(
+                spmv_mod.TILED_SOURCE if fam == "segsum" else sv.SOURCE,
+                HERE), **extra,
             "replaces": REPLACES[fam][0],
             "also_replaces": "spmv_loop " + REPLACES[fam][1]
                              + ", pallas_call " + REPLACES[fam][2],
             "launches": launches[fam], "headline_variant": head,
             "max_abs_err": variants[head]["max_abs_err"],
             "ms": bench_a["ms"],
-            "plain_ms": time_ms(lambda: sv.plain(fam, M, x, head)),
+            # segsum's plain version reads its sub-block counts on the
+            # host, so it is timed eagerly, not by graph replay.
+            "plain_ms": (eager_ms if fam == "segsum" else time_ms)(
+                lambda: sv.plain(fam, M, x, head)),
             "bound_ms": bench_a["bound_ms"], "bound_by": bench_a["bound_by"],
             "library_ms": library["bench", "A"], "variants": variants})
     phase(7, "launches on the study path: " + ", ".join(
@@ -1045,9 +1169,11 @@ def same_tables(a, b):
 
 
 def graph_phase(card, prob4, prob5, peak6):
-    """Phase 10: the single-LP loop at sparse_large f32 and assignment64
-    f64, and the batched loop at batched_large f32, from the solve's
-    starting point, eagerly and by graph replay.  Returns {cell: record}."""
+    """Phase 10: the single-LP loop at sparse_large f32 (on the tiled and
+    on the gather backend, its middle halves fused into the CSR kernel)
+    and assignment64 f64, and the batched loop at batched_large f32, from
+    the solve's starting point, eagerly and by graph replay.  Returns
+    {cell: record}."""
     from hprlp_tpu_torch.prof import prof_loop
     from hprlp_tpu_torch.prof.problems import batched_lp
     from hprlp_tpu_torch.solver.batched_device_loop import (
@@ -1066,13 +1192,16 @@ def graph_phase(card, prob4, prob5, peak6):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    cells = (("sparse_large_f32", prob4, torch.float32, 1e-4, None),
-             ("assignment64_f64", prob5, torch.float64, 1e-8, None),
+    cells = (("sparse_large_f32", prob4, torch.float32, 1e-4, None,
+              "tiled"),
+             ("sparse_large_f32_gather", prob4, torch.float32, 1e-4, None,
+              "gather"),
+             ("assignment64_f64", prob5, torch.float64, 1e-8, None, "tiled"),
              ("batched_large_f32", None, torch.float32, 1e-4,
-              batched_lp(65536, 131072, 64, seed=3)))
-    for cell, problem, dtype, tol, arrays in cells:
+              batched_lp(65536, 131072, 64, seed=3), None))
+    for cell, problem, dtype, tol, arrays, backend in cells:
         if arrays is None:
-            loop = prof_loop.Loop(problem, dtype)
+            loop = prof_loop.Loop(problem, dtype, backend=backend)
             args = (loop.lp, loop.scal, loop.state, loop.rd, loop.sigma,
                     loop.lam, loop.metrics)
             tail = (loop.obj_c, tol, loop.check, patience)
@@ -1147,13 +1276,35 @@ def graph_phase(card, prob4, prob5, peak6):
     return records
 
 
+def chunk_profile(n, problem, dtype, backend, card):
+    """The solve loop's chunk on `backend`, as the solve replays it
+    (prof_loop.profile over 2 chunks): device us/it, kernels/it, busy
+    share profiled and unprofiled, and the SpMV kernels' share."""
+    from hprlp_tpu_torch.prof import prof_loop
+
+    loop = prof_loop.Loop(problem, dtype, backend=backend)
+    prof = prof_loop.profile(loop, prof_loop.SPMV_KERNELS, chunks=2)
+    del loop
+    rec = {k: prof[k] for k in ("its", "wall_us", "device_us", "busy",
+                                "kernels", "product_us", "product_share")}
+    rec["busy_unprofiled"] = prof["device_us"] * prof["its"] / 1e6
+    phase(n, f"{problem.name} {str(dtype)[6:]} chunk on {backend} (graph "
+             f"replays, prof_loop): {prof['its']:.1f} it/s unprofiled, "
+             f"device {prof['device_us']:.1f} us/it, {prof['kernels']:.1f} "
+             f"kernels/it, busy share {prof['busy']:.3f} profiled and "
+             f"{rec['busy_unprofiled']:.3f} unprofiled, SpMV "
+             f"{prof['product_us']:.1f} us/it ({prof['product_share']:.1%})"
+             f" [{card}]")
+    return rec
+
+
 def autotune_phase(card, prob4):
-    """Phase 11: the autotune twice on three LPs, forced backends, and the
-    CLI's --cusparse-spmv true.  Returns ({dtype tag: csr_spmv launches of
-    the solves}, record)."""
+    """Phase 11: the autotune twice on three LPs, the chunk it picked
+    profiled, forced backends, and the CLI's --cusparse-spmv true.  Returns
+    ({dtype tag: {"gather", "x_half", "y_half": launches of the solves}},
+    record)."""
     import hprlp_tpu_torch as hp
     from hprlp_tpu_torch import cli
-    from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
     from hprlp_tpu_torch.prof import prof_loop
     from hprlp_tpu_torch.solver.autotune import autotune_backends
 
@@ -1161,7 +1312,8 @@ def autotune_phase(card, prob4):
     cells = (("sparse_large_f32", prob4, torch.float32, "f32"),
              ("sparse_large_f64", prob4, torch.float64, "f64"),
              ("dense_lp_f32", dense_lp, torch.float32, "f32"))
-    csr_launches = {"f32": 0, "f64": 0}
+    gather_keys = ("gather", "x_half", "y_half")
+    csr_launches = {t: dict.fromkeys(gather_keys, 0) for t in ("f32", "f64")}
     records = {}
     for cell, problem, dtype, tag in cells:
         loop = prof_loop.Loop(problem, dtype, graph=False)
@@ -1172,6 +1324,7 @@ def autotune_phase(card, prob4):
         for _ in range(2):
             autotune_backends(loop.lp, probe_args)
             runs.append(autotune_backends.record)
+            check_probes(11, runs[-1])
         del loop
         same = runs[0]["choice"] == runs[1]["choice"]
         eligible = "dense" in runs[0]["seconds"]
@@ -1179,24 +1332,25 @@ def autotune_phase(card, prob4):
                   f" run 1 {probe_text(runs[0])}; run 2 "
                   f"{probe_text(runs[1])}; the same choice both runs: "
                   f"{same} [{card}]")
+        picked = chunk_profile(11, problem, dtype, runs[0]["choice"], card)
         solves = {}
         for backend in ("gather",) + (("dense", "auto") if eligible
                                       else ()):
-            csr_spmv.launches = tiled_spmv.launches = 0
+            reset_spmv_launches()
             res = hp.solve(problem.A, problem.AL, problem.AU, problem.l,
                            problem.u, problem.c, hp.Parameters(
                                stop_tol=1e-4, verbose=False,
                                precision=tag, spmv_backend=backend,
                                max_iter=100_000))
-            launches = {"tiled": tiled_spmv.launches,
-                        "gather": csr_spmv.launches}
+            launches = spmv_launches()
             kkt = problem.kkt_error(res.x, res.y, res.z)["kkt"]
             solves[backend] = {"status": res.status, "iter": res.iter,
                                "time_s": res.time, "kkt_f64": kkt,
                                "spmv_backend": res.spmv_backend,
                                "launches": launches,
                                "primal_obj": res.primal_obj}
-            csr_launches[tag] += launches["gather"]
+            for k in gather_keys:
+                csr_launches[tag][k] += launches[k]
             phase(11, f"{cell} spmv_backend={backend!r}: status="
                       f"{res.status} iter={res.iter} solve={res.time:.3f}s "
                       f"it/s={res.iter / max(res.time, 1e-12):.1f} backend="
@@ -1207,22 +1361,24 @@ def autotune_phase(card, prob4):
             check(kkt < 1e-3, f"phase 11: {cell} {backend}: host f64 KKT "
                   f"{kkt}")
             check_backend(11, res.spmv_backend, launches)
+            check_probes(11, autotune_backends.record)
             if backend != "auto":
                 check(res.spmv_backend == backend, f"phase 11: {cell}: "
                       f"forced {backend}, ran {res.spmv_backend}")
         records[cell] = {"probes": runs, "same_choice": same,
-                         "dense_eligible": eligible, "solves": solves}
-    csr_spmv.launches = 0
+                         "dense_eligible": eligible, "solves": solves,
+                         "picked_chunk": picked}
+    reset_spmv_launches()
     rc = cli.main(["-i", os.path.join(HERE, "data", "model.mps"), "--quiet",
                    "--cusparse-spmv", "true"])
+    launches = spmv_launches()
     phase(11, f"cli.main -i data/model.mps --cusparse-spmv true: rc={rc}, "
-              f"csr_spmv launches {csr_spmv.launches}")
+              f"launches {launches}")
     check(rc == 0, f"phase 11: cli.main --cusparse-spmv true: rc {rc}")
-    check(csr_spmv.launches > 0, "phase 11: --cusparse-spmv true never "
-          "launched the CSR kernel")
-    csr_launches["f32"] += csr_spmv.launches
-    records["cli_cusparse_spmv"] = {"rc": rc,
-                                    "csr_spmv_launches": csr_spmv.launches}
+    check_backend(11, "gather", launches)
+    for k in gather_keys:
+        csr_launches["f32"][k] += launches[k]
+    records["cli_cusparse_spmv"] = {"rc": rc, "launches": launches}
     return csr_launches, records
 
 
@@ -1617,7 +1773,8 @@ def capi_phase(card, prob4, iters_a):
     check(status == "OPTIMAL" and iters == iters_a,
           f"phase 12: the ctypes solve: {status} in {iters} iterations, "
           f"the server's {iters_a}")
-    check(device == want and counts and counts["tiled_spmv"] > 0,
+    check(device == want and counts
+          and counts["tiled_spmv"] + counts["csr_spmv"] > 0,
           f"phase 12: the ctypes worker: {device!r} {counts}")
     record["ctypes"] = {"status": status, "iter": iters, "wall_s": wall,
                         "launches": counts}
@@ -1638,14 +1795,13 @@ def refined_solve(card, name, problem, **kw):
 
     import hprlp_tpu_torch as hp
     from hprlp_tpu_torch.ops.spmm import csr_spmm
-    from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
     from hprlp_tpu_torch.solver import loop as loop_mod
 
     inner = loop_mod.solve_problem
     calls = []
 
     def recording(prob, params, *args, **kwargs):
-        before = (tiled_spmv.launches, csr_spmv.launches, csr_spmm.launches)
+        before = (spmv_launches(), csr_spmm.launches)
         t = time.perf_counter()
         res = inner(prob, params, *args, **kwargs)
         calls.append({
@@ -1657,9 +1813,9 @@ def refined_solve(card, name, problem, **kw):
             # solve_problem: this wrapper, while it is installed.
             "capture_s": recording.capture_time,
             "backend": res.spmv_backend,
-            "launches": {"tiled": tiled_spmv.launches - before[0],
-                         "gather": csr_spmv.launches - before[1]},
-            "csr_spmm": csr_spmm.launches - before[2]})
+            "launches": {k: v - before[0][k]
+                         for k, v in spmv_launches().items()},
+            "csr_spmm": csr_spmm.launches - before[1]})
         return res
 
     log = io.StringIO()
@@ -1718,8 +1874,8 @@ def mixed_phase(card, prob4):
     from scipy.optimize import linear_sum_assignment
 
     record = {}
-    launches = {"f32": {"tiled": 0, "gather": 0},
-                "f64": {"tiled": 0, "gather": 0}, "csr_spmm": 0}
+    launches = {"f32": dict.fromkeys(SPMV_COUNTERS, 0),
+                "f64": dict.fromkeys(SPMV_COUNTERS, 0), "csr_spmm": 0}
 
     def tally(calls):
         for c in calls:
@@ -1776,6 +1932,164 @@ def mixed_phase(card, prob4):
     return record, launches
 
 
+# Phase 0's in-process solves, and how far the card's memory may move
+# after the second of them.
+MEMORY_SOLVES = 8
+MEMORY_FLAT_MIB = 32
+FAULT_SOLVES = 4
+
+
+def card_used_mib():
+    """The card's used memory in MiB, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0])
+
+
+def memory_check(card, problem):
+    """Phase 0: MEMORY_SOLVES in-process solves of `problem` (f32, 1e-4;
+    each with the autotune's probes and its chunk boundary captured in a
+    CUDA graph) and no call of server.release_device_memory: from the
+    second solve on, torch.cuda.memory_reserved() and nvidia-smi's used
+    memory stay within MEMORY_FLAT_MIB (one warm-up stream and one graph
+    pool per device, solver/graph.py).  Returns the record."""
+    import hprlp_tpu_torch as hp
+
+    params = hp.Parameters(stop_tol=1e-4, verbose=False, max_iter=100_000)
+    reserved, used, iters = [], [], []
+    for _ in range(MEMORY_SOLVES):
+        res = hp.solve(problem.A, problem.AL, problem.AU, problem.l,
+                       problem.u, problem.c, params)
+        check(res.status == "OPTIMAL", f"phase 0: status {res.status}")
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved() / 2**20)
+        used.append(card_used_mib())
+        iters.append(res.iter)
+    spread = {"reserved": max(reserved[1:]) - min(reserved[1:]),
+              "used": max(used[1:]) - min(used[1:])}
+    phase(0, f"{MEMORY_SOLVES} in-process solves of {problem.name} (f32, "
+             f"autotune and graph each, no release_device_memory): "
+             f"iterations {iters}; torch.cuda.memory_reserved() MiB "
+             f"{[round(v, 1) for v in reserved]}; nvidia-smi used MiB "
+             f"{used}; spread after solve 2: reserved "
+             f"{spread['reserved']:.1f} MiB, used {spread['used']:.1f} MiB "
+             f"(<= {MEMORY_FLAT_MIB}) [{card}]")
+    for what, mib in spread.items():
+        check(mib <= MEMORY_FLAT_MIB, f"phase 0: {what} memory moved "
+              f"{mib:.1f} MiB over solves 2..{MEMORY_SOLVES}")
+    # The fault, for the record: the same solves with a new side stream
+    # and a private graph pool per capture, as before the repair.
+    from hprlp_tpu_torch.solver import graph
+
+    fault = []
+    with swapped(graph, warmup_stream=lambda device=None: torch.cuda.Stream(),
+                 graph_pool=lambda device=None: None):
+        for _ in range(FAULT_SOLVES):
+            hp.solve(problem.A, problem.AL, problem.AU, problem.l,
+                     problem.u, problem.c, params)
+            torch.cuda.synchronize()
+            fault.append((torch.cuda.memory_reserved() / 2**20,
+                          card_used_mib()))
+    phase(0, f"for comparison, {FAULT_SOLVES} more solves with a new side "
+             f"stream and a private graph pool per capture (the previous "
+             f"capture): reserved MiB {[round(r, 1) for r, _ in fault]}, "
+             f"used MiB {[u for _, u in fault]} [{card}]")
+    return {"reserved_mib": reserved, "used_mib": used, "iter": iters,
+            "spread_mib": spread, "previous_capture_mib": fault}
+
+
+def fused_spmv_phase(card, problem):
+    """Phase 10 (b): the single-LP middle iteration fused into the CSR
+    kernel, at `problem` (sparse_large) on the gather backend, f32 and
+    f64: one 150-iteration run_chunk through the fused halves, one through
+    the plain halves (the kernel's store, then the plain ops) and the fused
+    chunk's CUDA-graph replay, every state tensor and metric bitwise
+    equal; each half alone timed by graph replay, fused and plain, beside
+    its byte bound.  Returns {dtype tag: record}."""
+    from hprlp_tpu_torch.ops.spmv import spmv_x_half, spmv_y_half
+    from hprlp_tpu_torch.prof import prof_loop
+    from hprlp_tpu_torch.prof.timing import half_bound
+    from hprlp_tpu_torch.solver import chunk
+    from hprlp_tpu_torch.solver.graph import CapturedStep
+
+    fields = ("x", "y", "last_x", "last_y", "x_bar", "y_bar", "z_bar",
+              "y_obj", "inner")
+
+    def differ(a, b):
+        (st_a, m_a), (st_b, m_b) = a, b
+        return ([f for f in fields
+                 if not torch.equal(getattr(st_a, f), getattr(st_b, f))]
+                + [k for k in m_a if not torch.equal(m_a[k], m_b[k])])
+
+    records = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        loop = prof_loop.Loop(problem, dtype, graph=False, backend="gather")
+        loop.run(1)
+        lp, st, sigma = loop.lp, loop.state, loop.sigma
+        args = (lp, loop.scal, st, sigma, loop.lam,
+                torch.tensor(False, device="cuda"), loop.check)
+        spmv_x_half.launches = spmv_y_half.launches = 0
+        fused = chunk.run_chunk(*args)
+        fused_launches = (spmv_x_half.launches, spmv_y_half.launches)
+        with swapped(chunk, x_half=chunk.x_half_plain,
+                     y_half=chunk.y_half_plain):
+            plain = chunk.run_chunk(*args)
+        step = CapturedStep(lambda: chunk.run_chunk(*args), counts={})
+        step.replay()
+        torch.cuda.synchronize()
+        vs_plain, vs_graph = differ(fused, plain), differ(fused, step.out)
+        max_diff = max(float((getattr(fused[0], k) - getattr(plain[0], k))
+                             .abs().max()) for k in ("x", "y"))
+
+        lam_sigma = loop.lam * sigma
+
+        def h():  # the first middle iteration's counter, factors unmade
+            return chunk.Halpern(st.inner, 0, dtype)
+
+        x_hat = chunk.x_half(lp, st.x, st.y, st.last_x, sigma, h())[1]
+        halves = {
+            "x": (lambda: chunk.x_half(lp, st.x, st.y, st.last_x, sigma,
+                                       h()),
+                  lambda: chunk.x_half_plain(lp, st.x, st.y, st.last_x,
+                                             sigma, h()),
+                  half_bound(lp.AT, dtype, 1, "x")),
+            "y": (lambda: chunk.y_half(lp, st.y, x_hat, st.last_y,
+                                       lam_sigma, h()),
+                  lambda: chunk.y_half_plain(lp, st.y, x_hat, st.last_y,
+                                             lam_sigma, h()),
+                  half_bound(lp.A, dtype, 1, "y"))}
+        rec = {"fused_launches": fused_launches, "differ_plain": vs_plain,
+               "differ_graph": vs_graph, "max_abs_err": max_diff}
+        for half, (fused_fn, plain_fn, (bound_ms, bound_by)) in \
+                halves.items():
+            rec[half] = {"ms": time_ms(fused_fn),
+                         "eager_ms": eager_ms(fused_fn),
+                         "plain_ms": time_ms(plain_fn, reps=10),
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+            r = rec[half]
+            phase(10, f"fused single-LP {half}-half {tag} (sparse_large): "
+                      f"{r['ms']:.5f} ms ({bound_ms / r['ms']:.1%} of bound "
+                      f"{bound_ms:.5f} ms, {bound_by}), eager "
+                      f"{r['eager_ms']:.5f} ms; its SpMV and plain ops "
+                      f"{r['plain_ms']:.5f} ms (graph replay) [{card}]")
+        phase(10, f"fused chunk {tag} (sparse_large, gather): {loop.check} "
+                  f"iterations, fused launches x/y {fused_launches}; fields "
+                  f"differing from the plain halves: {vs_plain or 'none'}; "
+                  f"from the graph's replay: {vs_graph or 'none'} [{card}]")
+        records[tag] = rec
+        middle = loop.check - 2
+        del loop, fused, plain, step
+        check(fused_launches == (middle, middle), f"phase 10: the fused "
+              f"chunk launched the halves {fused_launches} times, not "
+              f"{middle} each")
+        check(not vs_plain, f"phase 10: fused and plain chunks differ "
+              f"({tag}) in {vs_plain}")
+        check(not vs_graph, f"phase 10: the fused chunk's replay differs "
+              f"from its eager run ({tag}) in {vs_graph}")
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1794,11 +2108,13 @@ def main():
     card = toolchain()
 
     built = build_kernels()
-    for src in (spmv_mod.TILED_SOURCE, spmv_mod.SOURCE):
+    for src in (spmv_mod.TILED_SOURCE, spmv_mod.SOURCE,
+                spmv_mod.ROWGROUP_SOURCE):
         lib, secs, log = built[src]
         phase(2, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s")
-    for line in ptxas_summary(built[spmv_mod.TILED_SOURCE][2]):
-        phase(2, f"ptxas {line}")
+    for src in (spmv_mod.TILED_SOURCE, spmv_mod.SOURCE):
+        for line in ptxas_summary(built[src][2]):
+            phase(2, f"ptxas {line}")
     lib, secs, _ = built[native.LIB_PATH]
     phase(2, f"built {os.path.relpath(lib, HERE)} (host: presolve, MPS "
              f"reader; g++) in {secs:.2f} s")
@@ -1824,6 +2140,8 @@ def main():
     check(again.iter == res4.iter and again.primal_obj == res4.primal_obj
           and again.spmv_backend == res4.spmv_backend,
           "phase 0: phase 4's f32 solve is not bitwise repeatable")
+    memory_rec = memory_check(card, prob4)
+    chunk4 = chunk_profile(4, prob4, torch.float32, res4.spmv_backend, card)
 
     prob5 = assignment_problem(64)
     res5, _, l5, s5, _ = run_solve(5, prob5, Parameters(
@@ -1841,6 +2159,7 @@ def main():
         6, prob6, Parameters(stop_tol=1e-4, verbose=False, max_iter=50_000),
         card, peak=True)
     check(kkt6 < 1e-3, f"phase 6: host f64 KKT {kkt6}")
+    chunk6 = chunk_profile(6, prob6, torch.float32, res6.spmv_backend, card)
 
     variant_records = variants_phase(card, built, prob6)
 
@@ -1856,6 +2175,7 @@ def main():
     l9_tiled = l9["tiled_spmv"]
     fused_rec = fused_phase(card)
     graph_rec = graph_phase(card, prob4, prob5, peak6)
+    single_fused = fused_spmv_phase(card, prob4)
     csr11, autotune_rec = autotune_phase(card, prob4)
     t_service = time.perf_counter()
     server_rec, l12a, iters12 = server_pipes(
@@ -1905,31 +2225,89 @@ def main():
             "shapes": shapes(tag, ("nnz", "ms", "plain_ms", "bound_ms",
                                    "library_ms", "csr_ms", "tiles_s",
                                    "stages"))})
+    # The CSR kernel's launches by phase and dtype: phases 4-6 and 8 where
+    # the autotune chose it, 11's solves and CLI run, 12's workers, 13's
+    # stages; its fused halves' likewise.
+    def gather_by_phase(tag, key, worker_key):
+        out = {k: v[key] for k, v in by_phase.items()
+               if (k == "5") == (tag == "f64")}
+        out["11"] = csr11[tag][key]
+        out["12"] = worker_sum(w32 if tag == "f32" else w64, worker_key)
+        out["13"] = l13[tag][key]
+        return out
+
     for tag, replaces, also in (
             ("f32", "hprlp_tpu/ops/pallas_spmv.py:67",
              "thin_spmv hprlp_tpu/ops/pallas_spmv.py:272"),
             ("f64", "hprlp_tpu/ops/pallas_spmv.py:178",
              "thin_spmv_df64 hprlp_tpu/ops/pallas_spmv.py:394")):
         a = rec["bench", tag, "A"]
+        per_phase = gather_by_phase(tag, "gather", "csr_spmv")
         kernels.append({
             "name": f"csr_spmv_{tag}", "route": "cuda",
             "source": os.path.relpath(spmv_mod.SOURCE, HERE),
             "replaces": replaces, "also_replaces": also,
-            "note": "the autotune's \"gather\" candidate and the "
-                    "--cusparse-spmv true backend; launches: phase 11's "
-                    "solves (forced and chosen) and, where the autotune "
-                    "chose it, phases 4-6 and 8",
-            "launches": csr11[tag] + l13[tag]["gather"] + worker_sum(
-                w32 if tag == "f32" else w64, "csr_spmv") + sum(
-                v["gather"] for k, v in by_phase.items()
-                if (k == "5") == (tag == "f64")),
+            "note": "the \"gather\" backend on its row-block plan: the "
+                    "autotune's candidate and the --cusparse-spmv true "
+                    "backend; plain_ms: csr_spmv_plain (the kernel's bits "
+                    "in plain PyTorch, eager)",
+            "launches": sum(per_phase.values()),
+            "launches_by_phase": per_phase,
             "max_abs_err": max(r["err_csr"] for (_, t, _), r in rec.items()
                                if t == tag),
             "ms": a["csr_ms"], "plain_ms": a["csr_plain_ms"],
             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
             "library_ms": a["library_ms"],
-            "shapes": shapes(tag, ("csr_ms", "csr_plain_ms", "bound_ms",
+            "shapes": shapes(tag, ("csr_ms", "csr_plain_ms", "reference_ms",
+                                   "rowgroup_ms", "no_gather_ms",
+                                   "bound_ms", "library_ms",
+                                   "blocks", "blocks_bytes", "blocks_s"))})
+    for tag in ("f32", "f64"):
+        a = rec["bench", tag, "A"]
+        kernels.append({
+            "name": f"csr_spmv_rowgroup_{tag}", "route": "cuda",
+            "source": os.path.relpath(spmv_mod.ROWGROUP_SOURCE, HERE),
+            "replaces": "hprlp_tpu/ops/pallas_spmv.py:"
+                        + ("67" if tag == "f32" else "178"),
+            "previous_design": "the first CSR kernel (a group of threads per "
+                               "row), succeeded by csr_spmv; timed in phase "
+                               "3 only, launched by no solve",
+            "launches": sum(l.get("rowgroup", 0) for l in (l4, l5, l6, l8)),
+            "max_abs_err": max(r["err_rowgroup"]
+                               for (_, t, _), r in rec.items() if t == tag),
+            "ms": a["rowgroup_ms"], "plain_ms": a["reference_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+            "library_ms": a["library_ms"],
+            "shapes": shapes(tag, ("rowgroup_ms", "bound_ms",
                                    "library_ms"))})
+    for half, matrix, line in (("x", "A^T", "_x_half :76"),
+                               ("y", "A", "_y_half :85")):
+        r32, r64 = single_fused["f32"][half], single_fused["f64"][half]
+        per_phase = {t: gather_by_phase(t, f"{half}_half",
+                                        f"spmv_{half}_half")
+                     for t in ("f32", "f64")}
+        kernels.append({
+            "name": f"spmv_{half}_half", "route": "cuda",
+            "source": os.path.relpath(spmv_mod.SOURCE, HERE),
+            "replaces": "hprlp_tpu/solver/chunk.py:" + (
+                "72" if half == "x" else "81"),
+            "note": f"the single-LP middle iteration's {half}-half fused "
+                    f"into the CSR kernel over {matrix}'s rows (plain: "
+                    f"hprlp_tpu_torch/solver/chunk.py {line}); no Pallas "
+                    f"kernel in the JAX package (XLA fuses it); "
+                    f"sparse_large f32, plain_ms the kernel's store and "
+                    f"the plain ops by graph replay; launches where a "
+                    f"solve ran on \"gather\"",
+            "launches": sum(sum(v.values()) for v in per_phase.values()),
+            "launches_by_phase": per_phase,
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in single_fused.values()),
+            "ms": r32["ms"], "plain_ms": r32["plain_ms"],
+            "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
+            "library_ms": None, "f64": r64})
+    kernels[-1]["chunks"] = {t: {k: v for k, v in r.items()
+                                 if k not in ("x", "y")}
+                             for t, r in single_fused.items()}
     kernels[0]["launches_by_phase"] = {
         "4": l4["tiled"], "6": l6["tiled"], "8": l8["tiled"], "9": l9_tiled,
         "12": worker_sum(w32, "tiled_spmv"), "13": l13["f32"]["tiled"]}
@@ -1942,6 +2320,8 @@ def main():
     kernels[0]["capi"] = capi_rec
     kernels[0]["mixed"] = mixed_rec
     kernels[2]["autotune"] = autotune_rec
+    kernels[2]["memory"] = memory_rec
+    kernels[2]["chunks_picked"] = {"4": chunk4, "6": chunk6}
     kernels += variant_records
     head = spmm_rec["f32", "A", 64]
     spmm_common = {

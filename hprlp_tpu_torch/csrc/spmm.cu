@@ -48,10 +48,9 @@
 // replace the store of Y by one HPR half-update per (row, member), with the
 // member's scalars read from (B,) arrays, as solver/batched.py::
 // x_half_plain and y_half_plain compute them with PyTorch's elementwise
-// kernels.  Each operation is rounded once, as those kernels round it
-// (__f*_rn / __d*_rn, never contracted), and min/max take NaN as PyTorch's
-// clamp and maximum do, so a fused iteration is bitwise equal to the plain
-// ops run on the same SpMM output.  A frozen member's iterate is written
+// kernels; the update and its rounding rules are csrc/hpr_half.cuh's, so
+// a fused iteration is bitwise equal to the plain ops run on the same SpMM
+// output.  A frozen member's iterate is written
 // back unchanged.  Their streamed operands are read after the gather:
 // reading them before it was slower on an H100.
 
@@ -59,7 +58,11 @@
 
 #include <cstdint>
 
+#include "hpr_half.cuh"
+
 namespace {
+
+using namespace hprlp;
 
 constexpr int kBlock = 256;
 constexpr int kMinBlocks = 4;  // blocks per SM: at most 64 registers a thread
@@ -103,43 +106,6 @@ struct Args {
   const int* inner;
   const unsigned char* active;
 };
-
-// Correctly rounded single operations, never contracted into an fma.
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ float sub_rn(float a, float b) {
-  return __fadd_rn(a, -b);
-}
-__device__ __forceinline__ double sub_rn(double a, double b) {
-  return __dadd_rn(a, -b);
-}
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float div_rn(float a, float b) {
-  return __fdiv_rn(a, b);
-}
-__device__ __forceinline__ double div_rn(double a, double b) {
-  return __ddiv_rn(a, b);
-}
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
-// PyTorch's ::min / ::max on the card.
-__device__ __forceinline__ float min_t(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ double min_t(double a, double b) { return fmin(a, b); }
-__device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double max_t(double a, double b) { return fmax(a, b); }
 
 template <typename T, int V>
 __device__ __forceinline__ Pack<T, V> load_row(const void* p, int64_t off) {
@@ -227,32 +193,15 @@ csr_spmm_kernel(const Args a) {
     for (int i = 0; i < V; ++i) {
       const int b = col + i;
       const bool act = a.active[b] != 0;
-      // _bfactors: f1 = 1 / (inner + 2), f2 = 1 - f1.
-      const int inner = a.inner[b] + (act ? a.t : 0);
-      const T f1 = div_rn(T(1), add_rn(static_cast<T>(inner), T(2)));
-      const T f2 = sub_rn(T(1), f1);
+      const T f1 = halpern_f1<T>(a.inner[b] + (act ? a.t : 0));
       const T s = static_cast<const T*>(a.scal)[b];
       const T x = cur.a[i];
       T next;
       if constexpr (E == kXHalf) {
-        // z = x + sigma * (A^T y - c); x_bar = clamp(z, l, u);
-        // x_hat = 2 x_bar - x; x_new = f2 x_hat + f1 last_x.
-        const T z = add_rn(x, mul_rn(s, sub_rn(acc[i], p0.a[i])));
-        const T xb = z != z ? z : min_t(max_t(z, p1.a[i]), p2.a[i]);
-        const T xh = sub_rn(mul_rn(T(2), xb), x);
-        hat.a[i] = xh;
-        next = add_rn(mul_rn(f2, xh), mul_rn(f1, last.a[i]));
+        next = x_half_update(acc[i], x, last.a[i], p0.a[i], p1.a[i],
+                             p2.a[i], s, f1, hat.a[i]);
       } else {
-        // v = A x_hat - lam_sigma y; d = max(AL - v, min(AU - v, 0));
-        // y_bar = d / lam_sigma; y_hat = 2 y_bar - y;
-        // y_new = f2 y_hat + f1 last_y.
-        const T v = sub_rn(acc[i], mul_rn(s, x));
-        const T lo = sub_rn(p0.a[i], v);
-        const T up = sub_rn(p1.a[i], v);
-        const T m = up != up ? up : min_t(up, T(0));
-        const T d = lo != lo ? lo : (m != m ? m : max_t(lo, m));
-        const T yh = sub_rn(mul_rn(T(2), div_rn(d, s)), x);
-        next = add_rn(mul_rn(f2, yh), mul_rn(f1, last.a[i]));
+        next = y_half_update(acc[i], x, last.a[i], p0.a[i], p1.a[i], s, f1);
       }
       out.a[i] = act ? next : x;
     }

@@ -1,0 +1,314 @@
+// Row-block CSR SpMV for Hopper: y = A x over the padded row/column spaces
+// of the solver's layout (the "gather" SpMV backend), and the single-LP HPR
+// middle iteration's two half-updates fused into its row write.
+//
+// Replaces, as the "gather" backend, the four Pallas TPU kernels of
+// hprlp_tpu/ops/pallas_spmv.py (lane_spmv, thin_spmv, lane_spmv_df64,
+// thin_spmv_df64): the float instantiation accumulates in f32 as the f32
+// kernels do, the double one in native f64 in place of hi/lo pairs.  It
+// succeeds the row-group kernel of csrc/spmv.cu (the previous design, kept
+// to be timed).  The fused halves replace the plain elementwise ops of
+// solver/chunk.py::_x_half/_y_half (XLA fuses them in the JAX package,
+// hprlp_tpu/solver/chunk.py).
+//
+// What bounds it: bytes.  Per nonzero its value (4 or 8 B) and its int32
+// column index (4 B), read once, and one gathered x entry (4 or 8 B, from
+// L2 while x fits its 50 MB); per row two indptr entries (4 B each, shared
+// with the next row) and its y entry; per block two plan entries; the
+// multiply-add per nonzero is negligible.  The bound (prof/timing.py::
+// spmv_bytes) counts nnz * (value + 4) + (nrows + 1) * 4 + (ncols + nrows)
+// * value bytes; a fused half adds its row operands (x-half: x, last_x, c,
+// l, u read, x_new and x_hat written; y-half: y, last_y, AL, AU read,
+// y_new written).  What holds it back on an H100 is the random x gather:
+// one L1 line lookup per entry, ~70% of its time at 1.31M nnz in f32
+// (kNoGather below; PERF.md section 6).  Only a layout that stages x in
+// shared memory removes it: the tiled kernel's strips.
+//
+// The design, against the row-group kernel's limits:
+//  * Row blocks (ops/spmv.py::row_blocks, built once at setup): a block of
+//    kBlock threads owns consecutive rows whose entries start within one
+//    window of kCap entries (2048 in f32, 1024 in f64: fewer than 2 * kCap
+//    entries in all, at most kBlock rows); a row with more than kCap
+//    entries has a block of its own.  The plan holds each block's first
+//    row and first entry, so a block starts its stream after one read, not
+//    two dependent ones.
+//  * No idle lanes on short or skewed rows: every thread of a block streams
+//    16-byte vectors of 4 values and 4 column indices from the block's
+//    entry range (aligned down to the vector, so entries of the neighbour
+//    blocks are loaded and dropped), two vectors in flight and their 8 x
+//    gathers (x through the read-only path) issued before any product is
+//    kept.  The products go to shared memory.
+//  * Then one thread per row sums its products in CSR order, one rounded
+//    multiply and one rounded add per entry (no fma), and writes the row
+//    once.  A long row's block sums it in kBlock strided partials and a
+//    fixed tree.  No atomics; the order of every sum is fixed by the plan,
+//    so two launches give bitwise-identical y, and ops/spmv.py::
+//    csr_spmv_plain computes the same bits in plain PyTorch.
+//
+// The fused halves (epilogues kXHalf and kYHalf) run the same stream and
+// sums and replace the store of y by one HPR half-update per row, as
+// solver/chunk.py::_x_half and _y_half compute it with PyTorch's
+// elementwise kernels after the kStore launch (csrc/hpr_half.cuh: each
+// operation rounded once, NaN taken as torch.clamp and torch.maximum take
+// it), the streamed operands read after the gather.  sigma
+// (or lambda * sigma) is a 0-dim device tensor and the Halpern counter is
+// read from device memory as inner + t, t the middle iteration's index,
+// baked in at launch, so a captured CUDA graph replays it unchanged; fact1
+// = 1 / (inner + t + 2) rounds as solver/chunk.py::_halpern_factors does.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hpr_half.cuh"
+
+namespace {
+
+using namespace hprlp;
+
+constexpr int kBlock = 256;  // ops/spmv.py CSR_BLOCK
+// Entries per window of a row block (ops/spmv.py::csr_cap): 8 KB of values,
+// so a block's products take at most 16 KB of shared memory in either type.
+template <typename T>
+constexpr int kCap = 8192 / static_cast<int>(sizeof(T));
+constexpr int kVec = 4;      // entries per vector load
+
+// kNoGather is a measurement, never a solve's: the store, with x read at
+// the entry's index (masked to x's length) in place of its column, so that
+// the reads of x are contiguous -- what the random gather costs (the
+// no_gather ablation of csrc/spmv_variants.cu, asked of this design).
+enum Epilogue : int { kStore = 0, kXHalf = 1, kYHalf = 2, kNoGather = 3 };
+
+// kStore writes out = A X.  kXHalf, over A^T's rows with X = y: cur = x,
+// last = last_x, p0 = c, p1 = l, p2 = u, scal = sigma; it writes out = the
+// new x and hat = x_hat.  kYHalf, over A's rows with X = x_hat: cur = y,
+// last = last_y, p0 = AL, p1 = AU, scal = lambda * sigma; it writes out =
+// the new y.  inner: the Halpern counter (int32) at the first middle
+// iteration; t: this iteration's index.
+struct Args {
+  int nrows, t, xmask;
+  int64_t nnz;
+  const int* row0;
+  const int* ent0;
+  const int* indptr;
+  const int* indices;
+  const void* vals;
+  const void* x;
+  void* out;
+  void* hat;
+  const void* cur;
+  const void* last;
+  const void* p0;
+  const void* p1;
+  const void* p2;
+  const void* scal;
+  const int* inner;
+};
+
+// kVec entries' values and column indices.
+template <typename T>
+struct Entries {
+  T v[kVec];
+  int c[kVec];
+};
+
+// Vector q (entries kVec * q ..): one 16-byte load of indices and 16 or 32
+// bytes of values where the whole vector lies in the arrays, else scalar
+// loads of the entries below nnz (the arrays' last, partial vector).
+template <typename T>
+__device__ __forceinline__ Entries<T> load_vec(const T* __restrict__ vals,
+                                               const int* __restrict__ indices,
+                                               int64_t q, int64_t nnz) {
+  Entries<T> e;
+  const int64_t k = q * kVec;
+  if (k + kVec <= nnz) {
+    const int4 c = __ldg(reinterpret_cast<const int4*>(indices + k));
+    e.c[0] = c.x; e.c[1] = c.y; e.c[2] = c.z; e.c[3] = c.w;
+    if constexpr (sizeof(T) == 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(vals + k));
+      e.v[0] = v.x; e.v[1] = v.y; e.v[2] = v.z; e.v[3] = v.w;
+    } else {
+      const double2 a = __ldg(reinterpret_cast<const double2*>(vals + k));
+      const double2 b = __ldg(reinterpret_cast<const double2*>(vals + k + 2));
+      e.v[0] = a.x; e.v[1] = a.y; e.v[2] = b.x; e.v[3] = b.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const bool in = k + i < nnz;
+      e.c[i] = in ? indices[k + i] : 0;
+      e.v[i] = in ? vals[k + i] : T(0);
+    }
+  }
+  return e;
+}
+
+// The products of one vector, stored at its aligned offset in shared
+// memory by 16-byte stores (entries outside the block's range are stored
+// and never read).
+template <typename T>
+__device__ __forceinline__ void keep(T* prod, int64_t off, const Entries<T>& e,
+                                     const T (&xv)[kVec]) {
+  T p[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) p[i] = mul_rn(e.v[i], xv[i]);
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(prod + off) = make_float4(p[0], p[1], p[2], p[3]);
+  } else {
+    *reinterpret_cast<double2*>(prod + off) = make_double2(p[0], p[1]);
+    *reinterpret_cast<double2*>(prod + off + 2) = make_double2(p[2], p[3]);
+  }
+}
+
+template <typename T, int E>
+__device__ __forceinline__ void gather(const T* __restrict__ x,
+                                       const Entries<T>& e, int64_t q,
+                                       int xmask, T (&xv)[kVec]) {
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    if constexpr (E == kNoGather) {
+      xv[i] = __ldg(x + ((q * kVec + i) & xmask));
+    } else {
+      xv[i] = __ldg(x + e.c[i]);
+    }
+  }
+}
+
+// The row write: y, or one half-update of row `row` given its sum.
+template <typename T, int E>
+__device__ __forceinline__ void write_row(const Args& a, int row, T acc) {
+  if constexpr (E == kStore || E == kNoGather) {
+    static_cast<T*>(a.out)[row] = acc;
+  } else {
+    const T x = static_cast<const T*>(a.cur)[row];
+    const T last = static_cast<const T*>(a.last)[row];
+    const T p0 = static_cast<const T*>(a.p0)[row];
+    const T p1 = static_cast<const T*>(a.p1)[row];
+    const T s = *static_cast<const T*>(a.scal);
+    const T f1 = halpern_f1<T>(*a.inner + a.t);
+    if constexpr (E == kXHalf) {
+      T xh;
+      static_cast<T*>(a.out)[row] = x_half_update(
+          acc, x, last, p0, p1, static_cast<const T*>(a.p2)[row], s, f1, xh);
+      static_cast<T*>(a.hat)[row] = xh;
+    } else {
+      static_cast<T*>(a.out)[row] = y_half_update(acc, x, last, p0, p1, s,
+                                                  f1);
+    }
+  }
+}
+
+template <typename T, int E>
+__global__ void __launch_bounds__(kBlock)
+csr_spmv_kernel(const Args a) {
+  // Products at their offset from the block's first vector: fewer than
+  // 2 * kCap entries, plus up to kVec - 1 before the block's first entry.
+  __shared__ __align__(16) T prod[2 * kCap<T> + 2 * kVec];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const int r0 = a.row0[b], r1 = a.row0[b + 1];
+  const int64_t e0 = a.ent0[b], e1 = a.ent0[b + 1];
+  const T* __restrict__ vals = static_cast<const T*>(a.vals);
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+
+  if (r1 - r0 == 1 && e1 - e0 > kCap<T>) {
+    // A long row: kBlock strided partials in entry order, then a tree.
+    T acc = T(0);
+    for (int64_t k = e0 + tid; k < e1; k += kBlock) {
+      acc = add_rn(acc, mul_rn(vals[k], __ldg(x + a.indices[k])));
+    }
+    prod[tid] = acc;
+    __syncthreads();
+#pragma unroll
+    for (int s = kBlock / 2; s > 0; s >>= 1) {
+      if (tid < s) prod[tid] = add_rn(prod[tid], prod[tid + s]);
+      __syncthreads();
+    }
+    if (tid == 0) write_row<T, E>(a, r0, prod[0]);
+    return;
+  }
+
+  // This thread's first row's entry range, read before the stream.
+  const int row = r0 + tid;
+  int rb = 0, re = 0;
+  if (row < r1) {
+    rb = a.indptr[row];
+    re = a.indptr[row + 1];
+  }
+  const int64_t q0 = e0 / kVec;
+  const int64_t q1 = (e1 + kVec - 1) / kVec;
+  for (int64_t q = q0 + tid; q < q1; q += 2 * kBlock) {
+    const bool two = q + kBlock < q1;
+    const Entries<T> ea = load_vec(vals, a.indices, q, a.nnz);
+    Entries<T> eb;
+    if (two) eb = load_vec(vals, a.indices, q + kBlock, a.nnz);
+    T xa[kVec], xb[kVec];
+    gather<T, E>(x, ea, q, a.xmask, xa);
+    if (two) gather<T, E>(x, eb, q + kBlock, a.xmask, xb);
+    keep(prod, (q - q0) * kVec, ea, xa);
+    if (two) keep(prod, (q + kBlock - q0) * kVec, eb, xb);
+  }
+  __syncthreads();
+
+  const int64_t base = q0 * kVec;
+  for (int r = row; r < r1; r += kBlock) {
+    if (r != row) {
+      rb = a.indptr[r];
+      re = a.indptr[r + 1];
+    }
+    T acc = T(0);
+    for (int k = rb; k < re; ++k) acc = add_rn(acc, prod[k - base]);
+    write_row<T, E>(a, r, acc);
+  }
+}
+
+template <typename T>
+int launch(int epilogue, int nblocks, const Args& a, cudaStream_t s) {
+  switch (epilogue) {
+    case kStore: csr_spmv_kernel<T, kStore><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kXHalf: csr_spmv_kernel<T, kXHalf><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kYHalf: csr_spmv_kernel<T, kYHalf><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kNoGather: csr_spmv_kernel<T, kNoGather><<<nblocks, kBlock, 0, s>>>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// y = A x on the row-block plan (epilogue 0; 3: the no-gather
+// measurement), or with epilogue 1 or 2 the fused x- or y-half (operands as in Args above; pointers an epilogue does
+// not read may be null).  row0, ent0: (nblocks + 1,) int32, each block's
+// first row and first entry; vals and indices 16-byte aligned.  Returns
+// cudaGetLastError() after the launch (0 on success).
+int hprlp_csr_spmv(int is_f64, int epilogue, int nrows, int ncols,
+                   long long nnz, int nblocks, int t, const void* row0,
+                   const void* ent0,
+                   const void* indptr, const void* indices, const void* vals,
+                   const void* x, void* out, void* hat, const void* cur,
+                   const void* last, const void* p0, const void* p1,
+                   const void* p2, const void* scal, const void* inner,
+                   void* stream) {
+  if (nblocks < 0 || nnz < 0 ||
+      (reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(indices)) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (nrows <= 0 || nblocks == 0) return 0;
+  int xmask = 0;  // the largest power of two within ncols, less one
+  while (ncols > 1 && xmask < ncols / 2) xmask = 2 * xmask + 1;
+  const Args a{nrows, t, xmask, nnz, static_cast<const int*>(row0),
+               static_cast<const int*>(ent0), static_cast<const int*>(indptr),
+               static_cast<const int*>(indices), vals, x, out, hat, cur, last,
+               p0, p1, p2, scal, static_cast<const int*>(inner)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch<double>(epilogue, nblocks, a, s)
+                : launch<float>(epilogue, nblocks, a, s);
+}
+
+const char* hprlp_csr_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

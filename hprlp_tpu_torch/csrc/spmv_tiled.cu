@@ -46,7 +46,27 @@
 // one): 0 gathers x from global memory, with the same stream and y in
 // shared memory; 1 stages each strip per block; 2, 4 and 8 share it across
 // a cluster of that many blocks by multicast.
+//
+// The segsum study (template ONEHOT, float and stage 1 only; launched by
+// ops/spmv_variants.py::spmv_segsum "full", never by a solve) replaces
+// prof_kernel_variants.py:39/:121 (pallas_call :152), which asks whether
+// a row sum done as a one-hot matrix product can replace the kernel's own
+// reduction.  It asks that of this layout: the same stream, strips and row
+// ownership, with the segmented warp scan replaced by tensor-core
+// products.  A warp step's 128 entries are 8 sub-blocks of 16 (lanes 4q ..
+// 4q + 3); an entry's rank is the number of distinct rows before it in
+// its sub-block (< 16: its rows are sorted), and one mma.sync m16n8k16
+// (bf16 in, f32 accumulate) per sub-block forms C = R P with R[r][k] =
+// [rank_k == r] (exact in bf16) and P's columns 0, 1, 2 the three bf16
+// terms hi, mid, lo of each product (hi + mid + lo is the f32 product
+// exactly).  Row r's sum is (C[r][0] + C[r][1]) + C[r][2], added once
+// into y in shared memory at the row its rank maps to.  Each lane stages
+// its entries' terms as B fragments, their ranks and the rows they start
+// in shared memory (18 KB a block), from which every sub-block's mma reads
+// its fragments; three shuffles a sub-block remain (the lo column, the
+// rank count).  No atomics, the order fixed by the layout.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -333,7 +353,133 @@ __device__ __forceinline__ void sum_step(const Step<T>& st, const T* xs,
   carry = __shfl_sync(kFull, S, 31);
 }
 
-template <typename T, int CLUSTER>
+// The segsum study's shared memory per warp: each sub-block's mma B
+// fragments (8 sub-blocks x 3 terms x 4 lanes of two bf16x2 registers),
+// its entries' ranks (8 x 4 lanes of four 4-bit ranks) and its rank-to-row
+// table (8 x 16 rows).
+constexpr int kSegFrags = 8 * 3 * 4;   // uint2 per warp
+constexpr int kSegRanks = 8 * 4;       // uint32 per warp
+constexpr int kSegRows = 8 * 16;       // uint16 per warp
+constexpr int kSegsumBytes = kWarps * (kSegFrags * 8 + kSegRanks * 4 +
+                                       kSegRows * 2);
+
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// C += A B for A 16x16 (row), B 16x8 (col), bf16 in, f32 accumulate.
+// Lane 4g + t: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],
+// a3 = A[g+8][2t+8..]; b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]; c =
+// C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]; the lower index in the
+// low half of a register.
+__device__ __forceinline__ void mma_bf16_k16(float (&c)[4], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// This warp's segsum staging (see kSegsumBytes).
+struct SegStage {
+  uint2* frags;
+  uint32_t* ranks;
+  uint16_t* rows;
+};
+
+// Sum one step into ys by one-hot tensor-core products (the segsum study;
+// see the note at the top).  Lane 4q + t holds entries 4t .. 4t + 3 of
+// sub-block q, which are the mma's k = 2t, 2t + 1, 2t + 8, 2t + 9: it
+// stages their three bf16 terms as the B fragments of columns 0, 1, 2,
+// their ranks, and the rows its rank starts; then every sub-block's
+// product reads its fragments back.
+__device__ __forceinline__ void onehot_step(const Step<float>& st,
+                                            const float* xs, float* ys,
+                                            const SegStage& seg, int lane) {
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr uint32_t kOne = 0x3f80u;  // 1.0 in bf16
+  const int t = lane & 3, q_own = lane >> 2;
+  const uint32_t g = static_cast<uint32_t>(lane >> 2);
+  uint32_t r[4], term[3][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    r[j] = st.k[j] >> 16;
+    // The exact three-term split: hi + mid + lo is the f32 product.
+    const float p = __fmul_rn(st.v[j], xs[st.k[j] & 0xFFFFu]);
+    term[0][j] = bf16_bits(p);
+    const float r1 = __fadd_rn(p, -__uint_as_float(term[0][j] << 16));
+    term[1][j] = bf16_bits(r1);
+    term[2][j] = bf16_bits(__fadd_rn(r1, -__uint_as_float(term[1][j] << 16)));
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    seg.frags[(q_own * 3 + c) * 4 + t] =
+        make_uint2(term[c][0] | (term[c][1] << 16),
+                   term[c][2] | (term[c][3] << 16));
+  }
+  // Ranks within the sub-block of lanes 4q .. 4q + 3 (rows are sorted).
+  const uint32_t left = __shfl_up_sync(kFull, r[3], 1, 4);
+  int cnt[4];
+  cnt[0] = t > 0 && r[0] != left;
+#pragma unroll
+  for (int j = 1; j < 4; ++j) cnt[j] = cnt[j - 1] + (r[j] != r[j - 1]);
+  int incl = cnt[3];
+#pragma unroll
+  for (int d = 1; d < 4; d <<= 1) {
+    const int o = __shfl_up_sync(kFull, incl, d, 4);
+    if (t >= d) incl += o;
+  }
+  const int off = incl - cnt[3];
+  uint32_t rank4 = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int rk = off + cnt[j];
+    rank4 |= static_cast<uint32_t>(rk) << (4 * j);
+    const bool start = j == 0 ? (t == 0 || r[0] != left) : r[j] != r[j - 1];
+    if (start) seg.rows[q_own * 16 + rk] = static_cast<uint16_t>(r[j]);
+  }
+  seg.ranks[q_own * 4 + t] = rank4;
+  const int nranks = __shfl_sync(kFull, incl, lane | 3) + 1;
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint32_t rk = seg.ranks[q * 4 + t];
+    uint32_t a[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // h = 0: entries 2t, 2t+1; 1: 2t+8, 2t+9
+      const uint32_t k0 = (rk >> (8 * h)) & 15, k1 = (rk >> (8 * h + 4)) & 15;
+      a[2 * h] = (k0 == g ? kOne : 0u) | ((k1 == g ? kOne : 0u) << 16);
+      a[2 * h + 1] = (k0 == g + 8 ? kOne : 0u) |
+                     ((k1 == g + 8 ? kOne : 0u) << 16);
+    }
+    const uint2 b = g < 3 ? seg.frags[(q * 3 + g) * 4 + t] : make_uint2(0, 0);
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    // a[0], a[1]: rows g, g + 8 at entries 2t, 2t + 1; a[2], a[3]: the
+    // same rows at entries 2t + 8, 2t + 9 (the fragment order above).
+    mma_bf16_k16(c, a[0], a[1], a[2], a[3], b.x, b.y);
+    // Lane 4g holds columns 0 and 1 (hi, mid) of ranks g and g + 8; lane
+    // 4g + 1 holds column 2 (lo).
+    const float lo0 = __shfl_down_sync(kFull, c[0], 1);
+    const float lo2 = __shfl_down_sync(kFull, c[2], 1);
+    const int nq = __shfl_sync(kFull, nranks, 4 * q);
+    if (t == 0) {
+      if (static_cast<int>(g) < nq) {
+        add_row(ys, seg.rows[q * 16 + g],
+                __fadd_rn(__fadd_rn(c[0], c[1]), lo0));
+      }
+      if (static_cast<int>(g) + 8 < nq) {
+        add_row(ys, seg.rows[q * 16 + g + 8],
+                __fadd_rn(__fadd_rn(c[2], c[3]), lo2));
+      }
+    }
+    __syncwarp();  // a row in the next sub-block adds after this one
+  }
+}
+
+template <typename T, int CLUSTER, bool ONEHOT = false>
 __global__ void __launch_bounds__(kThreads, 1)
 tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
                   int max_rows, const T* __restrict__ vals,
@@ -363,6 +509,14 @@ tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
   uint64_t* bar = reinterpret_cast<uint64_t*>(
       reinterpret_cast<unsigned char*>(ys) +
       ((static_cast<int64_t>(max_rows) * sizeof(T) + 15) & ~int64_t(15)));
+  unsigned char* seg_base = reinterpret_cast<unsigned char*>(bar + 2);
+  const SegStage seg{
+      reinterpret_cast<uint2*>(seg_base) + warp * kSegFrags,
+      reinterpret_cast<uint32_t*>(seg_base + kWarps * kSegFrags * 8) +
+          warp * kSegRanks,
+      reinterpret_cast<uint16_t*>(seg_base + kWarps * (kSegFrags * 8 +
+                                                       kSegRanks * 4)) +
+          warp * kSegRows};
 
   for (int i = tid; i < nrows_b; i += kThreads) ys[i] = T(0);
   if constexpr (kStaged) {
@@ -415,7 +569,11 @@ tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
 #pragma unroll
       for (int i = 0; i + 1 < kDepth; ++i) ring[i] = ring[i + 1];
       ring[kDepth - 1] = next_slot(next, vals, keys, my_runs, Kg, lane);
-      sum_step<T, CLUSTER>(st, xbuf, xg, ys, carry_row, carry, lane);
+      if constexpr (ONEHOT) {
+        onehot_step(st, xbuf, ys, seg, lane);
+      } else {
+        sum_step<T, CLUSTER>(st, xbuf, xg, ys, carry_row, carry, lane);
+      }
     }
     if (lane == 0) add_row(ys, carry_row, carry);
     // Strip s is consumed in every block (of the cluster) before its
@@ -477,9 +635,10 @@ struct Args {
   void *part, *y;
 };
 
-template <typename T, int CLUSTER>
+template <typename T, int CLUSTER, bool ONEHOT = false>
 int launch_stage(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(CLUSTER, a.W, a.Kg, a.max_rows);
+  const size_t smem = smem_bytes<T>(CLUSTER, a.W, a.Kg, a.max_rows) +
+                      (ONEHOT ? kSegsumBytes : 0);
   const int nblocks = a.G * a.C;
   if (smem > static_cast<size_t>(kMaxSmem) ||
       a.C % (CLUSTER > 1 ? CLUSTER : 1) || (a.G > 1 && !a.part)) {
@@ -490,7 +649,7 @@ int launch_stage(const Args& a, cudaStream_t stream) {
                                                     &attr);
   T* out = static_cast<T*>(a.G > 1 ? a.part : a.y);
   cudaError_t err = cudaLaunchKernelEx(
-      &cfg, tiled_spmv_kernel<T, CLUSTER>, a.nrows, a.ncols, a.W, a.K, a.Kg,
+      &cfg, tiled_spmv_kernel<T, CLUSTER, ONEHOT>, a.nrows, a.ncols, a.W, a.K, a.Kg,
       a.C, a.max_rows, static_cast<const T*>(a.vals),
       static_cast<const uint32_t*>(a.keys), static_cast<const int*>(a.runs),
       static_cast<const int*>(a.row_start), static_cast<const T*>(a.x), out);
@@ -551,7 +710,8 @@ int set_max_smem() {
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 1>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 2>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 4>),
-      reinterpret_cast<const void*>(tiled_spmv_kernel<T, 8>)};
+      reinterpret_cast<const void*>(tiled_spmv_kernel<T, 8>),
+      reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, true>)};
   for (const void* fn : fns) {
     const cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
@@ -584,6 +744,20 @@ int hprlp_tiled_spmv(int f64, int cluster, int nrows, int ncols, int W,
                row_start, x, part, y};
   return f64 ? launch<double>(cluster, a, stream)
              : launch<float>(cluster, a, stream);
+}
+
+// The segsum study (float, strips staged per block, one-hot tensor-core
+// row sums); the arguments as for hprlp_tiled_spmv.  Its shared memory
+// is the stage's plus kSegsumBytes.
+int hprlp_tiled_segsum(int nrows, int ncols, int W, int K, int G, int Kg,
+                       int C, int max_rows, const void* vals,
+                       const void* keys, const void* runs,
+                       const void* row_start, const void* x, void* part,
+                       void* y, void* stream) {
+  const Args a{nrows, ncols, W, K, G, Kg, C, max_rows, vals, keys, runs,
+               row_start, x, part, y};
+  if (a.G * a.C <= 0) return 0;
+  return launch_stage<float, 1, true>(a, static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of a stage can be resident at once at the given

@@ -38,23 +38,23 @@
 //                  ceiling of any run-based flush (timing only).
 // K4 segsum -- replaces prof_kernel_variants.py:39/:121 (pallas_call :152).
 //    The TPU study summed products by row as a one-hot matrix product on
-//    the MXU.  Here a warp takes 32 consecutive nonzeros (one per lane),
+//    the MXU.  Its exact variant, full, asks this of the main path's
+//    layout and lives beside that kernel: csrc/spmv_tiled.cu, template
+//    ONEHOT (the tiles' packed stream, x from shared-memory strips, rows
+//    owned per strip, the segmented warp scan replaced by one mma.sync
+//    m16n8k16 per 16 entries).  The three timing variants below keep the first
+//    design on CSR: a warp takes 32 consecutive nonzeros (one per lane),
 //    forms p = vals * x[idx], and sums p by row with mma.sync m16n8k8:
 //    y_local = R P, R one-hot (16 x 8, R[r][k] = [rank_k == r], rank = row -
 //    row of the first entry of the 8-entry sub-block), P (8 x 8) with p in
-//    column 0 and zeros in the other seven.  A study, not a fast kernel.
-//    The JAX study read the rank from a layout field that no longer exists
-//    (prof_kernel_variants.py:172); here it comes from indptr.
-//      full        one product per sub-block, R built in the kernel, p as
-//                  TF32 hi + lo (two passes, f32 accumulation; 2^-22
-//                  relative per product)
+//    column 0 and zeros in the other seven.
 //      mm_precomp  R read from one-hot bf16 tiles built outside the kernel
 //                  (segsum_rtiles in ops/spmv_variants.py, 256 B per
 //                  sub-block), p as bf16 hi + lo (2^-16 relative)
 //      mm_hi1      R in the kernel, one bf16 pass (lossy; timing only)
-//      mm_fused    one product per 32-entry tile against the tile's first
-//                  row, ranks clamped to 15 (wrong when a tile spans more
-//                  than 16 rows; timing only)
+//      mm_fused    one TF32 hi + lo product per 32-entry tile against the
+//                  tile's first row, ranks clamped to 15 (wrong when a tile
+//                  spans more than 16 rows; timing only)
 //    Each sub-block's row sums go to y with atomicAdd (sub-blocks share
 //    rows).  In all but mm_fused an entry 16 or more rows past its
 //    sub-block's first row (only where empty rows intervene) is added by
@@ -87,7 +87,7 @@ constexpr uint32_t kOneBf16 = 0x3f80u;     // 1.0 in bf16
 enum { kAblateFull = 0, kDmaOnly = 1, kNoGather = 2, kOneGather = 3,
        kNoFlush = 4 };
 enum { kFlushFull = 0, kMergeAll = 1, kRunMerge = 2 };
-enum { kSegFull = 0, kMmPrecomp = 1, kMmHi1 = 2, kMmFused = 3 };
+enum { kMmPrecomp = 1, kMmHi1 = 2, kMmFused = 3 };
 
 template <int TPR>
 __device__ __forceinline__ float group_sum(float v) {
@@ -404,7 +404,7 @@ segsum_kernel(int nrows, int64_t nnz, const int* __restrict__ indptr,
     // pe = hi + lo, the value this variant adds for the entry.
     uint32_t hi, lo;
     float pe;
-    if constexpr (V == kSegFull || V == kMmFused) {
+    if constexpr (V == kMmFused) {
       hi = tf32_bits(p);
       lo = tf32_bits(p - __uint_as_float(hi));
       pe = __uint_as_float(hi) + __uint_as_float(lo);
@@ -437,16 +437,7 @@ segsum_kernel(int nrows, int64_t nnz, const int* __restrict__ indptr,
       if (s + 8 * j >= k1) break;  // warp-uniform: past the run's end
       const int base = __shfl_sync(kFull, row, 8 * j);
       float c[4] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (V == kSegFull) {
-        uint32_t a[4];
-        r_tf32(row, 8 * j, base, false, g, t, a);
-        const uint32_t h0 = __shfl_sync(kFull, hi, 8 * j + t);
-        const uint32_t h1 = __shfl_sync(kFull, hi, 8 * j + t + 4);
-        const uint32_t l0 = __shfl_sync(kFull, lo, 8 * j + t);
-        const uint32_t l1 = __shfl_sync(kFull, lo, 8 * j + t + 4);
-        mma_tf32(c, a[0], a[1], a[2], a[3], g == 0 ? h0 : 0u, g == 0 ? h1 : 0u);
-        mma_tf32(c, a[0], a[1], a[2], a[3], g == 0 ? l0 : 0u, g == 0 ? l1 : 0u);
-      } else {
+      {
         uint32_t a0, a1;
         if constexpr (V == kMmPrecomp) {
           const uint2 r = rtiles[((s >> 3) + j) * 32 + lane];
@@ -602,7 +593,8 @@ int hprlp_spmv_flush(int variant, int tpr, int nrows, int ncols,
   return static_cast<int>(cudaGetLastError());
 }
 
-// All segsum variants need y zeroed; rtiles is read by mm_precomp only.
+// The CSR segsum variants (mm_*) need y zeroed; rtiles is read by
+// mm_precomp only.
 int hprlp_spmv_segsum(int variant, int nrows, long long nnz,
                       const void* indptr, const void* indices,
                       const void* vals, const void* x, const void* rtiles,
@@ -617,7 +609,6 @@ int hprlp_spmv_segsum(int variant, int nrows, long long nnz,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = run_grid(nnz);
   switch (variant) {
-    case kSegFull: segsum_kernel<kSegFull><<<grid, kBlock, 0, s>>>(nrows, nnz, ip, ix, v, xv, rt, yv); break;
     case kMmPrecomp: segsum_kernel<kMmPrecomp><<<grid, kBlock, 0, s>>>(nrows, nnz, ip, ix, v, xv, rt, yv); break;
     case kMmHi1: segsum_kernel<kMmHi1><<<grid, kBlock, 0, s>>>(nrows, nnz, ip, ix, v, xv, rt, yv); break;
     case kMmFused: segsum_kernel<kMmFused><<<grid, kBlock, 0, s>>>(nrows, nnz, ip, ix, v, xv, rt, yv); break;

@@ -25,6 +25,7 @@ import torch
 
 from ..problem import LpProblem
 from .sparse import CsrMatrix, csr_from_numpy
+from .spmv import row_blocks
 from .tiles import TiledMatrix
 
 PAD_MULTIPLE = 32
@@ -101,6 +102,14 @@ def attach_tiles(lp: LpDevice, tiles_A: TiledMatrix, tiles_AT: TiledMatrix
     return dataclasses.replace(
         lp, A=lp.A.with_tiles(tiles_A.retile(lp.A.vals)),
         AT=lp.AT.with_tiles(tiles_AT.retile(lp.AT.vals)))
+
+
+def attach_blocks(lp: LpDevice) -> LpDevice:
+    """lp with the CSR kernel's row-block plans of A and A^T attached
+    (ops/spmv.py::row_blocks): the "gather" backend's layout."""
+    return dataclasses.replace(
+        lp, A=dataclasses.replace(lp.A, blocks=row_blocks(lp.A)),
+        AT=dataclasses.replace(lp.AT, blocks=row_blocks(lp.AT)))
 
 
 def build_device_problem(problem: LpProblem, dtype=torch.float32,

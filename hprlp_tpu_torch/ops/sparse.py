@@ -8,8 +8,9 @@ index space, and the solver attaches to each its column-strip tiles
 (ops/tiles.py), on which the main-path SpMV runs.  The batched solver's
 SpMM runs on the CSR arrays (ops/spmm.py), or on a dense copy of the
 matrix that `with_backend(A, "dense")` attaches.  A single LP's SpMV
-runs on the tiles, on the CSR arrays (the "gather" backend) or on a dense
-copy, as `with_spmv_backend` sets it up.
+runs on the tiles, on the CSR arrays with their row-block plan (the
+"gather" backend, ops/spmv.py::row_blocks) or on a dense copy, as
+`with_spmv_backend` sets it up.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from .spmm import csr_spmm, spmm_reference
-from .spmv import csr_spmv, row_of_entry, spmv_reference, tiled_spmv
+from .spmv import (RowBlocks, csr_spmv, row_blocks, row_of_entry,
+                   spmv_reference, tiled_spmv)
 from .tiles import TiledMatrix, tiled_spmv_reference
 
 INT32_MAX = 2**31 - 1
@@ -35,6 +37,7 @@ class CsrMatrix:
     ncols: int
     tiles: TiledMatrix | None = None  # the same matrix as SpMV tiles
     dense: torch.Tensor | None = None  # the same matrix, (nrows, ncols)
+    blocks: RowBlocks | None = None  # the CSR kernel's row-block plan
 
     @property
     def nnz(self) -> int:
@@ -50,7 +53,7 @@ class CsrMatrix:
 
     def with_vals(self, vals: torch.Tensor) -> "CsrMatrix":
         """New values; the tiles and the dense copy are dropped, since they
-        hold the old ones."""
+        hold the old ones.  The row-block plan holds none and stays."""
         return dataclasses.replace(self, vals=vals, tiles=None, dense=None)
 
     def with_tiles(self, tiles: TiledMatrix) -> "CsrMatrix":
@@ -82,7 +85,8 @@ def csr_from_numpy(indptr, indices, vals, nrows: int, ncols: int,
 def spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x.  A dense copy, where attached, goes to the dense product.
     Else a CUDA tensor goes to a hand-written kernel (which raises on
-    failure): the tiled kernel when A carries tiles, else the CSR kernel.
+    failure): the tiled kernel when A carries tiles, else the CSR kernel
+    (on A's row-block plan, which it must carry).
     A CPU tensor goes to the matching plain version."""
     if A.dense is not None:
         return _dense_matmul(A.dense, x)
@@ -124,14 +128,18 @@ def spmv_backend(A: CsrMatrix) -> str:
 def with_spmv_backend(A: CsrMatrix, backend: str) -> CsrMatrix:
     """A configured for a single LP's SpMV: "tiled" keeps A's tiles (which
     it must carry) and drops a dense copy, "gather" drops both, "dense"
-    attaches a dense copy (built on A's device) and drops the tiles.  Unlike with_backend, for
-    the batched SpMM, "gather" here leaves no tiles."""
+    attaches a dense copy (built on A's device) and drops the tiles.
+    "gather" also attaches the CSR kernel's row-block plan where A has
+    none.  Unlike with_backend, for the batched SpMM, "gather" here leaves
+    no tiles."""
     if backend == "tiled":
         if A.tiles is None:
             raise ValueError("the tiled backend needs A's tiles")
         return dataclasses.replace(A, dense=None)
     if backend == "gather":
-        return dataclasses.replace(A, tiles=None, dense=None)
+        return dataclasses.replace(
+            A, tiles=None, dense=None,
+            blocks=A.blocks if A.blocks is not None else row_blocks(A))
     if backend == "dense":
         return dataclasses.replace(with_backend(A, "dense"), tiles=None)
     raise ValueError(f"unknown SpMV backend {backend!r}")

@@ -7,23 +7,31 @@ whose plain version is `tiles.tiled_spmv_reference`; it is the main
 path's SpMV and replaces the four Pallas TPU kernels of
 hprlp_tpu/ops/pallas_spmv.py (lane_spmv, thin_spmv, lane_spmv_df64,
 thin_spmv_df64; see the notes at the top of the CUDA source).
-`csr_spmv` launches the previous design, `csrc/spmv.cu` (row-parallel
-CSR), on a CsrMatrix without tiles; `spmv_reference` is its contract in
-plain PyTorch.
+`csr_spmv` launches `csrc/spmv_csr.cu` (row blocks, 16-byte vector loads,
+sums in shared memory) on a CsrMatrix that carries its row-block plan
+(`row_blocks`): the "gather" backend; `spmv_x_half` and `spmv_y_half` run
+the same kernel with the single-LP middle iteration's x- or y-half fused
+into its row write (their plain versions: solver/chunk.py::x_half_plain,
+y_half_plain).  `csr_spmv_plain` computes the kernel's bits in plain
+PyTorch on the plan, and `spmv_reference` is the contract (any order).
+`csr_spmv_rowgroup` launches the previous design, `csrc/spmv.cu` (a group of
+threads per row), kept to be timed: no solve launches it.
 
-The library is compiled with nvcc on first use into `_build/` next to this
-package (one file per source hash) and loaded with ctypes; nothing is built
-or imported from a GPU toolchain when this module is imported.  `build`
-takes any source of the package's `csrc/`, so the variant-study kernels
-(ops/spmv_variants.py) build by the same rule.
+Each library is compiled with nvcc on first use into `_build/` next to
+this package (one file per source hash) and loaded with ctypes; nothing is
+built or imported from a GPU toolchain when this module is imported.
+`build` takes any source of the package's `csrc/`, so the variant-study
+kernels (ops/spmv_variants.py) build by the same rule.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,12 +41,18 @@ import torch
 from .tiles import CLUSTER, WARPS, vec_width
 
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_HERE, "csrc", "spmv.cu")
+SOURCE = os.path.join(_HERE, "csrc", "spmv_csr.cu")
+ROWGROUP_SOURCE = os.path.join(_HERE, "csrc", "spmv.cu")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _THREADS_PER_ROW = (2, 4, 8, 16, 32)
+CSR_BLOCK = 256  # threads per block (csrc/spmv_csr.cu kBlock)
+CSR_CAP_BYTES = 8192  # values per window of a row block (kCap<T>), in bytes
+# csrc/spmv_csr.cu's epilogues: y = A x, a fused half, or the no-gather
+# measurement.
+STORE, X_HALF, Y_HALF, NO_GATHER = 0, 1, 2, 3
 
 
 def _nvcc() -> str:
@@ -54,9 +68,15 @@ def _nvcc() -> str:
 
 
 def library_path(source: str = SOURCE) -> str:
-    """Where `source` builds to: one file per source (and flags) hash."""
+    """Where `source` builds to: one file per hash of the source, the
+    headers of csrc/ it includes ("...") and the flags."""
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        text = f.read()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
+    for name in re.findall(rb'#include "([^"]+)"', text):
+        with open(os.path.join(os.path.dirname(source), name.decode()),
+                  "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR,
                         f"libhprlp_{stem}_{digest.hexdigest()[:16]}.so")
@@ -95,6 +115,18 @@ def build(source: str = SOURCE, ptxas_log: list | None = None) -> str:
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
+    i, ptr = ctypes.c_int, ctypes.c_void_p
+    lib.hprlp_csr_spmv.argtypes = [i, i, i, i, ctypes.c_longlong, i, i] \
+        + [ptr] * 16
+    lib.hprlp_csr_spmv.restype = i
+    lib.hprlp_csr_error_string.argtypes = [i]
+    lib.hprlp_csr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _rowgroup_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build(ROWGROUP_SOURCE))
     ptr = ctypes.c_void_p
     for name in ("hprlp_csr_spmv_f32", "hprlp_csr_spmv_f64"):
         fn = getattr(lib, name)
@@ -103,6 +135,60 @@ def _library() -> ctypes.CDLL:
     lib.hprlp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.hprlp_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@dataclasses.dataclass(frozen=True)
+class RowBlocks:
+    """The CSR kernel's plan (csrc/spmv_csr.cu): block b owns rows
+    row0[b] .. row0[b + 1] - 1 and entries ent0[b] .. ent0[b + 1] - 1.
+    It depends on indptr only, so new values keep it."""
+
+    row0: torch.Tensor  # (n_blocks + 1,) int32, ends with nrows
+    ent0: torch.Tensor  # (n_blocks + 1,) int32, indptr[row0]
+    cap: int            # the window it was cut by (row_blocks)
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.row0.shape[0]) - 1
+
+    @property
+    def nbytes(self) -> int:
+        return (self.row0.numel() + self.ent0.numel()) * 4
+
+
+def csr_cap(dtype: torch.dtype) -> int:
+    """Entries per window of a row block in `dtype` (csrc/spmv_csr.cu
+    kCap<T>): 2048 in f32, 1024 in f64."""
+    return CSR_CAP_BYTES // torch.empty((), dtype=dtype).element_size()
+
+
+def row_blocks(A, cap: int | None = None, max_rows: int = CSR_BLOCK
+               ) -> RowBlocks:
+    """The row-block plan of CSR matrix A, on A's device (torch ops, no
+    loop over rows): a block starts at every row whose first entry lies in
+    another window of `cap` entries than its predecessor's, at each row
+    longer than `cap` and the row after it, and every `max_rows` rows
+    within the rest.  So a block of short rows holds fewer than 2 * cap
+    entries and at most max_rows rows, and a long row is a block alone.
+    `cap` defaults to the kernel's, csr_cap of A's value type."""
+    cap = csr_cap(A.vals.dtype) if cap is None else int(cap)
+    indptr = A.indptr.to(torch.int64)
+    n = A.nrows
+    dev = indptr.device
+    if n == 0:
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        return RowBlocks(row0=zero, ent0=zero.clone(), cap=cap)
+    start = indptr[:-1]
+    long = indptr[1:] - start > cap
+    cut = torch.ones(n, dtype=torch.bool, device=dev)
+    cut[1:] = (start[1:] // cap != start[:-1] // cap) | long[1:] | long[:-1]
+    r = torch.arange(n, device=dev)
+    first = torch.cummax(torch.where(cut, r, 0), 0).values
+    cut |= (r - first) % max_rows == 0
+    row0 = torch.cat([torch.nonzero(cut).flatten(),
+                      torch.full((1,), n, dtype=torch.int64, device=dev)])
+    return RowBlocks(row0=row0.to(torch.int32),
+                     ent0=indptr[row0].to(torch.int32), cap=cap)
 
 
 def threads_per_row(nnz: int, nrows: int) -> int:
@@ -145,11 +231,147 @@ def check_csr_args(A, x: torch.Tensor) -> None:
                          f"{tuple(x.shape)}")
 
 
-def csr_spmv(A, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x on the card.  A: CsrMatrix-like (indptr, indices, vals,
-    nrows, ncols, nnz).  Raises on a bad argument or a refused launch."""
-    check_csr_args(A, x)
+def check_blocks(A, x: torch.Tensor) -> None:
+    """The checks of the row-block kernel's wrappers beyond
+    check_csr_args' (device-independent: the tests call it on the CPU):
+    the plan's shape and device, and 16-byte aligned entry arrays."""
+    P = A.blocks
+    if P is None:
+        raise ValueError("A carries no row-block plan: attach "
+                         "row_blocks(A) (ops/sparse.py::with_spmv_backend "
+                         "\"gather\" does)")
+    for name, t in (("row0", P.row0), ("ent0", P.ent0)):
+        if t.device != x.device or t.dtype != torch.int32 \
+                or not t.is_contiguous() or t.shape != (P.n_blocks + 1,):
+            raise ValueError(f"the plan's {name} must be contiguous int32 "
+                             f"on {x.device}")
+    if P.n_blocks < 0 or (A.nrows > 0 and P.n_blocks == 0):
+        raise ValueError("the plan covers no rows")
+    if P.cap != csr_cap(x.dtype):
+        raise ValueError(f"the plan was cut by windows of {P.cap} entries, "
+                         f"the {x.dtype} kernel's are {csr_cap(x.dtype)}")
+    if A.vals.data_ptr() % 16 or A.indices.data_ptr() % 16:
+        raise ValueError("vals and indices must be 16-byte aligned for the "
+                         "kernel's vector loads (a view at an odd offset is "
+                         "not)")
+
+
+def _csr_launch(epilogue: int, A, x: torch.Tensor, out: torch.Tensor,
+                hat=None, cur=None, last=None, p0=None, p1=None, p2=None,
+                scal=None, inner=None, t: int = 0) -> None:
+    """One launch of csrc/spmv_csr.cu on checked arguments."""
     lib = _library()
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+
+    P = A.blocks
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.hprlp_csr_spmv(
+            int(x.dtype == torch.float64), epilogue, A.nrows, A.ncols, A.nnz,
+            P.n_blocks, t, P.row0.data_ptr(), P.ent0.data_ptr(),
+            A.indptr.data_ptr(), A.indices.data_ptr(), A.vals.data_ptr(),
+            x.data_ptr(), out.data_ptr(), ptr(hat), ptr(cur), ptr(last),
+            ptr(p0), ptr(p1), ptr(p2), ptr(scal), ptr(inner), stream)
+    if err != 0:
+        msg = lib.hprlp_csr_error_string(err).decode()
+        raise RuntimeError(f"CSR SpMV launch failed (epilogue {epilogue}, "
+                           f"{P.n_blocks} blocks): {msg} ({err})")
+
+
+def csr_spmv(A, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x on the card, on A's row-block plan (A.blocks).  A:
+    CsrMatrix-like (indptr, indices, vals, nrows, ncols, nnz, blocks).
+    Raises on a bad argument or a refused launch."""
+    check_csr_args(A, x)
+    check_blocks(A, x)
+    y = torch.empty(A.nrows, dtype=x.dtype, device=x.device)
+    _csr_launch(STORE, A, x, y)
+    csr_spmv.launches += 1
+    return y
+
+
+csr_spmv.launches = 0
+
+
+def csr_spmv_no_gather(A, x: torch.Tensor) -> torch.Tensor:
+    """The CSR kernel with x read at each entry's index (masked to x's
+    length) in place of its column: the same stream, sums and store, no
+    random gather.  A measurement of what the gather costs (the ablation
+    of ops/spmv_variants.py's no_gather, asked of this design); its y is
+    not A x, and no solve launches it.  Uncounted."""
+    check_csr_args(A, x)
+    check_blocks(A, x)
+    y = torch.empty(A.nrows, dtype=x.dtype, device=x.device)
+    _csr_launch(NO_GATHER, A, x, y)
+    return y
+
+
+def check_half_args(A, v: torch.Tensor, rows: dict, scal: torch.Tensor,
+                    inner: torch.Tensor) -> None:
+    """The checks the fused halves make before a launch: A and its gathered
+    operand v as for csr_spmv; each of `rows` (name -> tensor) contiguous
+    (A.nrows,) of v's dtype and device; scal 0-dim of that dtype and inner
+    0-dim int32 on that device."""
+    check_csr_args(A, v)
+    wants = [(name, t, (A.nrows,), v.dtype) for name, t in rows.items()]
+    wants += [("scal", scal, (), v.dtype), ("inner", inner, (), torch.int32)]
+    for name, t, shape, dtype in wants:
+        if t.device != v.device:
+            raise ValueError(f"{name} is on {t.device}, the operand on "
+                             f"{v.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous of shape {shape}, "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    check_blocks(A, v)
+
+
+def spmv_x_half(AT, y, x, last_x, c, l, u, sigma, inner, t: int):
+    """One single-LP middle-iteration x-half on the card, fused into A^T
+    y's row write: returns (x_new, x_hat), as solver/chunk.py::
+    x_half_plain computes them.  AT: A^T (n rows) with its plan; y: (m,);
+    x, last_x, c, l, u: (n,); sigma: 0-dim; inner: 0-dim int32, the
+    Halpern counter at the first middle iteration; t: this iteration's
+    index.  Raises on a bad argument or a refused launch."""
+    check_half_args(AT, y, {"x": x, "last_x": last_x, "c": c, "l": l,
+                            "u": u}, sigma, inner)
+    x_new, x_hat = torch.empty_like(x), torch.empty_like(x)
+    _csr_launch(X_HALF, AT, y, x_new, x_hat, x, last_x, c, l, u, sigma,
+                inner, t)
+    spmv_x_half.launches += 1
+    return x_new, x_hat
+
+
+spmv_x_half.launches = 0
+
+
+def spmv_y_half(A, x_hat, y, last_y, AL, AU, lam_sigma, inner, t: int):
+    """One single-LP middle-iteration y-half on the card, fused into A
+    x_hat's row write: returns y_new, as solver/chunk.py::y_half_plain
+    computes it.  A: m rows with its plan; x_hat: (n,); y, last_y, AL, AU:
+    (m,); lam_sigma: 0-dim; inner, t as for spmv_x_half.  Raises on a bad
+    argument or a refused launch."""
+    check_half_args(A, x_hat, {"y": y, "last_y": last_y, "AL": AL,
+                               "AU": AU}, lam_sigma, inner)
+    y_new = torch.empty_like(y)
+    _csr_launch(Y_HALF, A, x_hat, y_new, None, y, last_y, AL, AU, None,
+                lam_sigma, inner, t)
+    spmv_y_half.launches += 1
+    return y_new
+
+
+spmv_y_half.launches = 0
+
+
+def csr_spmv_rowgroup(A, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x on the card by the previous design (csrc/spmv.cu: a group of
+    threads_per_row threads per row, shuffle sums), for measurements: no
+    solve launches it.  Raises on a bad argument or a refused launch."""
+    check_csr_args(A, x)
+    lib = _rowgroup_library()
     y = torch.empty(A.nrows, dtype=x.dtype, device=x.device)
     fn = (lib.hprlp_csr_spmv_f32 if x.dtype == torch.float32
           else lib.hprlp_csr_spmv_f64)
@@ -160,12 +382,13 @@ def csr_spmv(A, x: torch.Tensor) -> torch.Tensor:
                  x.data_ptr(), y.data_ptr(), stream)
     if err != 0:
         msg = lib.hprlp_cuda_error_string(err).decode()
-        raise RuntimeError(f"CSR SpMV launch failed: {msg} ({err})")
-    csr_spmv.launches += 1
+        raise RuntimeError(f"CSR SpMV (row groups) launch failed: {msg} "
+                           f"({err})")
+    csr_spmv_rowgroup.launches += 1
     return y
 
 
-csr_spmv.launches = 0
+csr_spmv_rowgroup.launches = 0
 
 
 TILED_SOURCE = os.path.join(_HERE, "csrc", "spmv_tiled.cu")
@@ -186,6 +409,8 @@ def _tiled_library(device_index: int) -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.hprlp_tiled_spmv.argtypes = [i] * 10 + [ptr] * 8
     lib.hprlp_tiled_spmv.restype = i
+    lib.hprlp_tiled_segsum.argtypes = [i] * 8 + [ptr] * 8
+    lib.hprlp_tiled_segsum.restype = i
     lib.hprlp_tiled_max_active_clusters.argtypes = [i, i, i]
     lib.hprlp_tiled_max_active_clusters.restype = i
     lib.hprlp_tiled_error_string.argtypes = [i]
@@ -304,3 +529,47 @@ def spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
     prod = A.vals * x[A.indices.to(torch.int64)]
     return torch.zeros(A.nrows, dtype=x.dtype, device=x.device).index_add_(
         0, row_of_entry(A), prod)
+
+
+def csr_spmv_plain(A, x: torch.Tensor, blocks: RowBlocks | None = None
+                   ) -> torch.Tensor:
+    """csrc/spmv_csr.cu's y = A @ x in plain PyTorch (any device), bit for
+    bit: each product rounded, then a row of at most the plan's cap entries
+    summed one add at a time in CSR order from +0, and a longer row (a
+    block alone) summed in CSR_BLOCK strided partials and a tree.
+    `blocks` defaults to A's plan, else row_blocks(A)."""
+    P = blocks or getattr(A, "blocks", None) or row_blocks(A)
+    dev, n = x.device, A.nrows
+    indptr = A.indptr.to(device=dev, dtype=torch.int64)
+    prod = A.vals * x[A.indices.to(torch.int64)]
+    y = torch.zeros(n, dtype=x.dtype, device=dev)
+    row0, ent0 = P.row0.to(dev, torch.int64), P.ent0.to(dev, torch.int64)
+    longb = (row0[1:] - row0[:-1] == 1) & (ent0[1:] - ent0[:-1] > P.cap)
+    long_rows = row0[:-1][longb].tolist()
+    length = indptr[1:] - indptr[:-1]
+    short = torch.ones(n, dtype=torch.bool, device=dev)
+    short[long_rows] = False
+    # Short rows: add entry j of every row longer than j, j = 0, 1, ...
+    rows = torch.nonzero(short).flatten()
+    rows = rows[torch.argsort(length[rows], descending=True, stable=True)]
+    lens = length[rows]
+    acc = torch.zeros(rows.numel(), dtype=x.dtype, device=dev)
+    for j in range(int(lens[0]) if rows.numel() else 0):
+        k = int((lens > j).sum())
+        acc[:k] = acc[:k] + prod[indptr[rows[:k]] + j]
+    y[rows] = acc
+    for r in long_rows:
+        p = prod[int(indptr[r]):int(indptr[r + 1])]
+        steps = -(-p.numel() // CSR_BLOCK)
+        part = torch.zeros(steps * CSR_BLOCK, dtype=x.dtype, device=dev)
+        part[:p.numel()] = p
+        part = part.view(steps, CSR_BLOCK)
+        s = torch.zeros(CSR_BLOCK, dtype=x.dtype, device=dev)
+        for i in range(steps):
+            s = s + part[i]
+        w = CSR_BLOCK // 2
+        while w:
+            s = torch.cat([s[:w] + s[w:2 * w], s[2 * w:]])
+            w //= 2
+        y[r] = s[0]
+    return y

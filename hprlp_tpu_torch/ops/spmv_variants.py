@@ -4,7 +4,11 @@
 Each family takes the place of one Pallas variant study in benchmarks/ and
 ablates the port's row-parallel CSR kernel (csrc/spmv.cu) the way that
 study ablated the TPU kernel; the CUDA source's note says what each
-variant isolates.
+variant isolates.  The segsum family's exact variant, full, asks its
+question of the main path's tiles instead (csrc/spmv_tiled.cu, template
+ONEHOT: one-hot tensor-core row sums in place of the segmented warp
+scan); its plain version, `segsum_onehot_plain`, builds the same one-hot
+products in plain PyTorch.
 
     family      wrapper          JAX study                variants
     ablate      spmv_ablate      prof_lane_ablate.py      dma_only, no_gather,
@@ -33,8 +37,10 @@ import os
 
 import torch
 
-from .spmv import (build, check_csr_args, row_of_entry, spmv_reference,
-                   threads_per_row)
+from .spmv import (_tiled_library, build, check_csr_args, check_tiled_args,
+                   row_of_entry, spmv_reference, threads_per_row)
+from .tiles import (SENTINEL_ROW, SMEM_BYTES, WARPS, TiledMatrix,
+                    build_tiles)
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "spmv_variants.cu")
@@ -43,6 +49,12 @@ RUN = 256       # nonzeros per warp in the run-based kernels (flush, segsum)
 TILE = 32       # nonzeros per mma tile in segsum (one per lane)
 SUB = 8         # nonzeros per mma product (k of m16n8k8) in segsum
 RANKS = 16      # rows per mma product (m of m16n8k8)
+SEG_SUB = 16    # entries per one-hot product of segsum full (k of m16n8k16)
+SEG_STEP = 128  # entries per warp step of the tiled kernel (32 lanes x 4)
+# segsum full's per-warp staging of mma fragments, ranks and rank-to-row
+# tables (csrc/spmv_tiled.cu kSegsumBytes), on top of the tiles' own
+# shared memory.
+SEG_SMEM_BYTES = 16 * (8 * 3 * 4 * 8 + 8 * 4 * 4 + 8 * 16 * 2)
 WINDOW = 16384  # x entries per window in ablate/one_gather (128 x 128)
 _BF16_ONE = 0x3F80
 
@@ -172,13 +184,68 @@ def spmv_flush(A, x: torch.Tensor, variant_name: str) -> torch.Tensor:
     return y
 
 
+def segsum_tiles(A) -> TiledMatrix:
+    """A's tiles for segsum full: build_tiles' layout, with strips narrowed
+    where the kernel's staging (SEG_SMEM_BYTES) would not fit beside
+    them."""
+    T = build_tiles(A)
+    while T.smem_bytes + SEG_SMEM_BYTES > SMEM_BYTES:
+        ys = T.smem_bytes - (2 if T.group_strips > 1 else 1) \
+            * T.strip_width * T.vals.element_size()
+        W = (SMEM_BYTES - SEG_SMEM_BYTES - ys) // (2 * T.vals
+                                                      .element_size())
+        T = build_tiles(A, strip_width=min(W // 32 * 32,
+                                           T.strip_width - 32))
+    return T
+
+
+def _segsum_full(A, x: torch.Tensor, tiles: TiledMatrix | None
+                 ) -> torch.Tensor:
+    """segsum full: the tiled kernel with one-hot tensor-core row sums, on
+    `tiles` (else A's own, else segsum_tiles(A))."""
+    T = tiles if tiles is not None else (
+        A.tiles if getattr(A, "tiles", None) is not None
+        else segsum_tiles(A))
+    check_tiled_args(T, x)
+    if (T.nrows, T.ncols) != (A.nrows, A.ncols):
+        raise ValueError("the tiles are of another matrix")
+    if T.smem_bytes + SEG_SMEM_BYTES > SMEM_BYTES:
+        raise ValueError(f"tiles of {T.smem_bytes} B shared memory leave no "
+                         f"room for segsum's {SEG_SMEM_BYTES} B of staging: "
+                         f"build them with segsum_tiles")
+    y = torch.empty(T.nrows, dtype=x.dtype, device=x.device)
+    if T.nnz == 0:
+        return y.zero_()
+    part = (torch.empty(T.n_groups * T.nrows, dtype=x.dtype, device=x.device)
+            if T.n_groups > 1 else None)
+    lib = _tiled_library(x.device.index if x.device.index is not None
+                         else torch.cuda.current_device())
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.hprlp_tiled_segsum(
+            T.nrows, T.ncols, T.strip_width, T.n_strips, T.n_groups,
+            T.group_strips, T.n_chunks, T.max_block_rows, T.vals.data_ptr(),
+            T.keys.data_ptr(), T.runs.data_ptr(), T.row_start.data_ptr(),
+            x.data_ptr(), None if part is None else part.data_ptr(),
+            y.data_ptr(), stream)
+    if err != 0:
+        msg = lib.hprlp_tiled_error_string(err).decode()
+        raise RuntimeError(f"hprlp_tiled_segsum launch failed: {msg} ({err})")
+    spmv_segsum.launches += 1
+    return y
+
+
 def spmv_segsum(A, x: torch.Tensor, variant_name: str,
-                rtiles: torch.Tensor | None = None) -> torch.Tensor:
-    """K4: products summed by row with tensor-core one-hot products.
+                rtiles: torch.Tensor | None = None,
+                tiles: TiledMatrix | None = None) -> torch.Tensor:
+    """K4: products summed by row with tensor-core one-hot products.  full
+    runs on `tiles` (A's, or segsum_tiles(A), built here if not given);
     mm_precomp reads `rtiles` (segsum_rtiles(A), built here if not
     given)."""
     v = variant("segsum", variant_name)
     _check(A, x)
+    if variant_name == "full":
+        return _segsum_full(A, x, tiles)
     if variant_name == "mm_precomp":
         if rtiles is None:
             rtiles = segsum_rtiles(A)
@@ -279,9 +346,87 @@ def _flush_plain(A, x, name):
                      torch.arange(nruns, device=x.device) % max(A.nrows, 1))
 
 
-def _segsum_plain(A, x, name):
+def segsum_subblocks(T: TiledMatrix) -> dict:
+    """segsum full's one-hot products on tiles T, as the kernel forms them:
+    every warp run is cut into steps of SEG_STEP and sub-blocks of SEG_SUB
+    entries from its start; an entry's rank is the number of distinct rows
+    before it in its sub-block.  Returns (int64, on T's device) "sub" (the
+    sub-block of each tile position), "pos" (its place in the sub-block),
+    "rank", "row" (its row; padding gets nrows) and "row_of_rank"
+    (n_sub, SEG_SUB): the row each rank sums into (nrows where no entry
+    has the rank)."""
+    dev = T.keys.device
+    L = T.vals.shape[0]
+    counts = (T.runs[1:] - T.runs[:-1]).to(torch.int64)
+    run = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
+                                  counts, output_size=L)
+    at = torch.arange(L, device=dev) - T.runs.to(torch.int64)[run]
+    key = T.keys.to(torch.int64) & 0xFFFFFFFF
+    rib = key >> 16
+    block = run // (T.group_strips * WARPS)
+    chunk = block % T.n_chunks
+    row = torch.where(rib == SENTINEL_ROW, T.nrows,
+                      T.row_start.to(torch.int64)[chunk] + rib)
+    # Sub-blocks never straddle a run: number them run by run.
+    per_run = -(-counts // SEG_SUB)
+    first = torch.cumsum(per_run, 0) - per_run
+    sub = first[run] + at // SEG_SUB
+    pos = at % SEG_SUB
+    new = torch.ones(L, dtype=torch.bool, device=dev)
+    new[1:] = (sub[1:] != sub[:-1]) | (row[1:] != row[:-1])
+    new_row = new.clone()
+    new_row[pos == 0] = False  # rank 0 opens every sub-block
+    rank = torch.cumsum(new_row.to(torch.int64), 0)
+    start = torch.where(pos == 0, rank, 0)
+    rank = rank - torch.cummax(start, 0).values
+    n_sub = int(per_run.sum())
+    row_of_rank = torch.full((n_sub, SEG_SUB), T.nrows, dtype=torch.int64,
+                             device=dev)
+    row_of_rank[sub[new], rank[new]] = row[new]
+    return {"sub": sub, "pos": pos, "rank": rank, "row": row,
+            "row_of_rank": row_of_rank}
+
+
+def _bf16_terms(p: torch.Tensor) -> torch.Tensor:
+    """(len, 3): the exact three-term bf16 split hi, mid, lo of f32 p, as
+    the kernel's bf16_term makes it (hi + mid + lo == p)."""
+    hi = _bf16(p)
+    r1 = p - hi
+    mid = _bf16(r1)
+    return torch.stack([hi, mid, _bf16(r1 - mid)], dim=-1)
+
+
+def segsum_onehot_plain(T: TiledMatrix, x: torch.Tensor) -> torch.Tensor:
+    """segsum full in plain PyTorch (any device): per sub-block C = R P with
+    R the one-hot (SEG_SUB ranks x SEG_SUB entries) and P the products'
+    bf16 terms, each rank's (hi + mid) + lo added into its row in sub-block
+    order.  The products of R P are exact; the kernel's tensor cores add
+    them in f32 in an order of their own."""
+    sb = segsum_subblocks(T)
+    col = T.coo[2][torch.argsort(T.coo[0])]  # column of each tile position
+    p = T.vals * x[torch.clamp(col, max=T.ncols - 1)]
+    n_sub = sb["row_of_rank"].shape[0]
+    R = torch.zeros((n_sub, SEG_SUB, SEG_SUB), dtype=torch.float64,
+                    device=x.device)
+    R[sb["sub"], sb["rank"], sb["pos"]] = 1.0
+    P = torch.zeros((n_sub, SEG_SUB, 3), dtype=torch.float64,
+                    device=x.device)
+    P[sb["sub"], sb["pos"]] = _bf16_terms(p).to(torch.float64)
+    C = (R @ P).to(torch.float32)
+    sums = (C[..., 0] + C[..., 1]) + C[..., 2]
+    y = torch.zeros(T.nrows + 1, dtype=torch.float32, device=x.device)
+    return y.index_add_(0, sb["row_of_rank"].flatten(), sums.flatten()
+                        )[:T.nrows]
+
+
+def _segsum_plain(A, x, name, tiles=None):
+    if name == "full":
+        T = tiles if tiles is not None else (
+            A.tiles if getattr(A, "tiles", None) is not None
+            else segsum_tiles(A))
+        return segsum_onehot_plain(T, x)
     p = A.vals * x[A.indices.to(torch.int64)]
-    if name in ("full", "mm_fused"):
+    if name == "mm_fused":
         hi = _tf32(p)
         per_entry = hi + _tf32(p - hi)
     elif name == "mm_precomp":

@@ -2,9 +2,11 @@
 "segsum" kernel family of ops/spmv_variants.py.
 
 The segmented sum of products by row as tensor-core one-hot products
-(mma.sync): per 8-entry sub-block with TF32 hi+lo (full), with host-built
-bf16 R tiles and bf16 hi+lo (mm_precomp), in one bf16 pass (mm_hi1), or
-one product per 32-entry tile with clamped ranks (mm_fused).
+(mma.sync): on the main path's tiles, one m16n8k16 product per 16 entries
+of a warp's stream with the products as three bf16 terms, in place of the
+tiled kernel's segmented warp scan (full); on CSR, with host-built bf16 R
+tiles and bf16 hi+lo (mm_precomp), in one bf16 pass (mm_hi1), or one
+product per 32-entry tile with clamped ranks (mm_fused).
 
     python -m hprlp_tpu_torch.prof.prof_kernel_variants [--size huge]
 

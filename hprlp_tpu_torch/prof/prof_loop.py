@@ -4,6 +4,7 @@ card.
 
     python -m hprlp_tpu_torch.prof.prof_loop [--size large|huge|assign64]
                                              [--dtype f32|f64] [--batch B]
+                                             [--backend tiled|gather]
                                              [--eager]
 
 Sets the LP up as solve_problem does (layout and tiles, scaling, power
@@ -18,7 +19,9 @@ the solve runs them; --eager runs the same steps eagerly instead.  --batch B set
 members that share one A as solve_batched does (--size large is
 prof.problems.batched_lp(65536, 131072, B, seed=3), huge
 batched_lp(262144, 524288, B, seed=4)), and the share is the SpMM
-kernel's.  Needs a CUDA device.
+kernel's.  --backend gather runs the single-LP loop on the CSR kernel,
+its middle halves fused into it (the share is then the CSR kernel's).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.device_problem import attach_tiles, build_device_problem
+from ..solver.autotune import set_spmv_backend
 from ..ops.tiles import build_tiles
 from ..params import Parameters
 from ..solver import batched
@@ -53,22 +57,24 @@ BATCHED_SIZES = {"large": lambda B: batched_lp(65536, 131072, B, seed=3),
 CHUNKS = 2
 # The most chunks one run() call replays.
 MAX_CHUNKS = 8
-SPMV_KERNELS = ("tiled_spmv_kernel", "group_sum_kernel")
+SPMV_KERNELS = ("tiled_spmv_kernel", "group_sum_kernel", "csr_spmv_kernel")
 # The SpMM kernel, with or without a fused half-update (csrc/spmm.cu).
 SPMM_KERNELS = ("csr_spmm_kernel",)
 
 
 class Loop:
     """The solver's device state for one LP, advanced chunk by chunk by the
-    replays of its captured chunk boundary (graph=False: eagerly)."""
+    replays of its captured chunk boundary (graph=False: eagerly), with
+    its SpMV on `backend` ("tiled" or "gather", autotune.set_spmv_backend)."""
 
-    def __init__(self, problem, dtype, graph: bool = True):
+    def __init__(self, problem, dtype, graph: bool = True,
+                 backend: str = "tiled"):
         dev = torch.device("cuda")
         self.check = Parameters().check_iter
         raw, _ = build_device_problem(problem, dtype=dtype, device=dev)
         tiles = (build_tiles(raw.A), build_tiles(raw.AT))
         lp, self.scal = scale_problem(raw)
-        self.lp = attach_tiles(lp, *tiles)
+        self.lp = set_spmv_backend(attach_tiles(lp, *tiles), backend)
         lam = max(float(power_method(self.lp)) * 1.01, 1e-12)
         nb, nc = float(self.scal.norm_b), float(self.scal.norm_c)
         sigma = nb / nc if nb > 1e-8 and nc > 1e-8 else 1.0
@@ -187,6 +193,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=("f32", "f64"), default="f32")
     ap.add_argument("--batch", type=int, default=0, metavar="B",
                     help="profile the batched loop with B members")
+    ap.add_argument("--backend", choices=("tiled", "gather"),
+                    default="tiled", help="the single-LP loop's SpMV")
     ap.add_argument("--eager", action="store_true",
                     help="run the chunk boundaries eagerly, not as the "
                          "replays of their CUDA graph")
@@ -204,9 +212,10 @@ def main(argv=None) -> int:
         what, product = "SpMM", SPMM_KERNELS
         head = f"{args.size} B={args.batch} {args.dtype}"
     else:
-        loop = Loop(SIZES[args.size](), dtype, graph=not args.eager)
+        loop = Loop(SIZES[args.size](), dtype, graph=not args.eager,
+                    backend=args.backend)
         what, product = "SpMV", SPMV_KERNELS
-        head = f"{args.size} {args.dtype}"
+        head = f"{args.size} {args.dtype} {args.backend}"
     r = profile(loop, product)
     head += " eager" if args.eager else " graph"
     print(f"{head}: {r['its']:.1f} it/s unprofiled; profiled {r['iters']} "

@@ -23,7 +23,7 @@ import sys
 import numpy as np
 import torch
 
-from ..ops.device_problem import build_device_problem
+from ..ops.device_problem import attach_blocks, build_device_problem
 from ..ops.spmv import MAIN_STAGE, TILED_STAGES, csr_spmv, tiled_spmv
 from ..ops.tiles import build_tiles, tiled_spmv_reference
 from .problems import random_lp
@@ -70,6 +70,7 @@ def main(argv=None) -> int:
     problem = SIZES[args.size]()
     for dtype in (torch.float32, torch.float64):
         lp, _ = build_device_problem(problem, dtype=dtype, device="cuda")
+        lp = attach_blocks(lp)
         for mat, M in (("A", lp.A), ("AT", lp.AT)):
             x = torch.as_tensor(np.random.default_rng(0).normal(
                 size=M.ncols), device="cuda").to(dtype)

@@ -17,7 +17,8 @@ import torch
 
 from ..ops.device_problem import build_device_problem
 from ..ops.spmv import spmv_reference, threads_per_row
-from ..ops.spmv_variants import WRAPPERS, plain, segsum_rtiles, variant
+from ..ops.spmv_variants import (WRAPPERS, plain, segsum_rtiles,
+                                 segsum_tiles, variant)
 from ..solver.scaling import scale_problem
 from .problems import make_problem, random_lp
 from .timing import card, spmv_bound, spmv_bytes, time_ms
@@ -28,10 +29,12 @@ SIZES = {"bench": make_problem,
 
 def device_matrices(problem, device="cuda") -> dict:
     """A and A^T of the scaled f32 LP on `device`, as the solver sees them
-    (the port's build_device_problem + scale_problem)."""
+    (the port's build_device_problem + scale_problem), each carrying the
+    tiles segsum full runs on (segsum_tiles, built once here)."""
     lp, _ = build_device_problem(problem, dtype=torch.float32, device=device)
     scaled, _ = scale_problem(lp)
-    return {"A": scaled.A, "AT": scaled.AT}
+    return {name: M.with_tiles(segsum_tiles(M))
+            for name, M in (("A", scaled.A), ("AT", scaled.AT))}
 
 
 def study_x(M, seed: int = 0) -> torch.Tensor:

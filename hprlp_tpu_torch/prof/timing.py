@@ -22,15 +22,18 @@ FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
 def time_ms(fn, reps: int = 50) -> float:
     """Device time of one fn() call: reps calls captured in a CUDA graph
-    and replayed between two CUDA events, so host launch gaps are out."""
-    side = torch.cuda.Stream()
+    (warmed up and pooled as the solver's captures, solver/graph.py) and
+    replayed between two CUDA events, so host launch gaps are out."""
+    from ..solver.graph import graph_pool, warmup_stream
+
+    side = warmup_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, pool=graph_pool()):
         for _ in range(reps):
             fn()
     graph.replay()

@@ -209,12 +209,15 @@ def _handle(req: dict, device) -> dict:
 
 def release_device_memory() -> None:
     """Drop what the last request left to the garbage collector (a
-    solve's CUDA graph and its memory pool among it), free the cuBLAS
-    workspaces (PyTorch keeps one per stream, and each graph capture runs
-    on a side stream of its own) and hand the caching allocator's free
+    solve's CUDA graph among it) and the graph pool its captures shared
+    (solver/graph.py::release_graph_pools), free the cuBLAS workspaces
+    (PyTorch keeps one per stream) and hand the caching allocator's free
     blocks back to CUDA."""
     import torch
 
+    from .solver.graph import release_graph_pools
+
+    release_graph_pools()
     gc.collect()
     if torch.cuda.is_initialized():
         torch._C._cuda_clearCublasWorkspaces()
@@ -329,10 +332,11 @@ def launch_counts() -> dict:
     """Launches of each hand-written kernel in this process, by wrapper
     (their plain versions on the CPU count none)."""
     from .ops.spmm import csr_spmm, spmm_x_half, spmm_y_half
-    from .ops.spmv import csr_spmv, tiled_spmv
+    from .ops.spmv import csr_spmv, spmv_x_half, spmv_y_half, tiled_spmv
 
     return {f.__name__: f.launches for f in (
-        tiled_spmv, csr_spmv, csr_spmm, spmm_x_half, spmm_y_half)}
+        tiled_spmv, csr_spmv, spmv_x_half, spmv_y_half, csr_spmm,
+        spmm_x_half, spmm_y_half)}
 
 
 def _protocol_stdout():

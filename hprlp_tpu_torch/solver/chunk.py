@@ -19,6 +19,13 @@ One HPR iteration (reference: src/cuda_kernels/HPR_cuda_kernels.cu:229-295):
                y     = fact2 y_hat + fact1 last_y
     fact1 = 1/(k+2), fact2 = 1 - fact1, k = iterations since restart.
 
+A middle iteration's two halves go through `x_half` and `y_half`: on the
+card, with A on the "gather" backend, each is one launch of the CSR
+kernel with the half fused into its row write (ops/spmv.py::spmv_x_half,
+spmv_y_half), bitwise equal to its plain ops; elsewhere (tiles, a dense
+copy, the CPU) the plain ops (`x_half_plain`, `y_half_plain`).  The first
+and last iterations of a chunk stay plain.
+
 The TPU package's double-f32 chunk (_df64_chunk_iters) has no counterpart:
 the GPU has native f64.
 """
@@ -26,11 +33,13 @@ the GPU has native f64.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from ..ops.device_problem import LpDevice
-from ..ops.sparse import spmv
+from ..ops.sparse import spmv, spmv_backend
+from ..ops.spmv import spmv_x_half, spmv_y_half
 from .scaling import ScalingInfo
 
 
@@ -82,6 +91,55 @@ def _y_half(lp, y, x_hat, last_y, lam_sigma, fact1, fact2):
     y_hat = 2.0 * y_bar - y
     y_new = fact2 * y_hat + fact1 * last_y
     return y_new, y_bar, v + d
+
+
+class Halpern:
+    """The Halpern counter of one middle iteration, inner + t (inner: the
+    0-dim int32 counter at the first middle iteration, t: this iteration's
+    index among them), for its two halves: the plain ones share its
+    factors, made once on first use; the fused ones read inner and t on
+    the card."""
+
+    def __init__(self, inner: torch.Tensor, t: int, dtype: torch.dtype):
+        self.inner, self.t, self.dtype = inner, t, dtype
+
+    @functools.cached_property
+    def factors(self):
+        return _halpern_factors(self.inner + self.t, self.dtype)
+
+
+def x_half_plain(lp, x, y, last_x, sigma, h: Halpern):
+    """A middle iteration's x-half in plain ops: _x_half with the factors
+    of h.  Returns (x_new, x_hat)."""
+    x_new, x_hat, _, _ = _x_half(lp, x, y, last_x, sigma, *h.factors)
+    return x_new, x_hat
+
+
+def y_half_plain(lp, y, x_hat, last_y, lam_sigma, h: Halpern):
+    """A middle iteration's y-half in plain ops.  Returns y_new."""
+    return _y_half(lp, y, x_hat, last_y, lam_sigma, *h.factors)[0]
+
+
+def _fused(M, v: torch.Tensor) -> bool:
+    """Whether a half over M's rows runs fused: M on the "gather" backend
+    (the CSR kernel) and its operand on the card."""
+    return v.device.type == "cuda" and spmv_backend(M) == "gather"
+
+
+def x_half(lp, x, y, last_x, sigma, h: Halpern):
+    """x_half_plain, fused into A^T y's row write where _fused holds."""
+    if _fused(lp.AT, y):
+        return spmv_x_half(lp.AT, y, x, last_x, lp.c, lp.l, lp.u, sigma,
+                           h.inner, h.t)
+    return x_half_plain(lp, x, y, last_x, sigma, h)
+
+
+def y_half(lp, y, x_hat, last_y, lam_sigma, h: Halpern):
+    """y_half_plain, fused into A x_hat's row write where _fused holds."""
+    if _fused(lp.A, x_hat):
+        return spmv_y_half(lp.A, x_hat, y, last_y, lp.AL, lp.AU, lam_sigma,
+                           h.inner, h.t)
+    return y_half_plain(lp, y, x_hat, last_y, lam_sigma, h)
 
 
 def _fixed_point_gap_parts(lp, dx, dy):
@@ -152,14 +210,14 @@ def run_chunk(lp: LpDevice, scal: ScalingInfo, state: SolverState,
                                                     y - y_bar1)
     inner = inner + 1
 
-    # Middle iterations: plain updates.
+    # Middle iterations: plain updates, each half fused into its SpMV on
+    # the "gather" backend on the card; the counter advances once after.
     x2, y2 = x1, y1
-    for _ in range(1, n_iters - 1):
-        f1, f2 = _halpern_factors(inner, dtype)
-        x2, x_hat, _, _ = _x_half(lp, x1, y1, last_x, sigma, f1, f2)
-        y2, _, _ = _y_half(lp, y1, x_hat, last_y, lam_sigma, f1, f2)
-        x1, y1 = x2, y2
-        inner = inner + 1
+    for t in range(n_iters - 2):
+        h = Halpern(inner, t, dtype)
+        x2, x_hat = x_half(lp, x2, y2, last_x, sigma, h)
+        y2 = y_half(lp, y2, x_hat, last_y, lam_sigma, h)
+    inner = inner + (n_iters - 2)
 
     # Final iteration (check-style).
     f1, f2 = _halpern_factors(inner, dtype)

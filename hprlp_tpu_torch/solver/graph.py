@@ -10,6 +10,16 @@ capture: `CapturedStep` records each wrapper's launches during the capture
 and adds them on every replay, so a counter reads the number of times the
 card ran the kernel, whichever route ran it.
 
+Every capture of a process on a device warms up on one side stream of
+that device (`warmup_stream`) and allocates from one graph memory pool
+(`graph_pool`): PyTorch keeps a cuBLAS workspace per stream and a graph's
+private pool until the allocator's cache is emptied, so a new stream or
+pool per capture (the autotune's probes, each solve's chunk boundary,
+each refinement stage) grew a long-lived process's device memory with
+every solve.  The captures of one process run one after another and
+replay on one stream, so they can share the pool: nothing a capture
+leaves allocated is used after another capture of the pool replays.
+
 `time_probe` times a probe (the autotune's chunks) by device time: on the
 card, replays of a captured graph between CUDA events; on the CPU, where
 the host is the device, eager calls by the wall clock.
@@ -23,12 +33,56 @@ import numpy as np
 import torch
 
 from ..ops.spmm import csr_spmm, csr_spmm_rowwise, spmm_x_half, spmm_y_half
-from ..ops.spmv import csr_spmv, tiled_spmv
+from ..ops.spmv import (csr_spmv, csr_spmv_rowgroup, spmv_x_half,
+                        spmv_y_half, tiled_spmv)
 
-# Every kernel wrapper on a solve path that counts its launches.
+# Every kernel wrapper on a solve path that counts its launches, and the
+# previous designs, which no solve path may launch.
 COUNTED = {"tiled_spmv": tiled_spmv, "csr_spmv": csr_spmv,
+           "spmv_x_half": spmv_x_half, "spmv_y_half": spmv_y_half,
            "csr_spmm": csr_spmm, "spmm_x_half": spmm_x_half,
-           "spmm_y_half": spmm_y_half, "csr_spmm_rowwise": csr_spmm_rowwise}
+           "spmm_y_half": spmm_y_half, "csr_spmm_rowwise": csr_spmm_rowwise,
+           "csr_spmv_rowgroup": csr_spmv_rowgroup}
+
+_WARMUP_STREAMS: dict[int, torch.cuda.Stream] = {}
+_GRAPH_POOLS: dict[int, tuple] = {}  # device -> (pool, the graph keeping it)
+
+
+def release_graph_pools() -> None:
+    """Drop the graph pools of this process (and the graphs keeping them),
+    so that torch.cuda.empty_cache can hand their memory back once no graph
+    captured into them lives; the next capture makes a new pool."""
+    _GRAPH_POOLS.clear()
+
+
+def _index(device) -> int:
+    device = torch.device("cuda") if device is None else torch.device(device)
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
+def warmup_stream(device=None) -> torch.cuda.Stream:
+    """The side stream of `device` (default: the current one) on which
+    every capture of this process warms up, made at its first use."""
+    i = _index(device)
+    if i not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[i] = torch.cuda.Stream(device=i)
+    return _WARMUP_STREAMS[i]
+
+
+def graph_pool(device=None) -> tuple:
+    """The graph memory pool of `device` that every capture of this
+    process allocates from, made at its first use.  A pool lives while a
+    graph captured into it does, so the first capture, of one fill, is
+    kept for the process: the pool and its free blocks outlive every later
+    graph, and the next capture takes them."""
+    i = _index(device)
+    if i not in _GRAPH_POOLS:
+        keeper = torch.cuda.CUDAGraph()
+        with torch.cuda.device(i), torch.cuda.graph(keeper):
+            torch.zeros(1, device=f"cuda:{i}")
+        _GRAPH_POOLS[i] = (keeper.pool(), keeper)
+    return _GRAPH_POOLS[i][0]
 
 
 def launch_counts() -> dict[str, int]:
@@ -47,8 +101,9 @@ def _add(counts: dict | None, delta: dict) -> None:
 
 
 class CapturedStep:
-    """fn() run once on a side stream, to warm up, then captured once in a
-    CUDA graph; `replay()` runs the capture.  `out` holds what the captured
+    """fn() run once on the device's warm-up stream, then captured once in
+    a CUDA graph from the device's graph pool; `replay()` runs the
+    capture.  `out` holds what the captured
     call returned: tensors that each replay rewrites.  The warm-up's and
     each replay's launches are counted in `counts` when it is given (a
     probe's, kept apart from a solve's), else in the wrappers' own
@@ -57,14 +112,14 @@ class CapturedStep:
     def __init__(self, fn, counts: dict | None = None):
         self.counts = counts
         before = launch_counts()
-        side = torch.cuda.Stream()
+        side = warmup_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream().wait_stream(side)
         warm = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, pool=graph_pool()):
             self.out = fn()
         captured = launch_counts()
         # The capture ran nothing: the counters go back to what the

@@ -18,7 +18,8 @@ import time
 import numpy as np
 import torch
 
-from ..ops.device_problem import attach_tiles, build_device_problem
+from ..ops.device_problem import (attach_blocks, attach_tiles,
+                                  build_device_problem)
 from ..ops.sparse import spmv_backend
 from ..ops.tiles import build_tiles
 from ..params import Parameters
@@ -150,6 +151,10 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     # "gather" and "dense" never run on them.
     tiled = params.spmv_backend in ("auto", "lane")
     tiles = (build_tiles(lp_raw.A), build_tiles(lp_raw.AT)) if tiled else None
+    # So is the CSR kernel's row-block plan ("gather", which the autotune
+    # may choose); it holds no values, so the scaling keeps it.
+    if params.spmv_backend in ("auto", "gather"):
+        lp_raw = attach_blocks(lp_raw)
     _sync(device)
     out.setup_time = time.perf_counter() - t_setup
     log(f"Setup (layout and upload) time = {out.setup_time:.2f} seconds")

@@ -21,6 +21,9 @@ from hprlp_tpu.solver.power_iteration import power_method as jax_power
 from hprlp_tpu.solver.scaling import ScalingInfo as JaxScalingInfo
 from hprlp_tpu.solver.scaling import scale_problem as jax_scale
 from hprlp_tpu_torch import convert
+from hprlp_tpu_torch.ops.device_problem import attach_tiles
+from hprlp_tpu_torch.ops.tiles import build_tiles
+from hprlp_tpu_torch.solver.autotune import set_spmv_backend
 from hprlp_tpu_torch.solver import chunk as tchunk
 from hprlp_tpu_torch.solver import device_loop as tloop
 
@@ -58,6 +61,16 @@ def pair():
     return lp_j, scal_j, lam, maps, lp_t, scal_t
 
 
+def _on_backend(lp_t, backend):
+    """The port's LP with its SpMV on `backend`: "tiled" (the solve's
+    default: the column-strip tiles, whose plain version runs here) or
+    "gather" (the CSR kernel's row-block plan; on the card its middle
+    halves run fused, on the CPU their plain ops)."""
+    if backend == "tiled":
+        return attach_tiles(lp_t, build_tiles(lp_t.A), build_tiles(lp_t.AT))
+    return set_spmv_backend(lp_t, backend)
+
+
 def _random_state(rng, lp_j, maps, inner=7):
     def vec(size, pos):
         v = np.zeros(size)
@@ -86,9 +99,11 @@ def _close(a, b, rtol, what):
     np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=what)
 
 
+@pytest.mark.parametrize("backend", ["tiled", "gather"])
 @pytest.mark.parametrize("restart", [False, True])
-def test_run_chunk_matches_jax(pair, restart):
+def test_run_chunk_matches_jax(pair, restart, backend):
     lp_j, scal_j, lam, maps, lp_t, scal_t = pair
+    lp_t = _on_backend(lp_t, backend)
     d = _random_state(np.random.default_rng(1), lp_j, maps)
     sigma = 0.7
     st_j, m_j = jchunk.run_chunk(lp_j, scal_j, _jax_state(d),
@@ -232,8 +247,9 @@ def test_decide_and_update_matches_jax(seed, tiny):
         it += CHECK
 
 
+@pytest.mark.parametrize("backend", ["tiled", "gather"])
 @pytest.mark.parametrize("stall_patience", [0, 1])
-def test_run_superchunk_matches_jax(pair, stall_patience):
+def test_run_superchunk_matches_jax(pair, stall_patience, backend):
     """Four chunks from the initial point; stall_patience=1 makes the
     recovery fire at the first checkpoint that does not improve 3%.
 
@@ -242,8 +258,10 @@ def test_run_superchunk_matches_jax(pair, stall_patience):
     packages), whose XLA and PyTorch results may differ in the last bits,
     and each later sigma and metric inherits that; the test bounds the
     drift at 1e-5.  The stall case runs 6 chunks of 5 iterations, so that
-    a checkpoint fails to improve 3% and the recovery fires."""
+    a checkpoint fails to improve 3% and the recovery fires.  The port runs
+    on the tiled and the gather backend alike."""
     lp_j, scal_j, lam, maps, lp_t, scal_t = pair
+    lp_t = _on_backend(lp_t, backend)
     n_chunks, check = (6, 5) if stall_patience else (4, CHECK)
     sigma = float(scal_j.norm_b) / float(scal_j.norm_c)
     st_j = jchunk.init_state(lp_j)

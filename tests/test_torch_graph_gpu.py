@@ -184,6 +184,48 @@ def test_solve_launches_only_its_backend(cuda, backend):
     assert csr_spmm.launches > 0  # the scaling's row sums
 
 
+def test_captures_reuse_one_warmup_stream_and_pool(cuda, monkeypatch):
+    """The repair of the per-capture side stream: every capture of a solve
+    (the autotune's probes, the chunk boundary) and of a second solve warms
+    up on the device's one side stream and allocates from its one graph
+    pool."""
+    from hprlp_tpu_torch.solver import graph
+
+    real_stream, real_pool = graph.warmup_stream, graph.graph_pool
+    streams, pools = [], []
+    monkeypatch.setattr(graph, "warmup_stream", lambda device=None: (
+        streams.append(real_stream(device)) or streams[-1]))
+    monkeypatch.setattr(graph, "graph_pool", lambda device=None: (
+        pools.append(real_pool(device)) or pools[-1]))
+    args = _arrays(m=300, n=1000, density=0.04)
+    for _ in range(2):
+        res = ht.solve(*args, ht.Parameters(verbose=False,
+                                            use_presolve=False))
+        assert res.status == "OPTIMAL"
+    assert len(streams) >= 4 and len(pools) == len(streams)
+    assert all(s is streams[0] for s in streams)
+    assert all(p == pools[0] for p in pools)
+    assert streams[0] != torch.cuda.current_stream()
+
+
+def test_solves_in_one_process_keep_device_memory_flat(cuda):
+    """Six solves of one LP in this process, with the autotune's probes and
+    no call of server.release_device_memory: from the second solve on,
+    the allocator's reserved memory stays within 32 MiB.  A new side
+    stream per capture (a cuBLAS workspace each) and a private graph pool
+    per capture grew it with every solve."""
+    args = _arrays(m=3000, n=6000, density=0.003)
+    reserved = []
+    for _ in range(6):
+        res = ht.solve(*args, ht.Parameters(verbose=False,
+                                            use_presolve=False))
+        assert res.status == "OPTIMAL"
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    assert autotune.autotune_backends.record is not None  # probes ran
+    assert max(reserved[1:]) - min(reserved[1:]) <= 32 * 2**20, reserved
+
+
 def test_the_card_refuses_the_eager_route_unasked(cuda):
     args, obj_c = _setup(torch.float32, cuda)
     with pytest.raises(ValueError, match="graph=False"):

@@ -1,4 +1,4 @@
-"""The CUDA SpMV kernel and the port's main path on the card.
+"""The CUDA SpMV kernels and the port's main path on the card.
 
 Every test here needs a CUDA device (the kernel has no CPU mode) and skips
 without one.  The file imports neither JAX nor the JAX package, so that it
@@ -14,8 +14,9 @@ import torch
 
 import hprlp_tpu_torch as ht
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
-from hprlp_tpu_torch.ops.sparse import spmv
-from hprlp_tpu_torch.ops.spmv import csr_spmv, spmv_reference, tiled_spmv
+from hprlp_tpu_torch.ops.sparse import spmv, with_spmv_backend
+from hprlp_tpu_torch.ops.spmv import (csr_spmv, csr_spmv_rowgroup,
+                                      spmv_reference, tiled_spmv)
 
 pytestmark = pytest.mark.gpu
 
@@ -29,23 +30,29 @@ def cuda():
 
 @pytest.mark.parametrize("mean_row", [1, 3, 7, 12, 40])
 def test_kernel_matches_plain(cuda, mean_row):
-    """Every threads-per-row width (2..32, from the mean row length), f32
-    and f64, against the plain version on the same card; one launch per
-    call.  Tolerances: the summation order differs."""
+    """The "gather" backend's CSR kernel (csrc/spmv_csr.cu, through spmv)
+    and the previous row-group kernel at every threads-per-row width
+    (2..32, from the mean row length), f32 and f64, against the plain
+    version on the same card; one launch per call.  Tolerances: the
+    summation order differs."""
     rng = np.random.default_rng(mean_row)
     A = sp.random(3000, 5000, density=mean_row / 5000, random_state=rng,
                   data_rvs=lambda k: rng.normal(size=k)).tocoo()
     x = rng.normal(size=5000)
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        M = csr_from_coo(A.row, A.col, A.data, 3000, 5000, dtype, cuda)
+        M = with_spmv_backend(csr_from_coo(A.row, A.col, A.data, 3000, 5000,
+                                           dtype, cuda), "gather")
         xd = torch.as_tensor(x, device=cuda).to(dtype)
-        before = csr_spmv.launches
+        before = (csr_spmv.launches, csr_spmv_rowgroup.launches)
         y = spmv(M, xd)
+        y_prev = csr_spmv_rowgroup(M, xd)
         torch.cuda.synchronize()
-        assert csr_spmv.launches == before + 1
+        assert (csr_spmv.launches, csr_spmv_rowgroup.launches) == (
+            before[0] + 1, before[1] + 1)
         y_ref = spmv_reference(M, xd)
         scale = max(1.0, float(y_ref.abs().max()))
         assert float((y - y_ref).abs().max()) <= tol * scale
+        assert float((y_prev - y_ref).abs().max()) <= tol * scale
 
 
 def test_kernel_rejects_bad_arguments(cuda):

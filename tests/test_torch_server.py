@@ -317,6 +317,7 @@ def test_pipe_session(verbose, libraries):
         assert err.splitlines()[0] == "device cpu"
         assert ("iter" in err) == verbose
         assert _launches(err) == {"tiled_spmv": 0, "csr_spmv": 0,
+                                  "spmv_x_half": 0, "spmv_y_half": 0,
                                   "csr_spmm": 0, "spmm_x_half": 0,
                                   "spmm_y_half": 0}
     finally:

@@ -14,7 +14,8 @@ and parity with the Pallas studies of benchmarks/ they replace.
   full, prof_dual_acc n_acc 1/2/4 (outputs summed as its spmv_loop does),
   prof_flush_variants full/runmerge, prof_kernel_variants full with the
   identity rank (its segment sum then reduces to the production kernel's
-  flush).  The timing-only variants have no JAX comparison: their TPU
+  flush); segsum full runs on the main path's tiles (csrc/spmv_tiled.cu,
+  ONEHOT), and its one-hot products are held to a numpy segment sum.  The timing-only variants have no JAX comparison: their TPU
   counterparts compute layout-specific values (LaneELL slots, flushes
   into 128-row windows, clamped ranks within a tile) that have no meaning
   for a CSR matrix.
@@ -34,10 +35,14 @@ import torch
 
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
 from hprlp_tpu_torch.ops.spmv import threads_per_row
-from hprlp_tpu_torch.ops.spmv_variants import (RANKS, RUN, SUB, TILE,
-                                               VARIANTS, WINDOW, WRAPPERS,
-                                               plain, segsum_rtiles,
+from hprlp_tpu_torch.ops.spmv_variants import (RANKS, RUN, SEG_STEP,
+                                               SEG_SUB, SUB, TILE, VARIANTS,
+                                               WINDOW, WRAPPERS, plain,
+                                               segsum_onehot_plain,
+                                               segsum_rtiles,
+                                               segsum_subblocks, segsum_tiles,
                                                variant_spmv)
+from hprlp_tpu_torch.ops.tiles import build_tiles
 from hprlp_tpu_torch.prof import timing
 from test_torch_spmv_variants_gpu import CASES, FAMILY_VARIANTS
 
@@ -97,12 +102,13 @@ def _definition(family, name, A, x):
                 add = float(p) if (k - indptr[r]) % tpr == 0 else 0.0
             elif name == "merge_all":
                 target = (k // RUN) % nrows
-            elif family == "segsum" and name in ("full", "mm_fused"):
+            elif family == "segsum" and name == "full":
+                add = float(p)  # hi + mid + lo, exact in three bf16 terms
+            elif name == "mm_fused":
                 hi = _tf32(p)
                 add = float(hi) + float(_tf32(p - hi))
-                if name == "mm_fused":
-                    first = row_of[k // TILE * TILE]
-                    target = first + min(r - first, RANKS - 1)
+                first = row_of[k // TILE * TILE]
+                target = first + min(r - first, RANKS - 1)
             elif name == "mm_precomp":
                 hi = _bf16(p)
                 add = float(hi) + float(_bf16(p - hi))
@@ -163,6 +169,51 @@ def test_segsum_rtiles_hold_the_fragment_order_of_r():
             expect[k // SUB, rank, k % SUB] = 1
     np.testing.assert_array_equal(R, expect)
     assert (expect.sum(axis=(1, 2)) < SUB).any()  # ranks >= 16 occur here
+
+
+@pytest.mark.parametrize("layout", ["segsum", "narrow"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_segsum_onehot_products_are_numpy_segment_sums(case, layout):
+    """segsum full's construction on the tiles, read position by position:
+    every warp run cut into SEG_STEP-entry steps and SEG_SUB-entry
+    sub-blocks; an entry's rank counts the distinct rows before it in its
+    sub-block (< 16); R P (R one-hot by rank, P the exact bf16 terms of
+    the products) gives, for each rank, the numpy sum of its entries'
+    products, and rank r maps to the row of its entries.  Then the plain
+    version against A @ x.  Tiles: segsum_tiles' and narrow strips and
+    row chunks (many runs, padding in sub-blocks)."""
+    A, M, x = _case(case)
+    T = (segsum_tiles(M) if layout == "segsum"
+         else build_tiles(M, strip_width=64, block_rows=40))
+    sb = segsum_subblocks(T)
+    order, row_o, col_o = (v.numpy() for v in T.coo)
+    col = np.empty_like(col_o)
+    col[order] = col_o
+    vals = T.vals.numpy()
+    runs = T.runs.numpy().astype(np.int64)
+    sub, pos, rank, row = (sb[k].numpy() for k in ("sub", "pos", "rank",
+                                                   "row"))
+    row_of_rank = sb["row_of_rank"].numpy()
+    assert SEG_STEP % SEG_SUB == 0 and rank.max(initial=0) < SEG_SUB
+    sums = {}
+    for r in range(len(runs) - 1):  # each warp run, from its start
+        for i in range(runs[r], runs[r + 1]):
+            at = i - runs[r]
+            assert pos[i] == at % SEG_SUB
+            same = sub[runs[r] + at // SEG_SUB * SEG_SUB]
+            assert sub[i] == same
+            first = runs[r] + at // SEG_SUB * SEG_SUB
+            rows_before = set(row[first:i])
+            assert rank[i] == len(rows_before - {row[i]})
+            assert row_of_rank[sub[i], rank[i]] == row[i]
+            p = np.float32(vals[i] * x[min(col[i], A.shape[1] - 1)])
+            sums[sub[i], rank[i]] = sums.get((sub[i], rank[i]), 0.0) + float(p)
+    y = np.zeros(A.shape[0] + 1)
+    for (s_, r_), v in sums.items():
+        y[row_of_rank[s_, r_]] += v
+    _assert_close(segsum_onehot_plain(T, torch.as_tensor(x)).numpy(),
+                  y[:A.shape[0]], 1e-5)
+    _assert_close(y[:A.shape[0]], A @ x.astype(np.float64), 1e-5)
 
 
 @pytest.mark.parametrize("family", sorted(WRAPPERS))

@@ -19,7 +19,7 @@ import torch
 
 import hprlp_tpu_torch as ht
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
-from hprlp_tpu_torch.ops.sparse import spmv
+from hprlp_tpu_torch.ops.sparse import spmv, with_spmv_backend
 from hprlp_tpu_torch.ops.spmv import TILED_STAGES, csr_spmv, tiled_spmv
 from hprlp_tpu_torch.ops.tiles import build_tiles, tiled_spmv_reference
 
@@ -120,7 +120,8 @@ def test_kernel_matches_plain(cuda, case, dtype, stage):
     assert tiled_spmv.launches == before + (T.nnz > 0)
     assert y.shape == (M.nrows,) and y.dtype == dtype
     _assert_close(y, tiled_spmv_reference(T, x), TOL[dtype])
-    _assert_close(y, csr_spmv(M, x), TOL[dtype])
+    _assert_close(y, csr_spmv(with_spmv_backend(M, "gather"), x),
+                  TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
