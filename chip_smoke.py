@@ -51,11 +51,16 @@ and no other SpMV kernel (the probes' launches are counted apart), on
   6. real size   solve of the second LP (10.5M nnz) at 1e-4, its peak
                  device memory and its chunk profiled, as in phase 4
   7. variants    the four prof_* studies (hprlp_tpu_torch/prof/) on the
-                 bench LP (A, A^T) and on phase 6's LP (A), every variant
-                 against its plain version and the exact ones against A @
-                 x; segsum full (one-hot tensor-core row sums on the
-                 tiles) beside the tiled kernel on the same tiles and
-                 cuSPARSE
+                 bench LP (A, A^T) and on phase 6's LP (A), on the
+                 "gather" backend's row-block plan: the ablate and
+                 multi_acc families and flush full are instantiations of
+                 the CSR kernel (csrc/spmv_csr.cu); ablate full, n_acc=1,
+                 2, 4 and flush full bitwise their plain versions, every
+                 other variant within its tolerance of its plain version,
+                 the exact ones within it of A @ x; each variant's time,
+                 share of bound and cuSPARSE beside it; segsum full
+                 (one-hot tensor-core row sums on the tiles) beside the
+                 tiled kernel on the same tiles
   8. mps + presolve   structured_lp(scale=1.0, seed=7) (950,000 x
                  1,000,000, 10.50M nnz) written as MPS to a temporary
                  directory and solved by hprlp_tpu_torch.cli.main at 1e-4:
@@ -279,7 +284,7 @@ def kernel_check(card, problems):
                     "err": err, "scale": scale, "err_csr": err_csr,
                     "err_rowgroup": err_prev, "nnz": M.nnz,
                     "tiles_s": tiles_s, "blocks_s": blocks_s,
-                    "blocks": P.n_blocks, "blocks_bytes": P.nbytes,
+                    "plan_blocks": P.n_blocks, "blocks_bytes": P.nbytes,
                     "strips": T.n_strips, "strip_width": T.strip_width,
                     "groups": T.n_groups, "chunks": T.n_chunks,
                     "blocks": T.n_blocks, "smem": T.smem_bytes,
@@ -701,9 +706,10 @@ def variants_phase(card, built, huge_problem):
                                       study)
 
     lib, secs, log = built[sv.SOURCE]
-    phase(7, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s "
-             f"(beside the CSR kernels' builds; segsum full is built with "
-             f"the tiled kernel)")
+    phase(7, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s (flush's "
+             f"runmerge and merge_all, segsum's mm_*; the ablate and "
+             f"multi_acc families and flush full are csrc/spmv_csr.cu's, "
+             f"segsum full the tiled kernel's, built in phase 2)")
     for line in ptxas_summary(log):
         phase(7, f"ptxas {line}")
     sizes = {"bench": study.device_matrices(make_problem()),
@@ -717,12 +723,13 @@ def variants_phase(card, built, huge_problem):
                for m in modules for size, mats in sizes.items()}
     launches = {fam: w.launches for fam, w in sv.WRAPPERS.items()}
 
-    library = {}
+    library = {size: {} for size in sizes}
     for size, mats in sizes.items():
         for mat, M in mats.items():
-            library[size, mat] = time_ms(library_call(M, study.study_x(M)))
-            phase(7, f"{size} {mat}: torch.mv on sparse CSR (cuSPARSE) "
-                     f"{library[size, mat] * 1e3:.3f} us [{card}]")
+            library[size][mat] = time_ms(library_call(M, study.study_x(M)))
+            phase(7, f"{size} {mat}: {M.blocks.n_blocks} row blocks; "
+                     f"torch.mv on sparse CSR (cuSPARSE) "
+                     f"{library[size][mat] * 1e3:.3f} us [{card}]")
     records, failed = [], []
     for m in modules:
         fam = m.FAMILY
@@ -730,7 +737,8 @@ def variants_phase(card, built, huge_problem):
         for size, mats in sizes.items():
             got = study.check(fam, mats, m.VARIANTS)
             checks += [dict(c, size=size) for c in got]
-            for line in study.report(timings[fam, size], got, card, size):
+            for line in study.report(timings[fam, size], got, card, size,
+                                     library[size]):
                 phase(7, line)
         failed += [f"{fam}/{c['size']}/{c['matrix']}/{c['variant']}"
                    for c in checks if not c["ok"]]
@@ -745,19 +753,24 @@ def variants_phase(card, built, huge_problem):
         for name in m.VARIANTS:
             v = sv.variant(fam, name)
             errs = [c for c in checks if c["variant"] == name]
+            shape = {f"{size}_{mat}": t[mat, name, size]
+                     for size, mats in sizes.items() for mat in mats}
             variants[name] = {
-                "kind": v.kind,
-                "ms": {f"{size}_{mat}": t[mat, name, size]["ms"]
-                       for size, mats in sizes.items() for mat in mats},
+                "kind": v.kind, "bitwise": v.bitwise,
+                "bitwise_equal": all(c["bitwise"] for c in errs),
+                "ms": {k: r["ms"] for k, r in shape.items()},
+                "bound_ms": {k: r["bound_ms"] for k, r in shape.items()},
                 "max_abs_err": max(c["err"] for c in errs),
                 "tol_abs": min(c["tol"] * c["scale"] for c in errs)}
-        extra = {}
+        extra = {"library_ms_shapes": {f"{size}_{mat}": ms
+                                       for size, lib_ms in library.items()
+                                       for mat, ms in lib_ms.items()}}
+        if fam == "flush":
+            extra["runs_source"] = os.path.relpath(sv.SOURCE, HERE)
         if fam == "segsum":
             # full runs on the main path's tiles (csrc/spmv_tiled.cu,
             # ONEHOT): beside it, the tiled kernel on the same tiles.
-            extra = {"full_source": os.path.relpath(spmv_mod.TILED_SOURCE,
-                                                    HERE),
-                     "mm_source": os.path.relpath(sv.SOURCE, HERE)}
+            extra["mm_source"] = os.path.relpath(sv.SOURCE, HERE)
             for size, mats in sizes.items():
                 for mat, Mt in mats.items():
                     xt = study.study_x(Mt)
@@ -767,11 +780,13 @@ def variants_phase(card, built, huge_problem):
                     phase(7, f"segsum full {size} {mat}: {seg * 1e3:.3f} us"
                              f" against the tiled kernel on the same tiles "
                              f"{t_ms * 1e3:.3f} us and cuSPARSE "
-                             f"{library[size, mat] * 1e3:.3f} us [{card}]")
+                             f"{library[size][mat] * 1e3:.3f} us [{card}]")
         records.append({
             "name": f"spmv_{fam}", "route": "cuda",
+            # The headline variant's kernel: the tiles' for segsum, the
+            # "gather" backend's CSR kernel for the other three.
             "source": os.path.relpath(
-                spmv_mod.TILED_SOURCE if fam == "segsum" else sv.SOURCE,
+                spmv_mod.TILED_SOURCE if fam == "segsum" else spmv_mod.SOURCE,
                 HERE), **extra,
             "replaces": REPLACES[fam][0],
             "also_replaces": "spmv_loop " + REPLACES[fam][1]
@@ -779,12 +794,12 @@ def variants_phase(card, built, huge_problem):
             "launches": launches[fam], "headline_variant": head,
             "max_abs_err": variants[head]["max_abs_err"],
             "ms": bench_a["ms"],
-            # segsum's plain version reads its sub-block counts on the
-            # host, so it is timed eagerly, not by graph replay.
-            "plain_ms": (eager_ms if fam == "segsum" else time_ms)(
-                lambda: sv.plain(fam, M, x, head)),
+            # The headline variants' plain versions read counts on the host
+            # (csr_spmv_plain's row lengths, segsum's sub-blocks), so they
+            # are timed eagerly, not by graph replay.
+            "plain_ms": eager_ms(lambda: sv.plain(fam, M, x, head), reps=3),
             "bound_ms": bench_a["bound_ms"], "bound_by": bench_a["bound_by"],
-            "library_ms": library["bench", "A"], "variants": variants})
+            "library_ms": library["bench"]["A"], "variants": variants})
     phase(7, "launches on the study path: " + ", ".join(
         f"{k}={v}" for k, v in launches.items()))
     check(not failed, f"phase 7: outside tolerance: {failed}")
@@ -2261,7 +2276,8 @@ def main():
             "shapes": shapes(tag, ("csr_ms", "csr_plain_ms", "reference_ms",
                                    "rowgroup_ms", "no_gather_ms",
                                    "bound_ms", "library_ms",
-                                   "blocks", "blocks_bytes", "blocks_s"))})
+                                   "plan_blocks", "blocks_bytes",
+                                   "blocks_s"))})
     for tag in ("f32", "f64"):
         a = rec["bench", tag, "A"]
         kernels.append({

@@ -55,6 +55,36 @@
 // read from device memory as inner + t, t the middle iteration's index,
 // baked in at launch, so a captured CUDA graph replays it unchanged; fact1
 // = 1 / (inner + t + 2) rounds as solver/chunk.py::_halpern_factors does.
+//
+// The variant studies (f32, hprlp_csr_study; ops/spmv_variants.py), never a
+// solve's.  They ask of this design what the Pallas studies asked of the
+// TPU kernel: the ablate family replaces make_kernel/spmv_loop/pallas_call
+// of benchmarks/prof_lane_ablate.py:44/:90/:115, the multi_acc family
+// those of benchmarks/prof_dual_acc.py:32/:60/:87.  Each variant is its
+// own instantiation; the solve's (kStore, kXHalf, kYHalf at NACC = 1) are
+// untouched by them.
+//   full        kStore, NACC = 1: csr_spmv's own launch
+//   dma_only    the same 16-byte vector stream, staging and per-row sums,
+//               each product replaced by v + float(c), no x read: the
+//               streaming floor of this design
+//   no_gather   kNoGather: x read at the entry's index (contiguous): what
+//               the random gather costs
+//   one_gather  the gather kept, but block b reads x[base_b + (c & (W -
+//               1))], W = min(16384, pow2_floor(ncols)) (the TPU study's
+//               WINDOW), base_b = (b mod (ncols / W)) W: every block's
+//               reads fall in one 64 KB window of x -- what a column-
+//               windowed layout of this plan would buy
+//   no_flush    the stream and gathers kept, no staging and no per-row
+//               sum: each thread adds its own products of entries in [e0,
+//               e1) into one register and writes it to row r0 + tid (a
+//               long row's block: thread 0's strided partial) -- what the
+//               staging and the row sums cost
+//   n_acc=2, 4  kStore with the per-row sum split over NACC accumulators:
+//               entry k of a row goes to acc[(k - rb) % NACC], and the
+//               accumulators combine as (acc0 + acc1) + (acc2 + acc3) --
+//               what the serial chain of rounded adds costs.  Exact, in a
+//               fixed order (ops/spmv.py::plan_row_sums gives its bits).
+//               A long row keeps its strided partials and tree.
 
 #include <cuda_runtime.h>
 
@@ -73,18 +103,22 @@ template <typename T>
 constexpr int kCap = 8192 / static_cast<int>(sizeof(T));
 constexpr int kVec = 4;      // entries per vector load
 
-// kNoGather is a measurement, never a solve's: the store, with x read at
-// the entry's index (masked to x's length) in place of its column, so that
-// the reads of x are contiguous -- what the random gather costs (the
-// no_gather ablation of csrc/spmv_variants.cu, asked of this design).
-enum Epilogue : int { kStore = 0, kXHalf = 1, kYHalf = 2, kNoGather = 3 };
+// kNoGather and the three after it are the ablate study's measurements
+// (the note above), never a solve's.  kNoGather stores y with x read at
+// the entry's index (masked to x's length) in place of its column, so
+// that the reads of x are contiguous; phase 3 of chip_smoke.py times it
+// beside csr_spmv too.
+enum Epilogue : int { kStore = 0, kXHalf = 1, kYHalf = 2, kNoGather = 3,
+                      kDmaOnly = 4, kOneGather = 5, kNoFlush = 6 };
 
 // kStore writes out = A X.  kXHalf, over A^T's rows with X = y: cur = x,
 // last = last_x, p0 = c, p1 = l, p2 = u, scal = sigma; it writes out = the
 // new x and hat = x_hat.  kYHalf, over A's rows with X = x_hat: cur = y,
 // last = last_y, p0 = AL, p1 = AU, scal = lambda * sigma; it writes out =
 // the new y.  inner: the Halpern counter (int32) at the first middle
-// iteration; t: this iteration's index.
+// iteration; t: this iteration's index.  xmask: the largest power of two
+// within ncols, less one; wmask, nwin: one_gather's window, less one, and
+// the number of whole windows in x.
 struct Args {
   int nrows, t, xmask;
   int64_t nnz;
@@ -103,6 +137,7 @@ struct Args {
   const void* p2;
   const void* scal;
   const int* inner;
+  int wmask, nwin;
 };
 
 // kVec entries' values and column indices.
@@ -143,15 +178,26 @@ __device__ __forceinline__ Entries<T> load_vec(const T* __restrict__ vals,
   return e;
 }
 
+// An entry's term: its rounded product with the x value read for it, or
+// (dma_only) its value plus its column.
+template <typename T, int E>
+__device__ __forceinline__ T term(T v, T xv) {
+  if constexpr (E == kDmaOnly) {
+    return add_rn(v, xv);
+  } else {
+    return mul_rn(v, xv);
+  }
+}
+
 // The products of one vector, stored at its aligned offset in shared
 // memory by 16-byte stores (entries outside the block's range are stored
 // and never read).
-template <typename T>
+template <typename T, int E>
 __device__ __forceinline__ void keep(T* prod, int64_t off, const Entries<T>& e,
                                      const T (&xv)[kVec]) {
   T p[kVec];
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) p[i] = mul_rn(e.v[i], xv[i]);
+  for (int i = 0; i < kVec; ++i) p[i] = term<T, E>(e.v[i], xv[i]);
   if constexpr (sizeof(T) == 4) {
     *reinterpret_cast<float4*>(prod + off) = make_float4(p[0], p[1], p[2], p[3]);
   } else {
@@ -160,16 +206,77 @@ __device__ __forceinline__ void keep(T* prod, int64_t off, const Entries<T>& e,
   }
 }
 
+// The x value entry k (column c) is multiplied by: x[c], or what the
+// variant reads in its place (dma_only reads none: its column).  base:
+// one_gather's window of this block.
 template <typename T, int E>
-__device__ __forceinline__ void gather(const T* __restrict__ x,
+__device__ __forceinline__ T x_at(const Args& a, const T* __restrict__ x,
+                                  int c, int64_t k, int base) {
+  if constexpr (E == kNoGather) {
+    return __ldg(x + (k & a.xmask));
+  } else if constexpr (E == kDmaOnly) {
+    return static_cast<T>(c);
+  } else if constexpr (E == kOneGather) {
+    return __ldg(x + base + (c & a.wmask));
+  } else {
+    return __ldg(x + c);
+  }
+}
+
+template <typename T, int E>
+__device__ __forceinline__ void gather(const Args& a, const T* __restrict__ x,
                                        const Entries<T>& e, int64_t q,
-                                       int xmask, T (&xv)[kVec]) {
+                                       int base, T (&xv)[kVec]) {
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    if constexpr (E == kNoGather) {
-      xv[i] = __ldg(x + ((q * kVec + i) & xmask));
+    xv[i] = x_at<T, E>(a, x, e.c[i], q * kVec + i, base);
+  }
+}
+
+// no_flush: this thread's running sum of the products of vector q's
+// entries that lie in [e0, e1).
+template <typename T>
+__device__ __forceinline__ T own_sum(T acc, const Entries<T>& e,
+                                     const T (&xv)[kVec], int64_t q,
+                                     int64_t e0, int64_t e1) {
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const int64_t k = q * kVec + i;
+    if (k >= e0 && k < e1) acc = add_rn(acc, mul_rn(e.v[i], xv[i]));
+  }
+  return acc;
+}
+
+// The sum of one short row's staged products prod[rb - base .. re - base)
+// in NACC accumulators, entry k into acc[(k - rb) % NACC], combined as
+// (acc0 + acc1) + (acc2 + acc3).  NACC = 1: one add at a time in CSR order.
+template <typename T, int NACC>
+__device__ __forceinline__ T row_sum(const T* prod, int rb, int re,
+                                     int64_t base) {
+  if constexpr (NACC == 1) {
+    T acc = T(0);
+    for (int k = rb; k < re; ++k) acc = add_rn(acc, prod[k - base]);
+    return acc;
+  } else {
+    T acc[NACC];
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) acc[j] = T(0);
+    int k = rb;
+    for (; k + NACC <= re; k += NACC) {
+#pragma unroll
+      for (int j = 0; j < NACC; ++j) {
+        acc[j] = add_rn(acc[j], prod[k + j - base]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NACC - 1; ++j) {
+      if (k + j < re) acc[j] = add_rn(acc[j], prod[k + j - base]);
+    }
+    if constexpr (NACC == 2) {
+      return add_rn(acc[0], acc[1]);
     } else {
-      xv[i] = __ldg(x + e.c[i]);
+      static_assert(NACC == 4, "NACC is 1, 2 or 4");
+      return add_rn(add_rn(acc[0], acc[1]), add_rn(acc[2], acc[3]));
     }
   }
 }
@@ -177,7 +284,7 @@ __device__ __forceinline__ void gather(const T* __restrict__ x,
 // The row write: y, or one half-update of row `row` given its sum.
 template <typename T, int E>
 __device__ __forceinline__ void write_row(const Args& a, int row, T acc) {
-  if constexpr (E == kStore || E == kNoGather) {
+  if constexpr (E != kXHalf && E != kYHalf) {
     static_cast<T*>(a.out)[row] = acc;
   } else {
     const T x = static_cast<const T*>(a.cur)[row];
@@ -198,7 +305,7 @@ __device__ __forceinline__ void write_row(const Args& a, int row, T acc) {
   }
 }
 
-template <typename T, int E>
+template <typename T, int E, int NACC = 1>
 __global__ void __launch_bounds__(kBlock)
 csr_spmv_kernel(const Args a) {
   // Products at their offset from the block's first vector: fewer than
@@ -210,12 +317,18 @@ csr_spmv_kernel(const Args a) {
   const int64_t e0 = a.ent0[b], e1 = a.ent0[b + 1];
   const T* __restrict__ vals = static_cast<const T*>(a.vals);
   const T* __restrict__ x = static_cast<const T*>(a.x);
+  const int base_x = E == kOneGather ? (b % a.nwin) * (a.wmask + 1) : 0;
 
   if (r1 - r0 == 1 && e1 - e0 > kCap<T>) {
     // A long row: kBlock strided partials in entry order, then a tree.
     T acc = T(0);
     for (int64_t k = e0 + tid; k < e1; k += kBlock) {
-      acc = add_rn(acc, mul_rn(vals[k], __ldg(x + a.indices[k])));
+      acc = add_rn(acc, term<T, E>(vals[k], x_at<T, E>(a, x, a.indices[k], k,
+                                                        base_x)));
+    }
+    if constexpr (E == kNoFlush) {
+      if (tid == 0) static_cast<T*>(a.out)[r0] = acc;
+      return;
     }
     prod[tid] = acc;
     __syncthreads();
@@ -228,25 +341,44 @@ csr_spmv_kernel(const Args a) {
     return;
   }
 
-  // This thread's first row's entry range, read before the stream.
   const int row = r0 + tid;
+  const int64_t q0 = e0 / kVec;
+  const int64_t q1 = (e1 + kVec - 1) / kVec;
+  if constexpr (E == kNoFlush) {
+    // The same stream and gathers, each thread's products summed where
+    // they were loaded.
+    T acc = T(0);
+    for (int64_t q = q0 + tid; q < q1; q += 2 * kBlock) {
+      const bool two = q + kBlock < q1;
+      const Entries<T> ea = load_vec(vals, a.indices, q, a.nnz);
+      Entries<T> eb;
+      if (two) eb = load_vec(vals, a.indices, q + kBlock, a.nnz);
+      T xa[kVec], xb[kVec];
+      gather<T, E>(a, x, ea, q, base_x, xa);
+      if (two) gather<T, E>(a, x, eb, q + kBlock, base_x, xb);
+      acc = own_sum(acc, ea, xa, q, e0, e1);
+      if (two) acc = own_sum(acc, eb, xb, q + kBlock, e0, e1);
+    }
+    if (row < r1) static_cast<T*>(a.out)[row] = acc;
+    return;
+  }
+
+  // This thread's first row's entry range, read before the stream.
   int rb = 0, re = 0;
   if (row < r1) {
     rb = a.indptr[row];
     re = a.indptr[row + 1];
   }
-  const int64_t q0 = e0 / kVec;
-  const int64_t q1 = (e1 + kVec - 1) / kVec;
   for (int64_t q = q0 + tid; q < q1; q += 2 * kBlock) {
     const bool two = q + kBlock < q1;
     const Entries<T> ea = load_vec(vals, a.indices, q, a.nnz);
     Entries<T> eb;
     if (two) eb = load_vec(vals, a.indices, q + kBlock, a.nnz);
     T xa[kVec], xb[kVec];
-    gather<T, E>(x, ea, q, a.xmask, xa);
-    if (two) gather<T, E>(x, eb, q + kBlock, a.xmask, xb);
-    keep(prod, (q - q0) * kVec, ea, xa);
-    if (two) keep(prod, (q + kBlock - q0) * kVec, eb, xb);
+    gather<T, E>(a, x, ea, q, base_x, xa);
+    if (two) gather<T, E>(a, x, eb, q + kBlock, base_x, xb);
+    keep<T, E>(prod, (q - q0) * kVec, ea, xa);
+    if (two) keep<T, E>(prod, (q + kBlock - q0) * kVec, eb, xb);
   }
   __syncthreads();
 
@@ -256,9 +388,7 @@ csr_spmv_kernel(const Args a) {
       rb = a.indptr[r];
       re = a.indptr[r + 1];
     }
-    T acc = T(0);
-    for (int k = rb; k < re; ++k) acc = add_rn(acc, prod[k - base]);
-    write_row<T, E>(a, r, acc);
+    write_row<T, E>(a, r, row_sum<T, NACC>(prod, rb, re, base));
   }
 }
 
@@ -274,15 +404,68 @@ int launch(int epilogue, int nblocks, const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The variant studies' instantiations (f32): an ablate epilogue at NACC =
+// 1, or kStore at NACC = 1, 2 or 4.
+int launch_study(int variant, int n_acc, int nblocks, const Args& a,
+                 cudaStream_t s) {
+  if (n_acc != 1 && variant != kStore) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (variant * 8 + n_acc) {
+    case kStore * 8 + 1: csr_spmv_kernel<float, kStore><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kStore * 8 + 2: csr_spmv_kernel<float, kStore, 2><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kStore * 8 + 4: csr_spmv_kernel<float, kStore, 4><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kNoGather * 8 + 1: csr_spmv_kernel<float, kNoGather><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kDmaOnly * 8 + 1: csr_spmv_kernel<float, kDmaOnly><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kOneGather * 8 + 1: csr_spmv_kernel<float, kOneGather><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kNoFlush * 8 + 1: csr_spmv_kernel<float, kNoFlush><<<nblocks, kBlock, 0, s>>>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kWindow = 16384;  // one_gather's x entries per window
+
+// Args of one launch on the plan, the epilogue's operands left null.
+Args plan_args(int nrows, int ncols, long long nnz, int t, const void* row0,
+               const void* ent0, const void* indptr, const void* indices,
+               const void* vals, const void* x, void* out) {
+  Args a{};
+  a.nrows = nrows;
+  a.t = t;
+  a.xmask = 0;  // the largest power of two within ncols, less one
+  while (ncols > 1 && a.xmask < ncols / 2) a.xmask = 2 * a.xmask + 1;
+  const int w = a.xmask + 1 < kWindow ? a.xmask + 1 : kWindow;
+  a.wmask = w - 1;
+  a.nwin = ncols / w > 1 ? ncols / w : 1;
+  a.nnz = nnz;
+  a.row0 = static_cast<const int*>(row0);
+  a.ent0 = static_cast<const int*>(ent0);
+  a.indptr = static_cast<const int*>(indptr);
+  a.indices = static_cast<const int*>(indices);
+  a.vals = vals;
+  a.x = x;
+  a.out = out;
+  return a;
+}
+
+bool bad_plan(int nblocks, long long nnz, const void* vals,
+              const void* indices) {
+  return nblocks < 0 || nnz < 0 ||
+         (reinterpret_cast<uintptr_t>(vals) |
+          reinterpret_cast<uintptr_t>(indices)) % 16;
+}
+
 }  // namespace
 
 extern "C" {
 
 // y = A x on the row-block plan (epilogue 0; 3: the no-gather
-// measurement), or with epilogue 1 or 2 the fused x- or y-half (operands as in Args above; pointers an epilogue does
-// not read may be null).  row0, ent0: (nblocks + 1,) int32, each block's
-// first row and first entry; vals and indices 16-byte aligned.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// measurement), or with epilogue 1 or 2 the fused x- or y-half (operands
+// as in Args above; pointers an epilogue does not read may be null).
+// row0, ent0: (nblocks + 1,) int32, each block's first row and first
+// entry; vals and indices 16-byte aligned.  Returns cudaGetLastError()
+// after the launch (0 on success).
 int hprlp_csr_spmv(int is_f64, int epilogue, int nrows, int ncols,
                    long long nnz, int nblocks, int t, const void* row0,
                    const void* ent0,
@@ -291,20 +474,44 @@ int hprlp_csr_spmv(int is_f64, int epilogue, int nrows, int ncols,
                    const void* last, const void* p0, const void* p1,
                    const void* p2, const void* scal, const void* inner,
                    void* stream) {
-  if (nblocks < 0 || nnz < 0 ||
-      (reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(indices)) % 16) {
+  if (bad_plan(nblocks, nnz, vals, indices)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nrows <= 0 || nblocks == 0) return 0;
-  int xmask = 0;  // the largest power of two within ncols, less one
-  while (ncols > 1 && xmask < ncols / 2) xmask = 2 * xmask + 1;
-  const Args a{nrows, t, xmask, nnz, static_cast<const int*>(row0),
-               static_cast<const int*>(ent0), static_cast<const int*>(indptr),
-               static_cast<const int*>(indices), vals, x, out, hat, cur, last,
-               p0, p1, p2, scal, static_cast<const int*>(inner)};
+  Args a = plan_args(nrows, ncols, nnz, t, row0, ent0, indptr, indices, vals,
+                     x, out);
+  a.hat = hat;
+  a.cur = cur;
+  a.last = last;
+  a.p0 = p0;
+  a.p1 = p1;
+  a.p2 = p2;
+  a.scal = scal;
+  a.inner = static_cast<const int*>(inner);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch<double>(epilogue, nblocks, a, s)
                 : launch<float>(epilogue, nblocks, a, s);
+}
+
+// One variant of the studies (f32), y = out: `variant` an epilogue of the
+// ablate family (0 full, 3 no_gather, 4 dma_only, 5 one_gather, 6
+// no_flush) with n_acc = 1, or 0 with n_acc = 1, 2 or 4 (multi_acc);
+// the plan's arguments as for hprlp_csr_spmv.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a variant it does not
+// have.
+int hprlp_csr_study(int variant, int n_acc, int nrows, int ncols,
+                    long long nnz, int nblocks, const void* row0,
+                    const void* ent0, const void* indptr, const void* indices,
+                    const void* vals, const void* x, void* out,
+                    void* stream) {
+  if (bad_plan(nblocks, nnz, vals, indices)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (nrows <= 0 || nblocks == 0) return 0;
+  return launch_study(variant, n_acc, nblocks,
+                      plan_args(nrows, ncols, nnz, 0, row0, ent0, indptr,
+                                indices, vals, x, out),
+                      static_cast<cudaStream_t>(stream));
 }
 
 const char* hprlp_csr_error_string(int code) {

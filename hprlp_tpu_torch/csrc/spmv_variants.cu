@@ -1,32 +1,16 @@
-// Variant studies of the port's CSR SpMV on Hopper (f32): four kernel
-// families that replace the four Pallas variant studies in benchmarks/.
-// Each family asks what its TPU study asked -- where does an SpMV's time
-// go -- of the row-parallel CSR kernel in csrc/spmv.cu (a group of TPR =
-// 2..32 threads per row, shuffle reduction, one store per row), not of the
-// TPU's LaneELL tiles, whose crossbar gathers and 128-row flush windows
-// have no counterpart here.
+// Variant studies of the port's CSR SpMV on Hopper (f32): the run-based
+// kernels of two of the four families that replace the Pallas variant
+// studies in benchmarks/.  The ablate and multi_acc families
+// (prof_lane_ablate.py, prof_dual_acc.py), and the flush family's full,
+// ablate the "gather" backend's row-block kernel instead and are
+// instantiations of csrc/spmv_csr.cu (its note says what each variant
+// isolates); segsum's full runs on the main path's tiles
+// (csrc/spmv_tiled.cu, ONEHOT).  What stays here is run-based CSR, with no
+// row plan:
 //
-// K1 ablate -- replaces make_kernel/spmv_loop of
-//    benchmarks/prof_lane_ablate.py:44/:90 (pallas_call :115).
-//      full        csr_spmv_kernel's body (exact)
-//      dma_only    vals and indices streamed and summed as vals[k] +
-//                  float(col), no x read: the streaming floor
-//      no_gather   the same bytes, but x read at k & (2^p - 1), contiguous
-//                  in k: what the random gather costs
-//      one_gather  the gather kept but confined to one 16384-entry window
-//                  of x (the TPU's 128 x 128 WINDOW) per 128 rows: what
-//                  column windowing would buy
-//      no_flush    no shuffle reduction; lane 0 of each row group stores
-//                  its own partial: what the reduction costs
-// K2 multi_acc -- replaces prof_dual_acc.py:32/:60 (pallas_call :87).  The
-//    TPU study split one read-modify-write chain over n_acc accumulators.
-//    Here each thread keeps n_acc in {1, 2, 4} independent partial sums
-//    over its strided entries (unrolled), summed before the shuffles: it
-//    breaks the FMA dependency chain.  All exact.
 // K3 flush -- replaces prof_flush_variants.py:46/:97 (pallas_call :122).
 //    The TPU study merged the dynamic flushes of equal output windows.
-//      full        per-row shuffle reduction, one store per row (the body
-//                  of ablate full)
+//      full        csr_spmv's launch on the row-block plan (csrc/spmv_csr.cu)
 //      runmerge    nnz-balanced (CSR-stream): each warp takes a run of 256
 //                  consecutive nonzeros across row boundaries, finds each
 //                  entry's row from indptr, sums by row with a segmented
@@ -60,7 +44,7 @@
 //    sub-block's first row (only where empty rows intervene) is added by
 //    itself with atomicAdd.
 //
-// What bounds them on the card: bytes, as for csr_spmv_kernel -- a value,
+// What bounds them on the card: bytes, as for the CSR SpMV -- a value,
 // a column index and a gathered x entry per nonzero, two rowptr entries
 // and a y entry per row; the multiply-adds are negligible.  The run-based
 // kernels add integer work per entry (row search, scan), atomics, and a
@@ -80,106 +64,11 @@ namespace {
 constexpr int kBlock = 256;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRun = 256;        // nonzeros per warp in the run-based kernels
-constexpr int kWindow = 16384;   // x entries per window (128 x 128)
 constexpr uint32_t kOneF32 = 0x3f800000u;  // 1.0f, exact in TF32
 constexpr uint32_t kOneBf16 = 0x3f80u;     // 1.0 in bf16
 
-enum { kAblateFull = 0, kDmaOnly = 1, kNoGather = 2, kOneGather = 3,
-       kNoFlush = 4 };
-enum { kFlushFull = 0, kMergeAll = 1, kRunMerge = 2 };
+enum { kMergeAll = 1, kRunMerge = 2 };
 enum { kMmPrecomp = 1, kMmHi1 = 2, kMmFused = 3 };
-
-template <int TPR>
-__device__ __forceinline__ float group_sum(float v) {
-  // Every lane of the warp reaches the shuffles (inactive rows carry 0),
-  // so the full mask is valid; width TPR keeps each row's group apart.
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1) {
-    v += __shfl_down_sync(kFull, v, off, TPR);
-  }
-  return v;
-}
-
-// ---------------------------------------------------------------- K1 ablate
-
-template <int TPR, int V>
-__global__ void __launch_bounds__(kBlock)
-ablate_kernel(int nrows, int col_mask, int nwin, int win_mask,
-              const int* __restrict__ indptr, const int* __restrict__ indices,
-              const float* __restrict__ vals, const float* __restrict__ x,
-              float* __restrict__ y) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int64_t row = tid / TPR;
-  const int lane = static_cast<int>(tid % TPR);
-  const bool active = row < nrows;
-  float sum = 0.f;
-  if (active) {
-    const int64_t end = indptr[row + 1];
-    const int base = V == kOneGather
-        ? static_cast<int>((row >> 7) % nwin) * (win_mask + 1) : 0;
-    for (int64_t k = indptr[row] + lane; k < end; k += TPR) {
-      const int c = indices[k];
-      if constexpr (V == kDmaOnly) {
-        sum += vals[k] + static_cast<float>(c);
-      } else if constexpr (V == kNoGather) {
-        // c >> 31 is 0 for a valid column: the index is still loaded
-        // (same bytes) but does not move the address.
-        sum += vals[k] *
-               __ldg(x + ((static_cast<int>(k) ^ (c >> 31)) & col_mask));
-      } else if constexpr (V == kOneGather) {
-        sum += vals[k] * __ldg(x + base + (c & win_mask));
-      } else {
-        sum += vals[k] * __ldg(x + c);
-      }
-    }
-  }
-  if constexpr (V == kNoFlush) {
-    // Lane 0 stores its own partial.  The other lanes store only a NaN
-    // (never, for finite inputs): that keeps their loads live.
-    if (active && (lane == 0 || sum != sum)) y[row] = sum;
-  } else {
-    sum = group_sum<TPR>(sum);
-    if (active && lane == 0) y[row] = sum;
-  }
-}
-
-// ------------------------------------------------------------- K2 multi_acc
-
-template <int TPR, int NACC>
-__global__ void __launch_bounds__(kBlock)
-multi_acc_kernel(int nrows, const int* __restrict__ indptr,
-                 const int* __restrict__ indices,
-                 const float* __restrict__ vals, const float* __restrict__ x,
-                 float* __restrict__ y) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int64_t row = tid / TPR;
-  const int lane = static_cast<int>(tid % TPR);
-  const bool active = row < nrows;
-  float acc[NACC];
-#pragma unroll
-  for (int a = 0; a < NACC; ++a) acc[a] = 0.f;
-  if (active) {
-    const int64_t end = indptr[row + 1];
-    int64_t k = indptr[row] + lane;
-    for (; k + (NACC - 1) * TPR < end; k += NACC * TPR) {
-#pragma unroll
-      for (int a = 0; a < NACC; ++a) {
-        acc[a] += vals[k + a * TPR] * __ldg(x + indices[k + a * TPR]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < NACC - 1; ++a, k += TPR) {
-      if (k < end) acc[a] += vals[k] * __ldg(x + indices[k]);
-    }
-  }
-  float sum = acc[0];
-#pragma unroll
-  for (int a = 1; a < NACC; ++a) sum += acc[a];
-  sum = group_sum<TPR>(sum);
-  if (active && lane == 0) y[row] = sum;
-}
 
 // ---------------------------------------------- run-based kernels (K3, K4)
 
@@ -471,52 +360,9 @@ segsum_kernel(int nrows, int64_t nnz, const int* __restrict__ indptr,
 
 // ------------------------------------------------------------------ launch
 
-#define HPRLP_TPR_SWITCH(tpr, T, ...)                                   \
-  switch (tpr) {                                                        \
-    case 2: { constexpr int T = 2; __VA_ARGS__; } break;                \
-    case 4: { constexpr int T = 4; __VA_ARGS__; } break;                \
-    case 8: { constexpr int T = 8; __VA_ARGS__; } break;                \
-    case 16: { constexpr int T = 16; __VA_ARGS__; } break;              \
-    case 32: { constexpr int T = 32; __VA_ARGS__; } break;              \
-    default: return static_cast<int>(cudaErrorInvalidValue);            \
-  }
-
-unsigned row_grid(int nrows, int tpr) {
-  return static_cast<unsigned>(
-      (static_cast<int64_t>(nrows) * tpr + kBlock - 1) / kBlock);
-}
-
 unsigned run_grid(int64_t nnz) {
   const int64_t threads = (nnz + kRun - 1) / kRun * 32;
   return static_cast<unsigned>((threads + kBlock - 1) / kBlock);
-}
-
-int pow2_floor(int v) {
-  int p = 1;
-  while (p <= v / 2) p *= 2;
-  return p;
-}
-
-template <int V>
-int launch_ablate(int tpr, int nrows, int ncols, const int* ip, const int* ix,
-                  const float* v, const float* x, float* y, cudaStream_t s) {
-  const int cols = pow2_floor(ncols > 0 ? ncols : 1);
-  const int win = cols < kWindow ? cols : kWindow;
-  const int nwin = ncols / win > 0 ? ncols / win : 1;
-  HPRLP_TPR_SWITCH(tpr, T,
-      ablate_kernel<T, V><<<row_grid(nrows, T), kBlock, 0, s>>>(
-          nrows, cols - 1, nwin, win - 1, ip, ix, v, x, y))
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int NACC>
-int launch_multi_acc(int tpr, int nrows, const int* ip, const int* ix,
-                     const float* v, const float* x, float* y,
-                     cudaStream_t s) {
-  HPRLP_TPR_SWITCH(tpr, T,
-      multi_acc_kernel<T, NACC><<<row_grid(nrows, T), kBlock, 0, s>>>(
-          nrows, ip, ix, v, x, y))
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -524,56 +370,13 @@ int launch_multi_acc(int tpr, int nrows, const int* ip, const int* ix,
 extern "C" {
 
 // Each returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a variant or TPR it does not know.
+// cudaErrorInvalidValue for a variant it does not know.
 
-int hprlp_spmv_ablate(int variant, int tpr, int nrows, int ncols,
-                      const void* indptr, const void* indices,
-                      const void* vals, const void* x, void* y,
-                      void* stream) {
-  if (nrows <= 0) return 0;
-  const int* ip = static_cast<const int*>(indptr);
-  const int* ix = static_cast<const int*>(indices);
-  const float* v = static_cast<const float*>(vals);
-  const float* xv = static_cast<const float*>(x);
-  float* yv = static_cast<float*>(y);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case kAblateFull: return launch_ablate<kAblateFull>(tpr, nrows, ncols, ip, ix, v, xv, yv, s);
-    case kDmaOnly: return launch_ablate<kDmaOnly>(tpr, nrows, ncols, ip, ix, v, xv, yv, s);
-    case kNoGather: return launch_ablate<kNoGather>(tpr, nrows, ncols, ip, ix, v, xv, yv, s);
-    case kOneGather: return launch_ablate<kOneGather>(tpr, nrows, ncols, ip, ix, v, xv, yv, s);
-    case kNoFlush: return launch_ablate<kNoFlush>(tpr, nrows, ncols, ip, ix, v, xv, yv, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-int hprlp_spmv_multi_acc(int n_acc, int tpr, int nrows, const void* indptr,
-                         const void* indices, const void* vals,
-                         const void* x, void* y, void* stream) {
-  if (nrows <= 0) return 0;
-  const int* ip = static_cast<const int*>(indptr);
-  const int* ix = static_cast<const int*>(indices);
-  const float* v = static_cast<const float*>(vals);
-  const float* xv = static_cast<const float*>(x);
-  float* yv = static_cast<float*>(y);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_acc) {
-    case 1: return launch_multi_acc<1>(tpr, nrows, ip, ix, v, xv, yv, s);
-    case 2: return launch_multi_acc<2>(tpr, nrows, ip, ix, v, xv, yv, s);
-    case 4: return launch_multi_acc<4>(tpr, nrows, ip, ix, v, xv, yv, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// merge_all and runmerge need y zeroed.
-int hprlp_spmv_flush(int variant, int tpr, int nrows, int ncols,
-                     long long nnz, const void* indptr, const void* indices,
+// merge_all and runmerge (y zeroed by the caller).
+int hprlp_spmv_flush(int variant, int nrows, long long nnz,
+                     const void* indptr, const void* indices,
                      const void* vals, const void* x, void* y,
                      void* stream) {
-  if (variant == kFlushFull) {
-    return hprlp_spmv_ablate(kAblateFull, tpr, nrows, ncols, indptr, indices,
-                             vals, x, y, stream);
-  }
   if (nrows <= 0 || nnz <= 0) return 0;
   const int* ip = static_cast<const int*>(indptr);
   const int* ix = static_cast<const int*>(indices);

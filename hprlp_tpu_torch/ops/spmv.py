@@ -15,7 +15,10 @@ into its row write (their plain versions: solver/chunk.py::x_half_plain,
 y_half_plain).  `csr_spmv_plain` computes the kernel's bits in plain
 PyTorch on the plan, and `spmv_reference` is the contract (any order).
 `csr_spmv_rowgroup` launches the previous design, `csrc/spmv.cu` (a group of
-threads per row), kept to be timed: no solve launches it.
+threads per row), kept to be timed: no solve launches it.  `csr_study`
+launches the same kernel's variant-study instantiations (ops/
+spmv_variants.py's ablate and multi_acc families), and `plan_row_sums`
+gives their per-row sums in plain PyTorch.
 
 Each library is compiled with nvcc on first use into `_build/` next to
 this package (one file per source hash) and loaded with ctypes; nothing is
@@ -50,9 +53,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _THREADS_PER_ROW = (2, 4, 8, 16, 32)
 CSR_BLOCK = 256  # threads per block (csrc/spmv_csr.cu kBlock)
 CSR_CAP_BYTES = 8192  # values per window of a row block (kCap<T>), in bytes
-# csrc/spmv_csr.cu's epilogues: y = A x, a fused half, or the no-gather
-# measurement.
-STORE, X_HALF, Y_HALF, NO_GATHER = 0, 1, 2, 3
+CSR_VEC = 4  # entries per vector load (csrc/spmv_csr.cu kVec)
+# csrc/spmv_csr.cu's epilogues: y = A x, a fused half, or one of the
+# ablate study's measurements.
+STORE, X_HALF, Y_HALF, NO_GATHER, DMA_ONLY, ONE_GATHER, NO_FLUSH = range(7)
 
 
 def _nvcc() -> str:
@@ -119,6 +123,9 @@ def _library() -> ctypes.CDLL:
     lib.hprlp_csr_spmv.argtypes = [i, i, i, i, ctypes.c_longlong, i, i] \
         + [ptr] * 16
     lib.hprlp_csr_spmv.restype = i
+    lib.hprlp_csr_study.argtypes = [i, i, i, i, ctypes.c_longlong, i] \
+        + [ptr] * 8
+    lib.hprlp_csr_study.restype = i
     lib.hprlp_csr_error_string.argtypes = [i]
     lib.hprlp_csr_error_string.restype = ctypes.c_char_p
     return lib
@@ -274,10 +281,39 @@ def _csr_launch(epilogue: int, A, x: torch.Tensor, out: torch.Tensor,
             A.indptr.data_ptr(), A.indices.data_ptr(), A.vals.data_ptr(),
             x.data_ptr(), out.data_ptr(), ptr(hat), ptr(cur), ptr(last),
             ptr(p0), ptr(p1), ptr(p2), ptr(scal), ptr(inner), stream)
+    _raise_on(lib, err, f"epilogue {epilogue}, {P.n_blocks} blocks")
+
+
+def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.hprlp_csr_error_string(err).decode()
-        raise RuntimeError(f"CSR SpMV launch failed (epilogue {epilogue}, "
-                           f"{P.n_blocks} blocks): {msg} ({err})")
+        raise RuntimeError(f"CSR SpMV launch failed ({what}): {msg} ({err})")
+
+
+def csr_study(variant: int, n_acc: int, A, x: torch.Tensor) -> torch.Tensor:
+    """y of one variant-study instantiation of csrc/spmv_csr.cu (f32) on
+    A's row-block plan: `variant` an epilogue (STORE, NO_GATHER, DMA_ONLY,
+    ONE_GATHER, NO_FLUSH) with n_acc 1, or STORE with n_acc 1, 2 or 4.
+    Checks A, x and the plan as csr_spmv does; f32 only.  Uncounted: the
+    study wrappers of ops/spmv_variants.py count their own launches.
+    Raises on a bad argument or a refused launch."""
+    check_csr_args(A, x)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the variant studies are f32 only, got {x.dtype}")
+    check_blocks(A, x)
+    y = torch.empty(A.nrows, dtype=x.dtype, device=x.device)
+    lib = _library()
+    P = A.blocks
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.hprlp_csr_study(
+            variant, n_acc, A.nrows, A.ncols, A.nnz, P.n_blocks,
+            P.row0.data_ptr(), P.ent0.data_ptr(), A.indptr.data_ptr(),
+            A.indices.data_ptr(), A.vals.data_ptr(), x.data_ptr(),
+            y.data_ptr(), stream)
+    _raise_on(lib, err, f"study variant {variant}, n_acc {n_acc}, "
+                        f"{P.n_blocks} blocks")
+    return y
 
 
 def csr_spmv(A, x: torch.Tensor) -> torch.Tensor:
@@ -534,15 +570,30 @@ def spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
 def csr_spmv_plain(A, x: torch.Tensor, blocks: RowBlocks | None = None
                    ) -> torch.Tensor:
     """csrc/spmv_csr.cu's y = A @ x in plain PyTorch (any device), bit for
-    bit: each product rounded, then a row of at most the plan's cap entries
-    summed one add at a time in CSR order from +0, and a longer row (a
-    block alone) summed in CSR_BLOCK strided partials and a tree.
-    `blocks` defaults to A's plan, else row_blocks(A)."""
-    P = blocks or getattr(A, "blocks", None) or row_blocks(A)
-    dev, n = x.device, A.nrows
+    bit: each product rounded, then summed by plan_row_sums.  `blocks`
+    defaults to A's plan, else row_blocks(A)."""
+    return plan_row_sums(A, A.vals * x[A.indices.to(torch.int64)], blocks)
+
+
+def plan(A, blocks: RowBlocks | None = None) -> RowBlocks:
+    """`blocks`, else A's plan, else row_blocks(A)."""
+    return blocks or getattr(A, "blocks", None) or row_blocks(A)
+
+
+def plan_row_sums(A, terms: torch.Tensor, blocks: RowBlocks | None = None,
+                  n_acc: int = 1) -> torch.Tensor:
+    """The row sums of per-entry `terms` as csrc/spmv_csr.cu forms them on
+    the plan, bit for bit: a row of at most the plan's cap entries summed
+    from +0 one add at a time in CSR order, its entry j into accumulator j
+    % n_acc (n_acc 1, 2 or 4; the accumulators combined as (acc0 + acc1) +
+    (acc2 + acc3)), and a longer row (a block alone) summed in CSR_BLOCK
+    strided partials and a tree.  Any device."""
+    if n_acc not in (1, 2, 4):
+        raise ValueError(f"n_acc must be 1, 2 or 4, got {n_acc}")
+    P = plan(A, blocks)
+    dev, n, dtype = terms.device, A.nrows, terms.dtype
     indptr = A.indptr.to(device=dev, dtype=torch.int64)
-    prod = A.vals * x[A.indices.to(torch.int64)]
-    y = torch.zeros(n, dtype=x.dtype, device=dev)
+    y = torch.zeros(n, dtype=dtype, device=dev)
     row0, ent0 = P.row0.to(dev, torch.int64), P.ent0.to(dev, torch.int64)
     longb = (row0[1:] - row0[:-1] == 1) & (ent0[1:] - ent0[:-1] > P.cap)
     long_rows = row0[:-1][longb].tolist()
@@ -553,18 +604,20 @@ def csr_spmv_plain(A, x: torch.Tensor, blocks: RowBlocks | None = None
     rows = torch.nonzero(short).flatten()
     rows = rows[torch.argsort(length[rows], descending=True, stable=True)]
     lens = length[rows]
-    acc = torch.zeros(rows.numel(), dtype=x.dtype, device=dev)
+    acc = torch.zeros((rows.numel(), n_acc), dtype=dtype, device=dev)
     for j in range(int(lens[0]) if rows.numel() else 0):
         k = int((lens > j).sum())
-        acc[:k] = acc[:k] + prod[indptr[rows[:k]] + j]
-    y[rows] = acc
+        acc[:k, j % n_acc] = acc[:k, j % n_acc] + terms[indptr[rows[:k]] + j]
+    while acc.shape[1] > 1:
+        acc = acc[:, 0::2] + acc[:, 1::2]
+    y[rows] = acc[:, 0]
     for r in long_rows:
-        p = prod[int(indptr[r]):int(indptr[r + 1])]
+        p = terms[int(indptr[r]):int(indptr[r + 1])]
         steps = -(-p.numel() // CSR_BLOCK)
-        part = torch.zeros(steps * CSR_BLOCK, dtype=x.dtype, device=dev)
+        part = torch.zeros(steps * CSR_BLOCK, dtype=dtype, device=dev)
         part[:p.numel()] = p
         part = part.view(steps, CSR_BLOCK)
-        s = torch.zeros(CSR_BLOCK, dtype=x.dtype, device=dev)
+        s = torch.zeros(CSR_BLOCK, dtype=dtype, device=dev)
         for i in range(steps):
             s = s + part[i]
         w = CSR_BLOCK // 2

@@ -1,14 +1,19 @@
-"""The SpMV variant studies: four hand-written Hopper kernel families
-(csrc/spmv_variants.cu), their wrappers and their plain versions.
+"""The SpMV variant studies: four hand-written Hopper kernel families,
+their wrappers and their plain versions.
 
 Each family takes the place of one Pallas variant study in benchmarks/ and
-ablates the port's row-parallel CSR kernel (csrc/spmv.cu) the way that
-study ablated the TPU kernel; the CUDA source's note says what each
-variant isolates.  The segsum family's exact variant, full, asks its
-question of the main path's tiles instead (csrc/spmv_tiled.cu, template
-ONEHOT: one-hot tensor-core row sums in place of the segmented warp
-scan); its plain version, `segsum_onehot_plain`, builds the same one-hot
-products in plain PyTorch.
+asks its question of a kernel the port runs.  The ablate and multi_acc
+families ablate the "gather" backend's CSR kernel on its row-block plan:
+they are instantiations of csrc/spmv_csr.cu (launched by ops/spmv.py::
+csr_study; `full` and `n_acc=1` are csr_spmv's own launch), whose note
+says what each variant isolates, and their plain versions repeat its
+order of sums on the plan (ops/spmv.py::plan_row_sums).  The flush
+family's `full` is that launch too; its run-based variants, and segsum's
+`mm_*`, are csrc/spmv_variants.cu's CSR kernels.  The segsum family's
+exact variant, full, asks its question of the main path's tiles
+(csrc/spmv_tiled.cu, template ONEHOT: one-hot tensor-core row sums in
+place of the segmented warp scan); its plain version,
+`segsum_onehot_plain`, builds the same one-hot products in plain PyTorch.
 
     family      wrapper          JAX study                variants
     ablate      spmv_ablate      prof_lane_ablate.py      dma_only, no_gather,
@@ -20,11 +25,13 @@ products in plain PyTorch.
     segsum      spmv_segsum      prof_kernel_variants.py  mm_fused, mm_hi1,
                                                           mm_precomp, full
 
-A wrapper takes f32 CUDA tensors only, launches its kernel, counts the
-launch and raises on a bad argument or a refused launch.  `plain` computes
-what each variant computes -- the deliberately wrong ones included -- in
-plain PyTorch on any device, and `variant_spmv` sends a CUDA tensor to the
-kernel and a CPU tensor to the plain version.  The library builds with
+A wrapper takes f32 CUDA tensors only (the CSR kernel's variants also the
+matrix's row-block plan, which they never build), launches its kernel,
+counts the launch and raises on a bad argument or a refused launch.
+`plain` computes what each variant computes -- the deliberately wrong
+ones included -- in plain PyTorch on any device (bit for bit where the
+variant is `bitwise`), and `variant_spmv` sends a CUDA tensor to the
+kernel and a CPU tensor to the plain version.  The libraries build with
 nvcc on first use, by the rule of ops/spmv.py.
 """
 
@@ -37,8 +44,10 @@ import os
 
 import torch
 
-from .spmv import (_tiled_library, build, check_csr_args, check_tiled_args,
-                   row_of_entry, spmv_reference, threads_per_row)
+from .spmv import (CSR_BLOCK, CSR_VEC, DMA_ONLY, NO_FLUSH, NO_GATHER,
+                   ONE_GATHER, STORE, _tiled_library, build, check_csr_args,
+                   check_tiled_args, csr_spmv_plain, csr_study, plan,
+                   plan_row_sums, row_of_entry, spmv_reference)
 from .tiles import (SENTINEL_ROW, SMEM_BYTES, WARPS, TiledMatrix,
                     build_tiles)
 
@@ -61,10 +70,12 @@ _BF16_ONE = 0x3F80
 
 @dataclasses.dataclass(frozen=True)
 class Variant:
-    code: int        # the variant's number in the CUDA source
+    code: int        # the variant's number in its CUDA source (multi_acc:
+    #                  n_acc)
     kind: str        # "exact" (computes A @ x) or "timing_only"
     tol: float       # max abs error against the plain version, / max|y|
     translates: str  # the JAX study and variant it stands for
+    bitwise: bool    # the kernel gives its plain version's bits
 
     @property
     def exact(self) -> bool:
@@ -72,29 +83,31 @@ class Variant:
 
 
 def _table(study, rows):
-    return {name: Variant(code, kind, tol, f"benchmarks/{study} {jax_name}")
-            for name, code, kind, tol, jax_name in rows}
+    return {name: Variant(code, kind, tol, f"benchmarks/{study} {jax_name}",
+                          bitwise)
+            for name, code, kind, tol, jax_name, bitwise in rows}
 
 
 VARIANTS: dict[str, dict[str, Variant]] = {
     "ablate": _table("prof_lane_ablate.py", [
-        ("dma_only", 1, "timing_only", 1e-5, "dma_only"),
-        ("no_gather", 2, "timing_only", 1e-5, "no_gather"),
-        ("one_gather", 3, "timing_only", 1e-5, "one_gather"),
-        ("no_flush", 4, "timing_only", 1e-5, "no_flush"),
-        ("full", 0, "exact", 1e-5, "full")]),
+        ("dma_only", DMA_ONLY, "timing_only", 1e-5, "dma_only", False),
+        ("no_gather", NO_GATHER, "timing_only", 1e-5, "no_gather", False),
+        ("one_gather", ONE_GATHER, "timing_only", 1e-5, "one_gather", False),
+        ("no_flush", NO_FLUSH, "timing_only", 1e-5, "no_flush", False),
+        ("full", STORE, "exact", 1e-5, "full", True)]),
     "multi_acc": _table("prof_dual_acc.py", [
-        (f"n_acc={n}", n, "exact", 1e-5, f"n_acc={n}") for n in (1, 2, 4)]),
+        (f"n_acc={n}", n, "exact", 1e-5, f"n_acc={n}", True)
+        for n in (1, 2, 4)]),
     "flush": _table("prof_flush_variants.py", [
-        ("full", 0, "exact", 1e-5, "full"),
-        ("merge_all", 1, "timing_only", 1e-5, "merge_all"),
-        ("runmerge", 2, "exact", 1e-5, "runmerge")]),
+        ("full", STORE, "exact", 1e-5, "full", True),
+        ("merge_all", 1, "timing_only", 1e-5, "merge_all", False),
+        ("runmerge", 2, "exact", 1e-5, "runmerge", False)]),
     # mm_precomp carries p as two bf16 terms (~2^-16 relative): 1e-4.
     "segsum": _table("prof_kernel_variants.py", [
-        ("mm_fused", 3, "timing_only", 1e-5, "mm_fused"),
-        ("mm_hi1", 2, "timing_only", 1e-5, "mm_hi1"),
-        ("mm_precomp", 1, "exact", 1e-4, "mm_precomp"),
-        ("full", 0, "exact", 1e-5, "full")]),
+        ("mm_fused", 3, "timing_only", 1e-5, "mm_fused", False),
+        ("mm_hi1", 2, "timing_only", 1e-5, "mm_hi1", False),
+        ("mm_precomp", 1, "exact", 1e-4, "mm_precomp", False),
+        ("full", 0, "exact", 1e-5, "full", False)]),
 }
 
 
@@ -112,9 +125,7 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build(SOURCE))
     i, ll, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     argtypes = {
-        "hprlp_spmv_ablate": [i, i, i, i] + [ptr] * 6,
-        "hprlp_spmv_multi_acc": [i, i, i] + [ptr] * 6,
-        "hprlp_spmv_flush": [i, i, i, i, ll] + [ptr] * 6,
+        "hprlp_spmv_flush": [i, i, ll] + [ptr] * 6,
         "hprlp_spmv_segsum": [i, i, ll] + [ptr] * 7,
     }
     for name, types in argtypes.items():
@@ -149,37 +160,37 @@ def _csr_ptrs(A, x, y):
 
 
 def spmv_ablate(A, x: torch.Tensor, variant_name: str) -> torch.Tensor:
-    """K1: the row-parallel kernel with one part taken out (full, dma_only,
-    no_gather, one_gather, no_flush)."""
+    """The "gather" backend's CSR kernel on A's row-block plan with one
+    part taken out (dma_only, no_gather, one_gather, no_flush), or whole
+    (full: csr_spmv's launch)."""
     v = variant("ablate", variant_name)
-    _check(A, x)
-    y = torch.empty(A.nrows, dtype=x.dtype, device=x.device)
-    _launch(spmv_ablate, "hprlp_spmv_ablate", x, v.code,
-            threads_per_row(A.nnz, A.nrows), A.nrows, A.ncols,
-            *_csr_ptrs(A, x, y))
+    y = csr_study(v.code, 1, A, x)
+    spmv_ablate.launches += 1
     return y
 
 
 def spmv_multi_acc(A, x: torch.Tensor, variant_name: str) -> torch.Tensor:
-    """K2: the row-parallel kernel with n_acc partial sums per thread."""
+    """The CSR kernel on A's row-block plan with each short row summed in
+    n_acc accumulators (n_acc=1: csr_spmv's launch)."""
     v = variant("multi_acc", variant_name)
-    _check(A, x)
-    y = torch.empty(A.nrows, dtype=x.dtype, device=x.device)
-    _launch(spmv_multi_acc, "hprlp_spmv_multi_acc", x, v.code,
-            threads_per_row(A.nnz, A.nrows), A.nrows, *_csr_ptrs(A, x, y))
+    y = csr_study(STORE, v.code, A, x)
+    spmv_multi_acc.launches += 1
     return y
 
 
 def spmv_flush(A, x: torch.Tensor, variant_name: str) -> torch.Tensor:
-    """K3: per-row flush (full) against nnz-balanced runs flushed at row
-    ends (runmerge) or not at all (merge_all)."""
+    """Per-row sums and one store per row (full: csr_spmv's launch, on A's
+    row-block plan) against nnz-balanced runs flushed at row ends
+    (runmerge) or not at all (merge_all)."""
     v = variant("flush", variant_name)
+    if variant_name == "full":
+        y = csr_study(STORE, 1, A, x)
+        spmv_flush.launches += 1
+        return y
     _check(A, x)
     # The run-based variants add into y with atomics.
-    alloc = torch.empty if variant_name == "full" else torch.zeros
-    y = alloc(A.nrows, dtype=x.dtype, device=x.device)
-    _launch(spmv_flush, "hprlp_spmv_flush", x, v.code,
-            threads_per_row(A.nnz, A.nrows), A.nrows, A.ncols, A.nnz,
+    y = torch.zeros(A.nrows, dtype=x.dtype, device=x.device)
+    _launch(spmv_flush, "hprlp_spmv_flush", x, v.code, A.nrows, A.nnz,
             *_csr_ptrs(A, x, y))
     return y
 
@@ -312,30 +323,60 @@ def _row_sums(A, per_entry: torch.Tensor, rows=None) -> torch.Tensor:
                        device=per_entry.device).index_add_(0, rows, per_entry)
 
 
+def _entry_blocks(A, P) -> torch.Tensor:
+    """The block of plan P that owns each stored entry (int64, on A's
+    device): the last block whose first entry is at or before it."""
+    k = torch.arange(A.nnz, device=A.vals.device)
+    return torch.searchsorted(P.ent0.to(k.device, torch.int64), k,
+                              right=True) - 1
+
+
+def _no_flush_plain(A, x, P):
+    """no_flush: each thread's products, in entry order, stored to row r0 +
+    tid of its block (dropped past the block's last row); a long row's
+    block stores thread 0's strided partial alone."""
+    dev = x.device
+    row0, ent0 = P.row0.to(dev, torch.int64), P.ent0.to(dev, torch.int64)
+    k = torch.arange(A.nnz, device=dev)
+    b = _entry_blocks(A, P)
+    r0, r1, e0 = row0[b], row0[b + 1], ent0[b]
+    long = (r1 - r0 == 1) & (ent0[b + 1] - e0 > P.cap)
+    tid = torch.where(long, (k - e0) % CSR_BLOCK,
+                      (k // CSR_VEC - e0 // CSR_VEC) % CSR_BLOCK)
+    kept = torch.where(long, tid == 0, r0 + tid < r1)
+    prod = A.vals * x[A.indices.to(torch.int64)]
+    return torch.zeros(A.nrows, dtype=x.dtype, device=dev).index_add_(
+        0, (r0 + tid)[kept], prod[kept])
+
+
 def _ablate_plain(A, x, name):
+    P = plan(A)
     if name == "full":
-        return spmv_reference(A, x)
+        return csr_spmv_plain(A, x, P)
+    if name == "no_flush":
+        return _no_flush_plain(A, x, P)
     idx = A.indices.to(torch.int64)
-    rows = row_of_entry(A)
-    k = torch.arange(A.nnz, device=x.device)
     if name == "dma_only":
-        per_entry = A.vals + A.indices.to(A.vals.dtype)
+        terms = A.vals + A.indices.to(A.vals.dtype)
     elif name == "no_gather":
-        mask = _pow2_floor(A.ncols) - 1
-        per_entry = A.vals * x[torch.bitwise_xor(k, idx >> 31) & mask]
-    elif name == "one_gather":
+        k = torch.arange(A.nnz, device=x.device)
+        terms = A.vals * x[k & (_pow2_floor(A.ncols) - 1)]
+    else:  # one_gather: block b's reads in window b mod (ncols / W)
         win = min(WINDOW, _pow2_floor(A.ncols))
-        base = ((rows >> 7) % max(A.ncols // win, 1)) * win
-        per_entry = A.vals * x[base + (idx & (win - 1))]
-    else:  # no_flush: lane 0's partial, the entries at offsets 0, TPR, ...
-        tpr = threads_per_row(A.nnz, A.nrows)
-        lane0 = (k - A.indptr[rows]) % tpr == 0
-        per_entry = torch.where(lane0, A.vals * x[idx], 0.0)
-    return _row_sums(A, per_entry, rows)
+        base = (_entry_blocks(A, P) % max(A.ncols // win, 1)) * win
+        terms = A.vals * x[base + (idx & (win - 1))]
+    return plan_row_sums(A, terms, P)
+
+
+def _multi_acc_plain(A, x, name):
+    return plan_row_sums(A, A.vals * x[A.indices.to(torch.int64)], None,
+                         variant("multi_acc", name).code)
 
 
 def _flush_plain(A, x, name):
-    if name != "merge_all":
+    if name == "full":
+        return csr_spmv_plain(A, x)
+    if name == "runmerge":
         return spmv_reference(A, x)
     # Each run's sum, added into row (run % nrows).
     nruns = -(-A.nnz // RUN)
@@ -443,8 +484,7 @@ def _segsum_plain(A, x, name, tiles=None):
     return _row_sums(A, per_entry, rows)
 
 
-_PLAIN = {"ablate": _ablate_plain,
-          "multi_acc": lambda A, x, name: spmv_reference(A, x),
+_PLAIN = {"ablate": _ablate_plain, "multi_acc": _multi_acc_plain,
           "flush": _flush_plain, "segsum": _segsum_plain}
 
 

@@ -1,15 +1,16 @@
 """Counterpart of benchmarks/prof_flush_variants.py on an NVIDIA GPU: the
 "flush" kernel family of ops/spmv_variants.py.
 
-Flush strategies: per-row shuffle reduction and store (full), against
+Flush strategies: per-row sums and one store per row (full: the "gather"
+backend's CSR kernel on its row-block plan, csr_spmv's launch), against
 nnz-balanced warp runs flushed at row ends (runmerge, exact) or merged
 into one atomicAdd per run (merge_all, wrong: the ceiling).
 
     python -m hprlp_tpu_torch.prof.prof_flush_variants [--size huge]
 
 Prints, for A and A^T, one line per variant: us per SpMV, GB/s by the byte
-model, share of the bound, max abs error against the plain version, and
-the card's name and power limit.  Needs a CUDA device.
+model, share of the bound, its agreement with the plain version, and the
+card's name and power limit.  Needs a CUDA device.
 """
 
 import sys

@@ -1,6 +1,9 @@
 """The variant-study path that prof_*.py share: lay the LP out and scale it
 on the card, hold every variant of one kernel family against its plain
-version (and the exact ones against A @ x), then time each on A and A^T.
+version (bit for bit where the variant is `bitwise`; the exact ones also
+against A @ x), then time each on A and A^T.  The matrices carry the
+"gather" backend's row-block plan, which the CSR kernel's variants run
+on, and the tiles segsum full runs on.
 
 Sizes: "bench" is bench.py's LP (make_problem: 65536 x 131072, 1.31M nnz;
 one SpMV reads ~11.5 MB, inside the 50 MB L2); "huge" is
@@ -16,12 +19,14 @@ import numpy as np
 import torch
 
 from ..ops.device_problem import build_device_problem
-from ..ops.spmv import spmv_reference, threads_per_row
+from ..ops.sparse import with_spmv_backend
+from ..ops.spmv import spmv_reference
 from ..ops.spmv_variants import (WRAPPERS, plain, segsum_rtiles,
                                  segsum_tiles, variant)
 from ..solver.scaling import scale_problem
 from .problems import make_problem, random_lp
-from .timing import card, spmv_bound, spmv_bytes, time_ms
+from .timing import (FLOPS_PER_S, HBM_BYTES_PER_S, card, spmv_bound,
+                     spmv_bytes, time_ms)
 
 SIZES = {"bench": make_problem,
          "huge": lambda: random_lp(262144, 524288, 40, seed=4)}
@@ -29,11 +34,13 @@ SIZES = {"bench": make_problem,
 
 def device_matrices(problem, device="cuda") -> dict:
     """A and A^T of the scaled f32 LP on `device`, as the solver sees them
-    (the port's build_device_problem + scale_problem), each carrying the
-    tiles segsum full runs on (segsum_tiles, built once here)."""
+    (the port's build_device_problem + scale_problem), each on the "gather"
+    backend (its row-block plan attached, as with_spmv_backend does) and
+    carrying the tiles segsum full runs on (segsum_tiles, built once
+    here)."""
     lp, _ = build_device_problem(problem, dtype=torch.float32, device=device)
     scaled, _ = scale_problem(lp)
-    return {name: M.with_tiles(segsum_tiles(M))
+    return {name: with_spmv_backend(M, "gather").with_tiles(segsum_tiles(M))
             for name, M in (("A", scaled.A), ("AT", scaled.AT))}
 
 
@@ -52,15 +59,29 @@ def _call(family, M, x, name):
     return lambda: WRAPPERS[family](M, x, name)
 
 
+def variant_bound(family: str, name: str, M) -> tuple[int, float, str]:
+    """(bytes, bound_ms, bound_by) of one variant's SpMV: the byte model of
+    prof/timing.py, less x where the variant reads none (ablate dma_only:
+    the stream alone)."""
+    bound_ms, bound_by = spmv_bound(M, torch.float32)
+    nbytes = spmv_bytes(M, torch.float32)
+    if (family, name) == ("ablate", "dma_only"):
+        nbytes -= M.ncols * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * M.nnz / FLOPS_PER_S[torch.float32] * 1e3
+        bound_ms, bound_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                              else (ops_ms, "operations"))
+    return nbytes, bound_ms, bound_by
+
+
 def measure(family: str, mats: dict, variants) -> list:
     """Time every variant on every matrix (name -> CUDA CsrMatrix) by
     CUDA-graph replay.  One record per (matrix, variant)."""
     records = []
     for mat, M in mats.items():
         x = study_x(M)
-        bound_ms, bound_by = spmv_bound(M, torch.float32)
-        nbytes = spmv_bytes(M, torch.float32)
         for name in variants:
+            nbytes, bound_ms, bound_by = variant_bound(family, name, M)
             ms = time_ms(_call(family, M, x, name))
             records.append({
                 "family": family, "matrix": mat, "variant": name,
@@ -71,9 +92,10 @@ def measure(family: str, mats: dict, variants) -> list:
 
 
 def check(family: str, mats: dict, variants) -> list:
-    """Every variant against its plain version on the same card, and the
-    exact ones against spmv_reference (A @ x), at the variant's tolerance
-    times max|y|.  One record per (matrix, variant)."""
+    """Every variant against its plain version on the same card (bitwise
+    where the variant is, else at its tolerance times max|y|), and the
+    exact ones against spmv_reference (A @ x) at that tolerance.  One
+    record per (matrix, variant)."""
     records = []
     for mat, M in mats.items():
         x = study_x(M)
@@ -85,8 +107,10 @@ def check(family: str, mats: dict, variants) -> list:
             scale = float(y_plain.abs().max())
             rec = {"family": family, "matrix": mat, "variant": name,
                    "kind": v.kind, "tol": v.tol, "scale": scale,
-                   "err": float((y - y_plain).abs().max()), "err_ref": None}
-            rec["ok"] = rec["err"] <= v.tol * scale
+                   "err": float((y - y_plain).abs().max()), "err_ref": None,
+                   "bitwise": bool(torch.equal(y, y_plain))}
+            rec["ok"] = (rec["bitwise"] if v.bitwise
+                         else rec["err"] <= v.tol * scale)
             if v.exact:
                 rec["err_ref"] = float((y - y_ref).abs().max())
                 rec["ok"] = rec["ok"] and rec["err_ref"] <= v.tol * scale
@@ -94,20 +118,28 @@ def check(family: str, mats: dict, variants) -> list:
     return records
 
 
-def report(timings: list, checks: list, card_name: str, size: str) -> list:
-    """One printable line per (matrix, variant)."""
+def report(timings: list, checks: list, card_name: str, size: str,
+           library: dict | None = None) -> list:
+    """One printable line per (matrix, variant); `library` (matrix ->
+    ms), where given, puts cuSPARSE's time on the same matrix beside."""
     errs = {(c["matrix"], c["variant"]): c for c in checks}
     lines = []
     for r in timings:
         c = errs[r["matrix"], r["variant"]]
         vs_ref = ("" if c["err_ref"] is None
                   else f"; vs A@x {c['err_ref']:.3e}")
+        if variant(r["family"], r["variant"]).bitwise:
+            held = f"bitwise its plain version{vs_ref}"
+        else:
+            held = (f"max_abs_err={c['err']:.3e} (<= {c['tol']:g}*"
+                    f"{c['scale']:.3e}{vs_ref})")
+        lib = ("" if library is None else
+               f" cuSPARSE {library[r['matrix']] * 1e3:.3f} us")
         lines.append(
             f"{r['family']} {size} {r['matrix']:2s} {r['variant']:10s} "
             f"{r['ms'] * 1e3:9.3f} us/SpMV {r['gbps']:8.1f} GB/s "
             f"{r['share']:7.1%} of bound ({r['bound_ms'] * 1e3:.3f} us, "
-            f"{r['bound_by']}) {r['kind']} max_abs_err={c['err']:.3e} "
-            f"(<= {c['tol']:g}*{c['scale']:.3e}{vs_ref}) [{card_name}]")
+            f"{r['bound_by']}){lib} {r['kind']} {held} [{card_name}]")
     return lines
 
 
@@ -124,7 +156,7 @@ def main(family: str, variants, argv=None) -> int:
     for mat, M in mats.items():
         bound_ms, bound_by = spmv_bound(M, torch.float32)
         print(f"--- {family} {args.size} {mat}: {M.nrows}x{M.ncols}, "
-              f"{M.nnz} nnz, {threads_per_row(M.nnz, M.nrows)} threads/row, "
+              f"{M.nnz} nnz, {M.blocks.n_blocks} row blocks, "
               f"{spmv_bytes(M, torch.float32) / 1e6:.2f} MB, bound "
               f"{bound_ms * 1e3:.3f} us ({bound_by}) [{card_name}]",
               flush=True)

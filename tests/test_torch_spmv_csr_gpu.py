@@ -168,7 +168,8 @@ def _half_operands(M, MT, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
-@pytest.mark.parametrize("case", ["random", "skewed", "long_rows"])
+@pytest.mark.parametrize("case", ["random", "skewed", "long_rows",
+                                  "dense_row", "empty_rows"])
 def test_fused_halves_equal_store_plus_plain_ops(cuda, case, dtype):
     """spmv_x_half / spmv_y_half bitwise the kernel's store followed by the
     plain ops of solver/chunk.py (x_half_plain and y_half_plain on an LP

@@ -4,10 +4,13 @@ card, tests/test_torch_spmv_variants_gpu.py), the study path's helpers,
 and parity with the Pallas studies of benchmarks/ they replace.
 
 - Every variant's plain version against a loop-by-loop numpy reading of
-  its definition (the note of csrc/spmv_variants.cu), on the CSR cases of
-  the card's tests: empty rows, a row longer than 32 and than a warp run,
-  rows split across warp runs and segsum tiles, 2..32 threads per row,
-  several x windows.
+  its definition (the notes of csrc/spmv_csr.cu and csrc/spmv_variants.cu),
+  on the CSR cases of the card's tests: empty rows, a row longer than a
+  warp run and one longer than the row-block plan's window, rows split
+  across warp runs and segsum tiles, blocks of 256 rows, several x
+  windows.  The ablate and multi_acc families (and flush full) run on the
+  row-block plan: their definitions repeat the kernel's f32 arithmetic on
+  the plan, and their plain versions give the same bits.
 - The exact variants against scipy's A @ x.
 - The exact variants against the JAX study kernel they translate, run in
   interpret mode on LaneELL tiles of the same matrix: prof_lane_ablate
@@ -20,11 +23,13 @@ and parity with the Pallas studies of benchmarks/ they replace.
   into 128-row windows, clamped ranks within a tile) that have no meaning
   for a CSR matrix.
 
-Tolerance: max abs error <= 1e-5 * max(1, max|y|) (1e-4 for the two-term
-bf16 mm_precomp against A @ x): the sums run in other orders.
+Tolerance: bitwise for the variants on the row-block plan against their
+definitions; else max abs error <= 1e-5 * max(1, max|y|) (1e-4 for the
+two-term bf16 mm_precomp against A @ x): the sums run in other orders.
 """
 
 import ast
+import dataclasses
 import importlib
 import os
 
@@ -34,7 +39,8 @@ import scipy.sparse as sp
 import torch
 
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
-from hprlp_tpu_torch.ops.spmv import threads_per_row
+from hprlp_tpu_torch.ops.spmv import (CSR_BLOCK, csr_cap, csr_spmv_plain,
+                                      row_blocks)
 from hprlp_tpu_torch.ops.spmv_variants import (RANKS, RUN, SEG_STEP,
                                                SEG_SUB, SUB, TILE, VARIANTS,
                                                WINDOW, WRAPPERS, plain,
@@ -43,13 +49,16 @@ from hprlp_tpu_torch.ops.spmv_variants import (RANKS, RUN, SEG_STEP,
                                                segsum_subblocks, segsum_tiles,
                                                variant_spmv)
 from hprlp_tpu_torch.ops.tiles import build_tiles
-from hprlp_tpu_torch.prof import timing
+from hprlp_tpu_torch.prof import study, timing
 from test_torch_spmv_variants_gpu import CASES, FAMILY_VARIANTS
 
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXACT = [(f, v) for f, v in FAMILY_VARIANTS if VARIANTS[f][v].exact]
+# The variants that run on the CSR kernel's row-block plan.
+ON_PLAN = [(f, v) for f, v in FAMILY_VARIANTS
+           if f in ("ablate", "multi_acc") or (f, v) == ("flush", "full")]
 
 
 def _case(case):
@@ -76,14 +85,66 @@ def _bf16(v):
     return b.astype(np.uint32).view(np.float32)
 
 
+def _plan_definition(name, A, x, P):
+    """What a variant on the row-block plan P computes, in the kernel's f32
+    arithmetic and order, block by block and entry by entry (CSR A, f32
+    x): every term rounded; a short row summed from 0 in CSR order, entry
+    j into accumulator j % n_acc, the accumulators added pairwise; a long
+    row's block in CSR_BLOCK strided partials and a tree; no_flush's
+    thread t summing the entries of its 4-entry vectors (q - q0) % 256 ==
+    t and storing to row r0 + t."""
+    nrows, ncols = A.shape
+    indptr, idx = A.indptr, A.indices
+    vals = A.data.astype(np.float32)
+    mask = (1 << (max(ncols, 1).bit_length() - 1)) - 1
+    win = min(WINDOW, mask + 1)
+    nwin = max(ncols // win, 1)
+    n_acc = int(name.split("=")[1]) if name.startswith("n_acc=") else 1
+    row0, ent0 = P.row0.numpy(), P.ent0.numpy()
+    y = np.zeros(nrows, np.float32)
+    for b in range(len(row0) - 1):
+        r0, r1, e0, e1 = row0[b], row0[b + 1], ent0[b], ent0[b + 1]
+
+        def term(k):
+            c = idx[k]
+            if name == "dma_only":
+                return vals[k] + np.float32(c)
+            if name == "no_gather":
+                return vals[k] * x[k & mask]
+            if name == "one_gather":
+                return vals[k] * x[(b % nwin) * win + (c & (win - 1))]
+            return vals[k] * x[c]
+
+        if r1 - r0 == 1 and e1 - e0 > P.cap:
+            part = np.zeros(CSR_BLOCK, np.float32)
+            for k in range(e0, e1):
+                part[(k - e0) % CSR_BLOCK] += term(k)
+            w = CSR_BLOCK // 2
+            while w and name != "no_flush":
+                part[:w] = part[:w] + part[w:2 * w]
+                w //= 2
+            y[r0] = part[0]
+        elif name == "no_flush":
+            part = np.zeros(CSR_BLOCK, np.float32)
+            for k in range(e0, e1):
+                part[(k // 4 - e0 // 4) % CSR_BLOCK] += term(k)
+            y[r0:r1] = part[:r1 - r0]
+        else:
+            for r in range(r0, r1):
+                acc = np.zeros(n_acc, np.float32)
+                for k in range(indptr[r], indptr[r + 1]):
+                    acc[(k - indptr[r]) % n_acc] += term(k)
+                while len(acc) > 1:
+                    acc = acc[0::2] + acc[1::2]
+                y[r] = acc[0]
+    return y
+
+
 def _definition(family, name, A, x):
     """What the variant computes, entry by entry (CSR A, f32 x)."""
     nrows, ncols = A.shape
     indptr, idx = A.indptr, A.indices
     vals = A.data.astype(np.float32)
-    tpr = threads_per_row(A.nnz, nrows)
-    cols = 1 << (max(ncols, 1).bit_length() - 1)
-    win = min(WINDOW, cols)
     y = np.zeros(nrows)
     row_of = np.repeat(np.arange(nrows), np.diff(indptr))
     for r in range(nrows):
@@ -91,16 +152,7 @@ def _definition(family, name, A, x):
             c = idx[k]
             p = np.float32(vals[k] * x[c])
             target, add = r, float(p)
-            if name == "dma_only":
-                add = float(vals[k]) + c
-            elif name == "no_gather":
-                add = float(vals[k] * x[k & (cols - 1)])
-            elif name == "one_gather":
-                base = ((r >> 7) % max(ncols // win, 1)) * win
-                add = float(vals[k] * x[base + (c & (win - 1))])
-            elif name == "no_flush":
-                add = float(p) if (k - indptr[r]) % tpr == 0 else 0.0
-            elif name == "merge_all":
+            if name == "merge_all":
                 target = (k // RUN) % nrows
             elif family == "segsum" and name == "full":
                 add = float(p)  # hi + mid + lo, exact in three bf16 terms
@@ -131,7 +183,43 @@ def test_plain_variant_matches_its_definition(family, name, case):
     A, M, x = _case(case)
     y = plain(family, M, torch.as_tensor(x), name)
     assert y.dtype == torch.float32 and y.shape == (A.shape[0],)
-    _assert_close(y.numpy(), _definition(family, name, A, x), 1e-5)
+    if (family, name) in ON_PLAN:
+        np.testing.assert_array_equal(
+            y.numpy(), _plan_definition(name, A, x, row_blocks(M)))
+    else:
+        _assert_close(y.numpy(), _definition(family, name, A, x), 1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_full_variants_are_csr_spmv_plain(case):
+    """ablate full, multi_acc n_acc=1 and flush full are csr_spmv's launch:
+    their plain versions give csr_spmv_plain's bits; so does one on the
+    matrix's own plan, which the study matrices carry."""
+    _, M, x = _case(case)
+    x = torch.as_tensor(x)
+    y = csr_spmv_plain(M, x)
+    for family, name in (("ablate", "full"), ("multi_acc", "n_acc=1"),
+                         ("flush", "full")):
+        assert torch.equal(plain(family, M, x, name), y)
+    G = dataclasses.replace(M, blocks=row_blocks(M))
+    assert torch.equal(plain("ablate", G, x, "full"), y)
+
+
+def test_cases_reach_the_plans_edges():
+    """The cases hold a row longer than the f32 window (a block alone), a
+    block of 256 rows and runs of empty rows within blocks."""
+    edges = set()
+    for case in CASES:
+        A, M, _ = _case(case)
+        P = row_blocks(M)
+        rows = (P.row0[1:] - P.row0[:-1]).numpy()
+        ents = (P.ent0[1:] - P.ent0[:-1]).numpy()
+        edges |= {"long"} if ((rows == 1) & (ents > csr_cap(
+            torch.float32))).any() else set()
+        edges |= {"256"} if (rows == CSR_BLOCK).any() else set()
+        empty = np.diff(A.indptr) == 0
+        edges |= {"empty"} if (empty[1:] & empty[:-1]).any() else set()
+    assert edges == {"long", "256", "empty"}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -274,6 +362,29 @@ def test_spmv_byte_model_and_bound():
     assert timing.spmv_bytes(Shape, torch.float64) == 17_562_680
     ms, by = timing.spmv_bound(Shape, torch.float32)
     assert by == "bytes" and ms == pytest.approx(11_533_692 / 3.35e12 * 1e3)
+    # ablate dma_only reads no x: its bytes are the rest.
+    assert study.variant_bound("ablate", "full", Shape) == (11_533_692, ms,
+                                                            "bytes")
+    nbytes, ms, by = study.variant_bound("ablate", "dma_only", Shape)
+    assert nbytes == 11_533_692 - 131072 * 4 and by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
+def test_study_matrices_carry_the_plan_and_the_tiles():
+    """The studies' A and A^T are on the "gather" backend (the plan the CSR
+    kernel's variants need) and carry segsum full's tiles."""
+    from hprlp_tpu_torch.prof.problems import random_lp
+
+    mats = study.device_matrices(random_lp(300, 500, 4, seed=1),
+                                 device="cpu")
+    assert sorted(mats) == ["A", "AT"]
+    for M in mats.values():
+        assert M.blocks is not None and M.tiles is not None
+        assert M.blocks.cap == csr_cap(torch.float32)
+        assert torch.equal(M.blocks.row0, row_blocks(M).row0)
+        x = study.study_x(M)
+        assert torch.equal(variant_spmv("ablate", M, x, "full"),
+                           csr_spmv_plain(M, x))
 
 
 # ------------------------------------------------ parity with the JAX studies

@@ -1,10 +1,15 @@
-"""The SpMV variant-study kernels (csrc/spmv_variants.cu) on the card.
+"""The SpMV variant-study kernels on the card: the ablate and multi_acc
+families and flush full (csrc/spmv_csr.cu on the row-block plan), the
+run-based flush and segsum mm_* kernels (csrc/spmv_variants.cu) and
+segsum full (csrc/spmv_tiled.cu).
 
 Every family and variant against its plain version on the same card, at
 small shapes that reach each kernel's edges: empty rows (runs of more than
 32, and rows 16 or more past a segsum sub-block's first row), a row longer
-than a warp run, rows split across runs and tiles, the thread-per-row
-widths 2..32, and more than one 16384-entry x window.  One launch per call.
+than a warp run and one longer than the row-block plan's window of 2048
+entries, rows split across runs and tiles, blocks of 256 short rows, mean
+row lengths 1..30, and more than one 16384-entry x window.  One launch per
+call.
 
 Every test needs a CUDA device (the kernels have no CPU mode) and skips
 without one.  The file imports neither JAX nor the JAX package, so that it
@@ -12,11 +17,15 @@ runs on a machine that has only the port's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_spmv_variants_gpu.py
 
-Tolerance: max abs error <= the variant's tol (ops/spmv_variants.VARIANTS:
-1e-5, 1e-4 for segsum/mm_precomp) times max(1, max|y_plain|).  The sums
-run in another order than the plain version's, and the atomicAdd variants
-in an order that changes between runs: each row there sums at most
-2 + len/8 partials, whose rounding stays far inside that bound.
+Tolerance: a `bitwise` variant (ablate full, multi_acc, flush full: the
+plain version repeats the kernel's order of sums on the plan) equals its
+plain version bit for bit; every other variant is within its tol
+(ops/spmv_variants.VARIANTS: 1e-5, 1e-4 for segsum/mm_precomp) times
+max(1, max|y_plain|).  Their sums run in another order than the plain
+version's, and the atomicAdd variants in an order that changes between
+runs: each row there sums at most 2 + len/8 partials, whose rounding
+stays far inside that bound.  The exact variants are also held to A @ x
+at their tol.
 """
 
 import numpy as np
@@ -25,9 +34,11 @@ import scipy.sparse as sp
 import torch
 
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
-from hprlp_tpu_torch.ops.spmv import spmv_reference
+from hprlp_tpu_torch.ops.sparse import with_spmv_backend
+from hprlp_tpu_torch.ops.spmv import csr_spmv, csr_spmv_plain, spmv_reference
 from hprlp_tpu_torch.ops.spmv_variants import (VARIANTS, WRAPPERS, plain,
-                                               spmv_segsum)
+                                               spmv_ablate, spmv_flush,
+                                               spmv_multi_acc, spmv_segsum)
 
 pytestmark = pytest.mark.gpu
 
@@ -59,14 +70,31 @@ def _long_row():
     return A
 
 
+def _cap_row():
+    """One row of 3000 entries, more than the plan's window of 2048 (a
+    block of its own), among rows of 0..8 entries."""
+    rng = np.random.default_rng(8)
+    rows = np.concatenate([np.full(3000, 123), rng.integers(0, 400, 1600)])
+    cols = np.concatenate([rng.permutation(5000)[:3000],
+                           rng.integers(0, 5000, 1600)])
+    A = sp.coo_matrix((rng.normal(size=len(rows)), (rows, cols)),
+                      shape=(400, 5000))
+    A.sum_duplicates()
+    return A
+
+
 def _tiny():
     return sp.coo_matrix((np.array([1.0, 2.0, 3.0]),
                           (np.array([0, 0, 1]), np.array([0, 1, 0]))),
                          shape=(130, 130))
 
 
-# name -> COO matrix; mean row lengths 1.5..30 select 2..32 threads per row.
+# name -> COO matrix; mean row lengths 1..30 (the row-group design's 2..32
+# threads per row, whose names they keep); "block256": 1200 rows of ~1
+# entry, cut into blocks of 256 rows.
 CASES = {
+    "block256": lambda: _random(9, 1200, 1500, 1.0),
+    "cap_row": _cap_row,
     "tpr2": lambda: _random(1, 900, 1100, 1.5),
     "tpr8": lambda: _random(2, 700, 1000, 6),
     "tpr16": lambda: _random(3, 600, 1200, 12),
@@ -80,10 +108,13 @@ CASES = {
 FAMILY_VARIANTS = [(f, v) for f in VARIANTS for v in VARIANTS[f]]
 
 
-def case_matrix(case, device):
+def case_matrix(case, device, plan=True):
+    """The case on `device`, with the row-block plan attached (the "gather"
+    backend's layout) unless `plan` is False."""
     A = CASES[case]()
-    return csr_from_coo(A.row, A.col, A.data, A.shape[0], A.shape[1],
-                        torch.float32, device)
+    M = csr_from_coo(A.row, A.col, A.data, A.shape[0], A.shape[1],
+                     torch.float32, device)
+    return with_spmv_backend(M, "gather") if plan else M
 
 
 def case_x(M):
@@ -112,6 +143,8 @@ def test_variant_kernel_matches_plain(cuda, family, name, case):
     v = VARIANTS[family][name]
     y_plain = plain(family, M, x, name)
     scale = max(1.0, float(y_plain.abs().max()))
+    if v.bitwise:
+        assert torch.equal(y, y_plain)
     assert float((y - y_plain).abs().max()) <= v.tol * scale
     if v.exact:
         assert float((y - spmv_reference(M, x)).abs().max()) <= v.tol * scale
@@ -131,3 +164,38 @@ def test_variant_kernels_reject_bad_arguments(cuda):
         spmv_segsum(M, torch.ones(130, device=cuda), "mm_precomp",
                     rtiles=torch.zeros(2, 32, 2, dtype=torch.int32,
                                        device=cuda))
+
+
+PLAN_VARIANTS = [(f, v) for f, v in FAMILY_VARIANTS
+                 if f in ("ablate", "multi_acc") or (f, v) == ("flush",
+                                                           "full")]
+
+
+@pytest.mark.parametrize("family,name", PLAN_VARIANTS,
+                         ids=[f"{f}-{v}" for f, v in PLAN_VARIANTS])
+def test_plan_variants_refuse_a_matrix_without_its_plan(cuda, family, name):
+    """The CSR kernel's variants run on A's row-block plan and never build
+    it: without it they raise, launching nothing."""
+    M = case_matrix("tpr8", cuda, plan=False)
+    before = WRAPPERS[family].launches
+    with pytest.raises(ValueError, match="row-block plan"):
+        WRAPPERS[family](M, case_x(M), name)
+    assert WRAPPERS[family].launches == before
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_full_variants_are_csr_spmv(cuda, case):
+    """ablate full, multi_acc n_acc=1 and flush full are csr_spmv's launch:
+    the same bits as csr_spmv and its plain version on the plan, each
+    counted by its own wrapper and not by csr_spmv."""
+    M = case_matrix(case, cuda)
+    x = case_x(M)
+    y = csr_spmv(M, x)
+    before = csr_spmv.launches
+    ys = [spmv_ablate(M, x, "full"), spmv_multi_acc(M, x, "n_acc=1"),
+          spmv_flush(M, x, "full")]
+    torch.cuda.synchronize()
+    assert csr_spmv.launches == before
+    assert torch.equal(y, csr_spmv_plain(M, x))
+    for other in ys:
+        assert torch.equal(y, other)
