@@ -16,7 +16,7 @@ and no other SpMV kernel (the probes' launches are counted apart), on
 "gather" its fused halves too, and never the previous designs:
 
   1. toolchain   nvidia-smi name/power limit, torch, CUDA, nvcc, Triton
-  2. build       the six kernel libraries (nvcc, sm_90a, one process per
+  2. build       the five kernel libraries (nvcc, sm_90a, one process per
                  source, started together) and the host library (g++,
                  native/src), with their build times
   0. repairs     scale_matrix twice on the first LP's A and A^T (f32):
@@ -51,16 +51,19 @@ and no other SpMV kernel (the probes' launches are counted apart), on
   6. real size   solve of the second LP (10.5M nnz) at 1e-4, its peak
                  device memory and its chunk profiled, as in phase 4
   7. variants    the four prof_* studies (hprlp_tpu_torch/prof/) on the
-                 bench LP (A, A^T) and on phase 6's LP (A), on the
-                 "gather" backend's row-block plan: the ablate and
-                 multi_acc families and flush full are instantiations of
-                 the CSR kernel (csrc/spmv_csr.cu); ablate full, n_acc=1,
-                 2, 4 and flush full bitwise their plain versions, every
-                 other variant within its tolerance of its plain version,
-                 the exact ones within it of A @ x; each variant's time,
-                 share of bound and cuSPARSE beside it; segsum full
-                 (one-hot tensor-core row sums on the tiles) beside the
-                 tiled kernel on the same tiles
+                 bench LP (A, A^T) and on phase 6's LP (A): the ablate,
+                 multi_acc and flush families are instantiations of the
+                 CSR kernel (csrc/spmv_csr.cu) on the "gather" backend's
+                 row-block plan, the segsum family of the tiled kernel
+                 (csrc/spmv_tiled.cu, one-hot tensor-core row sums) on
+                 the tiles; ablate full, n_acc=1, 2, 4, flush full and
+                 runmerge bitwise their plain versions, every other
+                 variant within its tolerance of its plain version, the
+                 exact ones within it of A @ x; each variant's time by
+                 graph replay, launches, share of bound (mm_precomp's
+                 counting its R) and cuSPARSE beside it, its plain
+                 version's eager time at bench A; segsum beside the tiled
+                 kernel on the same tiles
   8. mps + presolve   structured_lp(scale=1.0, seed=7) (950,000 x
                  1,000,000, 10.50M nnz) written as MPS to a temporary
                  directory and solved by hprlp_tpu_torch.cli.main at 1e-4:
@@ -475,10 +478,10 @@ def build_kernels():
     Returns {source: (library, seconds, nvcc -Xptxas -v output)}, the host
     library under native.LIB_PATH."""
     from hprlp_tpu_torch import native
-    from hprlp_tpu_torch.ops import spmm, spmv, spmv_variants
+    from hprlp_tpu_torch.ops import spmm, spmv
 
     sources = (spmv.TILED_SOURCE, spmv.SOURCE, spmv.ROWGROUP_SOURCE,
-               spmv_variants.SOURCE, spmm.SOURCE, spmm.ROWWISE_SOURCE)
+               spmm.SOURCE, spmm.ROWWISE_SOURCE)
     logs = {src: [] for src in sources}
 
     def one(src):
@@ -705,13 +708,16 @@ def variants_phase(card, built, huge_problem):
                                       prof_kernel_variants, prof_lane_ablate,
                                       study)
 
-    lib, secs, log = built[sv.SOURCE]
-    phase(7, f"built {os.path.relpath(lib, HERE)} in {secs:.2f} s (flush's "
-             f"runmerge and merge_all, segsum's mm_*; the ablate and "
-             f"multi_acc families and flush full are csrc/spmv_csr.cu's, "
-             f"segsum full the tiled kernel's, built in phase 2)")
-    for line in ptxas_summary(log):
-        phase(7, f"ptxas {line}")
+    # The study instantiations of the two libraries built in phase 2: the
+    # tiled kernel's segsum (SEG 1-4), the CSR kernel's ablate (3-6) and
+    # flush (7, 8) epilogues and multi_acc (NACC 2, 4).
+    study_inst = re.compile(r"tiled_spmv_kernel<float, 1, [1-4]>|"
+                            r"csr_spmv_kernel<float, [3-8], [124]>")
+    for src in (spmv_mod.TILED_SOURCE, spmv_mod.SOURCE):
+        lines = ptxas_summary(built[src][2])
+        picked = [ln for ln in lines if study_inst.search(ln)] or lines
+        for line in picked:
+            phase(7, f"ptxas {os.path.basename(src)} {line}")
     sizes = {"bench": study.device_matrices(make_problem()),
              "huge": {"A": study.device_matrices(huge_problem)["A"]}}
     modules = (prof_lane_ablate, prof_dual_acc, prof_flush_variants,
@@ -733,6 +739,8 @@ def variants_phase(card, built, huge_problem):
     records, failed = [], []
     for m in modules:
         fam = m.FAMILY
+        src = os.path.relpath(spmv_mod.TILED_SOURCE if fam == "segsum"
+                              else spmv_mod.SOURCE, HERE)
         checks = []
         for size, mats in sizes.items():
             got = study.check(fam, mats, m.VARIANTS)
@@ -743,6 +751,10 @@ def variants_phase(card, built, huge_problem):
         failed += [f"{fam}/{c['size']}/{c['matrix']}/{c['variant']}"
                    for c in checks if not c["ok"]]
         check(launches[fam] > 0, f"phase 7: {fam} was never launched")
+        for (f, size), recs in timings.items():
+            for r in recs:
+                check(f != fam or r["launches"] > 0,
+                      f"phase 7: {fam}/{r['variant']} was never launched")
         head = HEADLINE[fam]
         M = sizes["bench"]["A"]
         x = study.study_x(M)
@@ -755,49 +767,54 @@ def variants_phase(card, built, huge_problem):
             errs = [c for c in checks if c["variant"] == name]
             shape = {f"{size}_{mat}": t[mat, name, size]
                      for size, mats in sizes.items() for mat in mats}
+            # The plain version reads counts on the host: timed eagerly.
+            plain_ms = eager_ms(lambda: sv.plain(fam, M, x, name), reps=3)
             variants[name] = {
-                "kind": v.kind, "bitwise": v.bitwise,
+                "source": src, "kind": v.kind, "bitwise": v.bitwise,
                 "bitwise_equal": all(c["bitwise"] for c in errs),
                 "ms": {k: r["ms"] for k, r in shape.items()},
                 "bound_ms": {k: r["bound_ms"] for k, r in shape.items()},
+                "launches": sum(r["launches"] for r in shape.values()),
+                "plain_ms_bench_A": plain_ms,
                 "max_abs_err": max(c["err"] for c in errs),
                 "tol_abs": min(c["tol"] * c["scale"] for c in errs)}
+            phase(7, f"{fam} {name}: {variants[name]['launches']} launches;"
+                     f" plain version (eager) at bench A {plain_ms:.3f} ms "
+                     f"[{card}]")
         extra = {"library_ms_shapes": {f"{size}_{mat}": ms
                                        for size, lib_ms in library.items()
                                        for mat, ms in lib_ms.items()}}
-        if fam == "flush":
-            extra["runs_source"] = os.path.relpath(sv.SOURCE, HERE)
         if fam == "segsum":
-            # full runs on the main path's tiles (csrc/spmv_tiled.cu,
-            # ONEHOT): beside it, the tiled kernel on the same tiles.
-            extra["mm_source"] = os.path.relpath(sv.SOURCE, HERE)
+            # The segsum family runs on the main path's tiles
+            # (csrc/spmv_tiled.cu, SEG): beside it, the tiled kernel on
+            # the same tiles.
             for size, mats in sizes.items():
                 for mat, Mt in mats.items():
                     xt = study.study_x(Mt)
                     t_ms = time_ms(lambda: spmv_mod.tiled_spmv(Mt.tiles, xt))
                     extra[f"tiled_ms_{size}_{mat}"] = t_ms
-                    seg = t[mat, head, size]["ms"]
-                    phase(7, f"segsum full {size} {mat}: {seg * 1e3:.3f} us"
-                             f" against the tiled kernel on the same tiles "
-                             f"{t_ms * 1e3:.3f} us and cuSPARSE "
-                             f"{library[size][mat] * 1e3:.3f} us [{card}]")
+                    seg = ", ".join(
+                        f"{name} {t[mat, name, size]['ms'] * 1e3:.3f}"
+                        for name in m.VARIANTS)
+                    phase(7, f"segsum {size} {mat} (us): {seg}; the tiled "
+                             f"kernel on the same tiles {t_ms * 1e3:.3f} us,"
+                             f" cuSPARSE {library[size][mat] * 1e3:.3f} us "
+                             f"[{card}]")
         records.append({
             "name": f"spmv_{fam}", "route": "cuda",
-            # The headline variant's kernel: the tiles' for segsum, the
-            # "gather" backend's CSR kernel for the other three.
-            "source": os.path.relpath(
-                spmv_mod.TILED_SOURCE if fam == "segsum" else spmv_mod.SOURCE,
-                HERE), **extra,
+            # Every variant's kernel: the tiles' for segsum, the "gather"
+            # backend's CSR kernel for the other three.
+            "source": src, **extra,
             "replaces": REPLACES[fam][0],
             "also_replaces": "spmv_loop " + REPLACES[fam][1]
                              + ", pallas_call " + REPLACES[fam][2],
             "launches": launches[fam], "headline_variant": head,
             "max_abs_err": variants[head]["max_abs_err"],
             "ms": bench_a["ms"],
-            # The headline variants' plain versions read counts on the host
-            # (csr_spmv_plain's row lengths, segsum's sub-blocks), so they
-            # are timed eagerly, not by graph replay.
-            "plain_ms": eager_ms(lambda: sv.plain(fam, M, x, head), reps=3),
+            # The plain versions read counts on the host (csr_spmv_plain's
+            # row lengths, segsum's sub-blocks), so they are timed eagerly,
+            # not by graph replay.
+            "plain_ms": variants[head]["plain_ms_bench_A"],
             "bound_ms": bench_a["bound_ms"], "bound_by": bench_a["bound_by"],
             "library_ms": library["bench"]["A"], "variants": variants})
     phase(7, "launches on the study path: " + ", ".join(

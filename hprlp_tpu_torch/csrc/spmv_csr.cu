@@ -60,10 +60,11 @@
 // solve's.  They ask of this design what the Pallas studies asked of the
 // TPU kernel: the ablate family replaces make_kernel/spmv_loop/pallas_call
 // of benchmarks/prof_lane_ablate.py:44/:90/:115, the multi_acc family
-// those of benchmarks/prof_dual_acc.py:32/:60/:87.  Each variant is its
+// those of benchmarks/prof_dual_acc.py:32/:60/:87, the flush family those
+// of benchmarks/prof_flush_variants.py:46/:97/:122.  Each variant is its
 // own instantiation; the solve's (kStore, kXHalf, kYHalf at NACC = 1) are
 // untouched by them.
-//   full        kStore, NACC = 1: csr_spmv's own launch
+//   full        kStore, NACC = 1: csr_spmv's own launch (ablate, flush)
 //   dma_only    the same 16-byte vector stream, staging and per-row sums,
 //               each product replaced by v + float(c), no x read: the
 //               streaming floor of this design
@@ -85,6 +86,25 @@
 //               what the serial chain of rounded adds costs.  Exact, in a
 //               fixed order (ops/spmv.py::plan_row_sums gives its bits).
 //               A long row keeps its strided partials and tree.
+//   runmerge    kRunMerge: the same stream and gathers, flushed at row ends
+//               with no staging and no per-row sum.  The block reads its
+//               row ends (indptr[r0 .. r1]) once into shared memory and
+//               marks where its rows start in a bitmap with a count per
+//               word, so a lane finds its entries' rows with two shared
+//               loads.  A warp's 32 vectors of an iteration (a segment of
+//               128 entries): each lane sums its 4 entries by row, a
+//               segmented warp scan joins them; a row that closes inside
+//               the segment is stored once, a row that crosses segments
+//               leaves its partials in shared memory and the block adds
+//               them left to right, without atomics.  Exact and
+//               deterministic; ops/spmv_variants.py::runmerge_plain
+//               repeats its order of sums.  A long row's block keeps the
+//               strided partials and tree.
+//   merge_all   kMergeAll: the same segments with no rows: one sum per
+//               segment, added with atomicAdd into row (q0 / 32 + s) mod
+//               nrows, q0 the block's first vector and s the segment
+//               (long rows' blocks too).  Wrong; the ceiling of any run
+//               merge (timing only).
 
 #include <cuda_runtime.h>
 
@@ -109,7 +129,8 @@ constexpr int kVec = 4;      // entries per vector load
 // that the reads of x are contiguous; phase 3 of chip_smoke.py times it
 // beside csr_spmv too.
 enum Epilogue : int { kStore = 0, kXHalf = 1, kYHalf = 2, kNoGather = 3,
-                      kDmaOnly = 4, kOneGather = 5, kNoFlush = 6 };
+                      kDmaOnly = 4, kOneGather = 5, kNoFlush = 6,
+                      kRunMerge = 7, kMergeAll = 8 };
 
 // kStore writes out = A X.  kXHalf, over A^T's rows with X = y: cur = x,
 // last = last_x, p0 = c, p1 = l, p2 = u, scal = sigma; it writes out = the
@@ -305,6 +326,237 @@ __device__ __forceinline__ void write_row(const Args& a, int row, T acc) {
   }
 }
 
+// The flush study's warp segments: a warp's 32 consecutive vectors (128
+// entries) of an iteration, numbered from the block's first vector.  A
+// block of short rows has at most kMaxSeg<T> of them and its entries from
+// the first vector span at most kWords<T> 32-bit words of a bitmap.
+constexpr int kSegVecs = 32;
+template <typename T>
+constexpr int kMaxSeg = (2 * kCap<T> / kVec + 2 + kSegVecs - 1) / kSegVecs;
+template <typename T>
+constexpr int kWords = (2 * kCap<T> + 2 * kVec + 31) / 32 + 1;
+
+// runmerge's shared memory, in the kernel's prod buffer: the block's row
+// ends (ends[i] = indptr[r0 + i]); a bitmap of where its non-empty rows
+// start (bit k - 4 q0), the row starts before each word, and the row of
+// each start (in order); per warp segment the partial of its first row
+// where that row started before it, and of its last row (and which row)
+// where that row goes on after it.
+template <typename T>
+struct Merge {
+  int* ends;       // n + 1 <= kBlock + 1
+  uint32_t* bits;  // kWords<T>
+  int* before;     // kWords<T>
+  int* row_of;     // kBlock: the i-th non-empty row
+  int* last_row;   // kMaxSeg<T>, -1 where the segment's last row ends in it
+  T* first_part;
+  T* last_part;
+};
+
+// runmerge: one warp segment's rows.  key[j]: entry j's row as its place
+// among the block's non-empty rows (-1 before the block's entries, n after
+// them; keys rise with the lane), p[j] its product (0 outside the block).
+// Each lane sums its last row's entries, a segmented inclusive scan over
+// the lanes joins the rows that span lanes (as spmv_tiled.cu's sum_step,
+// in as many steps as the longest run of lanes needs), and every row is
+// closed once at its last entry in the segment: stored where it lies
+// wholly in [lo, hi), else left in m for the block to finish.
+template <typename T, int E>
+__device__ __forceinline__ void merge_segment(const Args& a, const Merge<T>& m,
+                                              int r0, int n, int s,
+                                              int64_t lo, int64_t hi,
+                                              const int (&key)[kVec],
+                                              const T (&p)[kVec], int lane) {
+  constexpr unsigned kFull = 0xffffffffu;
+  auto close = [&](int o, T v) {
+    if (o < 0 || o >= n) return;
+    const int i = m.row_of[o];
+    if (m.ends[i] < lo) {
+      m.first_part[s] = v;
+    } else if (m.ends[i + 1] > hi) {
+      m.last_part[s] = v;
+      m.last_row[s] = i;
+    } else {
+      write_row<T, E>(a, r0 + i, v);
+    }
+  };
+  const int last = key[kVec - 1];
+  T acc = T(0);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    if (key[j] == last) acc = add_rn(acc, p[j]);
+  }
+  // h: the first lane whose last row is this lane's; cont: this lane's
+  // first row goes on from the lane to its left.
+  const int left_last = __shfl_up_sync(kFull, last, 1);
+  const unsigned heads = __ballot_sync(kFull, lane == 0 || left_last != last);
+  const unsigned conts = __ballot_sync(kFull, lane > 0 && left_last == key[0]);
+  const int h = 31 - __clz(heads & (kFull >> (31 - lane)));
+  const int longest = __reduce_max_sync(kFull, lane - h);
+  T S = acc;
+  for (int d = 1; d <= longest; d <<= 1) {
+    const T o = __shfl_up_sync(kFull, S, d);
+    if (lane - d >= h) S = add_rn(S, o);
+  }
+  const T left_s = __shfl_up_sync(kFull, S, 1);
+  T cur = (conts >> lane) & 1 ? left_s : T(0);
+#pragma unroll
+  for (int j = 0; j + 1 < kVec; ++j) {
+    cur = add_rn(cur, p[j]);
+    if (key[j] != key[j + 1]) {
+      close(key[j], cur);
+      cur = T(0);
+    }
+  }
+  if (lane == 31 || !((conts >> (lane + 1)) & 1)) close(last, S);
+}
+
+// The flush study's stream (kRunMerge, kMergeAll): the kernel's 16-byte
+// vectors, two in flight per thread, in warp segments; q0, q1: the
+// block's vectors.
+template <typename T, int E>
+__device__ __forceinline__ void merge_stream(const Args& a, T* prod, int r0,
+                                             int r1, int64_t e0, int64_t e1,
+                                             int64_t q0, int64_t q1) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = r1 - r0;
+  const T* __restrict__ vals = static_cast<const T*>(a.vals);
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+  const int nseg = static_cast<int>((q1 - q0 + kSegVecs - 1) / kSegVecs);
+  const int nwords = static_cast<int>((q1 - q0) * kVec + 31) / 32;
+  const int64_t ebase = q0 * kVec;
+  Merge<T> m;
+  m.ends = reinterpret_cast<int*>(prod);
+  m.bits = reinterpret_cast<uint32_t*>(m.ends + kBlock + 4);
+  m.before = reinterpret_cast<int*>(m.bits + kWords<T>);
+  m.row_of = m.before + kWords<T>;
+  m.last_row = m.row_of + kBlock;
+  m.first_part = reinterpret_cast<T*>(m.last_row + kMaxSeg<T>);
+  m.last_part = m.first_part + kMaxSeg<T>;
+  if constexpr (E == kRunMerge) {
+    for (int i = tid; i <= n; i += kBlock) m.ends[i] = a.indptr[r0 + i];
+    for (int i = tid; i < nwords; i += kBlock) m.bits[i] = 0;
+    for (int i = tid; i < nseg; i += kBlock) m.last_row[i] = -1;
+    __syncthreads();
+    for (int i = tid; i < n; i += kBlock) {
+      const int off = static_cast<int>(m.ends[i] - ebase);
+      if (m.ends[i] < m.ends[i + 1]) {
+        atomicOr(m.bits + (off >> 5), 1u << (off & 31));
+      } else {
+        write_row<T, E>(a, r0 + i, T(0));  // an empty row
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {  // row starts before each word: 5 words a lane
+      int c = 0;
+      for (int w = 5 * lane; w < 5 * lane + 5 && w < nwords; ++w) {
+        c += __popc(m.bits[w]);
+      }
+      int incl = c;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += o;
+      }
+      int run = incl - c;
+      for (int w = 5 * lane; w < 5 * lane + 5 && w < nwords; ++w) {
+        m.before[w] = run;
+        run += __popc(m.bits[w]);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < n; i += kBlock) {
+      if (m.ends[i] < m.ends[i + 1]) {
+        const int off = static_cast<int>(m.ends[i] - ebase);
+        m.row_of[m.before[off >> 5] +
+                 __popc(m.bits[off >> 5] & ((1u << (off & 31)) - 1))] = i;
+      }
+    }
+    __syncthreads();
+  }
+  // One warp segment: vector qh of this lane, its entries e and x values.
+  auto segment = [&](const Entries<T>& e, const T (&xv)[kVec], int64_t qh) {
+    const int s = static_cast<int>((qh - lane - q0) / kSegVecs);
+    if constexpr (E == kMergeAll) {
+      // One sum per segment, into row (q0 / 32 + s) mod nrows.
+      T v = T(0);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const int64_t k = qh * kVec + j;
+        if (k >= e0 && k < e1) v = add_rn(v, mul_rn(e.v[j], xv[j]));
+      }
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        v = add_rn(v, __shfl_xor_sync(kFull, v, d));
+      }
+      if (lane == 0) {
+        atomicAdd(static_cast<T*>(a.out) + (q0 / kSegVecs + s) % a.nrows, v);
+      }
+    } else {
+      // The row starts at or before each entry, from the bitmap.
+      int starts = 0;
+      uint32_t mine = 0;
+      if (qh < q1) {
+        const int off = static_cast<int>(qh * kVec - ebase);
+        const uint32_t word = m.bits[off >> 5];
+        starts = m.before[off >> 5] + __popc(word & ((1u << (off & 31)) - 1));
+        mine = word >> (off & 31);
+      }
+      int key[kVec];
+      T p[kVec];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const int64_t k = qh * kVec + j;
+        starts += (mine >> j) & 1;
+        p[j] = T(0);
+        if (k < e0) {
+          key[j] = -1;
+        } else if (k >= e1) {
+          key[j] = n;
+        } else {
+          key[j] = starts - 1;
+          p[j] = mul_rn(e.v[j], xv[j]);
+        }
+      }
+      const int64_t base = (q0 + static_cast<int64_t>(s) * kSegVecs) * kVec;
+      const int64_t lo = base > e0 ? base : e0;
+      const int64_t hi = base + kSegVecs * kVec < e1 ? base + kSegVecs * kVec
+                                                     : e1;
+      merge_segment<T, E>(a, m, r0, n, s, lo, hi, key, p, lane);
+    }
+  };
+  for (int64_t qb = q0 + kSegVecs * warp; qb < q1; qb += 2 * kBlock) {
+    const bool two = qb + kBlock < q1;  // warp-uniform
+    const int64_t q = qb + lane;
+    const Entries<T> ea = load_vec(vals, a.indices, q, a.nnz);
+    Entries<T> eb;
+    if (two) eb = load_vec(vals, a.indices, q + kBlock, a.nnz);
+    T xa[kVec], xb[kVec];
+    gather<T, E>(a, x, ea, q, 0, xa);
+    if (two) gather<T, E>(a, x, eb, q + kBlock, 0, xb);
+    segment(ea, xa, q);
+    if (two) segment(eb, xb, q + kBlock);
+  }
+  if constexpr (E == kRunMerge) {
+    // Rows that cross segments: their partials, left to right.
+    __syncthreads();
+    for (int s = tid; s < nseg; s += kBlock) {
+      const int i = m.last_row[s];
+      if (i < 0) continue;
+      const int64_t re = m.ends[i + 1];
+      T v = m.last_part[s];
+      for (int s2 = s + 1; s2 < nseg; ++s2) {
+        v = add_rn(v, m.first_part[s2]);
+        const int64_t hi2 = (q0 + static_cast<int64_t>(s2 + 1) * kSegVecs)
+                            * kVec;
+        if (re <= hi2) break;
+      }
+      write_row<T, E>(a, r0 + i, v);
+    }
+  }
+}
+
 template <typename T, int E, int NACC = 1>
 __global__ void __launch_bounds__(kBlock)
 csr_spmv_kernel(const Args a) {
@@ -319,7 +571,7 @@ csr_spmv_kernel(const Args a) {
   const T* __restrict__ x = static_cast<const T*>(a.x);
   const int base_x = E == kOneGather ? (b % a.nwin) * (a.wmask + 1) : 0;
 
-  if (r1 - r0 == 1 && e1 - e0 > kCap<T>) {
+  if (E != kMergeAll && r1 - r0 == 1 && e1 - e0 > kCap<T>) {
     // A long row: kBlock strided partials in entry order, then a tree.
     T acc = T(0);
     for (int64_t k = e0 + tid; k < e1; k += kBlock) {
@@ -344,6 +596,10 @@ csr_spmv_kernel(const Args a) {
   const int row = r0 + tid;
   const int64_t q0 = e0 / kVec;
   const int64_t q1 = (e1 + kVec - 1) / kVec;
+  if constexpr (E == kRunMerge || E == kMergeAll) {
+    merge_stream<T, E>(a, prod, r0, r1, e0, e1, q0, q1);
+    return;
+  }
   if constexpr (E == kNoFlush) {
     // The same stream and gathers, each thread's products summed where
     // they were loaded.
@@ -404,8 +660,8 @@ int launch(int epilogue, int nblocks, const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The variant studies' instantiations (f32): an ablate epilogue at NACC =
-// 1, or kStore at NACC = 1, 2 or 4.
+// The variant studies' instantiations (f32): an ablate or flush epilogue
+// at NACC = 1, or kStore at NACC = 1, 2 or 4.
 int launch_study(int variant, int n_acc, int nblocks, const Args& a,
                  cudaStream_t s) {
   if (n_acc != 1 && variant != kStore) {
@@ -419,6 +675,8 @@ int launch_study(int variant, int n_acc, int nblocks, const Args& a,
     case kDmaOnly * 8 + 1: csr_spmv_kernel<float, kDmaOnly><<<nblocks, kBlock, 0, s>>>(a); break;
     case kOneGather * 8 + 1: csr_spmv_kernel<float, kOneGather><<<nblocks, kBlock, 0, s>>>(a); break;
     case kNoFlush * 8 + 1: csr_spmv_kernel<float, kNoFlush><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kRunMerge * 8 + 1: csr_spmv_kernel<float, kRunMerge><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kMergeAll * 8 + 1: csr_spmv_kernel<float, kMergeAll><<<nblocks, kBlock, 0, s>>>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -495,7 +753,9 @@ int hprlp_csr_spmv(int is_f64, int epilogue, int nrows, int ncols,
 
 // One variant of the studies (f32), y = out: `variant` an epilogue of the
 // ablate family (0 full, 3 no_gather, 4 dma_only, 5 one_gather, 6
-// no_flush) with n_acc = 1, or 0 with n_acc = 1, 2 or 4 (multi_acc);
+// no_flush) or of the flush family (7 runmerge, 8 merge_all, which adds
+// into out: zero it first) with n_acc = 1, or 0 with n_acc = 1, 2 or 4
+// (multi_acc);
 // the plan's arguments as for hprlp_csr_spmv.  Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for a variant it does not
 // have.

@@ -47,24 +47,38 @@
 // shared memory; 1 stages each strip per block; 2, 4 and 8 share it across
 // a cluster of that many blocks by multicast.
 //
-// The segsum study (template ONEHOT, float and stage 1 only; launched by
-// ops/spmv_variants.py::spmv_segsum "full", never by a solve) replaces
-// prof_kernel_variants.py:39/:121 (pallas_call :152), which asks whether
-// a row sum done as a one-hot matrix product can replace the kernel's own
-// reduction.  It asks that of this layout: the same stream, strips and row
-// ownership, with the segmented warp scan replaced by tensor-core
-// products.  A warp step's 128 entries are 8 sub-blocks of 16 (lanes 4q ..
-// 4q + 3); an entry's rank is the number of distinct rows before it in
-// its sub-block (< 16: its rows are sorted), and one mma.sync m16n8k16
-// (bf16 in, f32 accumulate) per sub-block forms C = R P with R[r][k] =
-// [rank_k == r] (exact in bf16) and P's columns 0, 1, 2 the three bf16
-// terms hi, mid, lo of each product (hi + mid + lo is the f32 product
-// exactly).  Row r's sum is (C[r][0] + C[r][1]) + C[r][2], added once
-// into y in shared memory at the row its rank maps to.  Each lane stages
-// its entries' terms as B fragments, their ranks and the rows they start
-// in shared memory (18 KB a block), from which every sub-block's mma reads
-// its fragments; three shuffles a sub-block remain (the lo column, the
-// rank count).  No atomics, the order fixed by the layout.
+// The segsum study (template SEG, float and stage 1 only; launched by
+// ops/spmv_variants.py::spmv_segsum, never by a solve; SEG = 0 is the
+// solve's scan) replaces prof_kernel_variants.py:39/:121 (pallas_call
+// :152), which asks whether a row sum done as a one-hot matrix product can
+// replace the kernel's own reduction.  Every variant asks it of this
+// layout: the same stream, strips and row ownership, y in shared memory,
+// the segmented warp scan replaced by tensor-core products, no atomics.
+// A warp step's 128 entries are 8 sub-blocks of 16 (lanes 4q .. 4q + 3);
+// an entry's rank is the number of distinct rows before it in its
+// sub-block (< 16: its rows are sorted), and one mma.sync m16n8k16 (bf16
+// in, f32 accumulate) per sub-block forms C = R P with R[r][k] = [rank_k
+// == r] (exact in bf16) and P's columns the bf16 terms of each product.
+// Row r's sum is C's row r summed over the terms, added once into y in
+// shared memory at the row its rank maps to.  Each lane stages its
+// entries' terms as B fragments in shared memory, from which every
+// sub-block's mma reads them.
+//   1 full        three terms hi, mid, lo (hi + mid + lo is the f32
+//                 product exactly); ranks found by a scan over each
+//                 sub-block's 4 lanes and staged with the rows they start
+//                 (18 KB a block); (C[r][0] + C[r][1]) + C[r][2]
+//   2 mm_precomp  two terms hi + lo (~2^-16 relative); R built outside the
+//                 kernel (segsum_rtiles: each sub-block's 16 four-bit ranks
+//                 in A-fragment order, 8 B, and its rank-to-row table, 32
+//                 B, laid out by warp step), read by each lane straight
+//                 into its A fragment one step ahead: no rank scan, no
+//                 staged ranks or rows (8 KB a block)
+//   3 mm_hi1      one term hi, ranks as full's (lossy; timing only)
+//   4 mm_fused    one product per step: 16 mma.sync m16n8k8 (TF32 hi + lo
+//                 in B's columns 0, 1) into one accumulator, each entry's
+//                 rank its row less the step's first row, clamped to 15,
+//                 and one flush per step (wrong where a step spans more
+//                 than 16 rows; timing only)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -353,18 +367,78 @@ __device__ __forceinline__ void sum_step(const Step<T>& st, const T* xs,
   carry = __shfl_sync(kFull, S, 31);
 }
 
-// The segsum study's shared memory per warp: each sub-block's mma B
-// fragments (8 sub-blocks x 3 terms x 4 lanes of two bf16x2 registers),
-// its entries' ranks (8 x 4 lanes of four 4-bit ranks) and its rank-to-row
-// table (8 x 16 rows).
-constexpr int kSegFrags = 8 * 3 * 4;   // uint2 per warp
-constexpr int kSegRanks = 8 * 4;       // uint32 per warp
-constexpr int kSegRows = 8 * 16;       // uint16 per warp
-constexpr int kSegsumBytes = kWarps * (kSegFrags * 8 + kSegRanks * 4 +
-                                       kSegRows * 2);
+// The segsum study's variants (template SEG; see the note at the top).
+enum Seg : int { kScan = 0, kSegFull = 1, kSegPrecomp = 2, kSegHi1 = 3,
+                 kSegFused = 4 };
+
+// The bf16 terms a variant splits each product into (B's columns).
+template <int SEG>
+constexpr int kSegTerms = SEG == kSegFull ? 3 : SEG == kSegPrecomp ? 2 : 1;
+
+// Each warp's segsum staging in shared memory.  full, mm_precomp, mm_hi1:
+// each sub-block's mma B fragments (8 sub-blocks x terms x 4 lanes of two
+// bf16x2 registers); full and mm_hi1 also its entries' ranks (8 x 4 lanes
+// of four 4-bit ranks) and its rank-to-row table (8 x 16 rows).  mm_fused:
+// the step's 128 TF32 hi and lo terms and their clamped ranks (bytes).
+template <int SEG>
+constexpr int kSegWarpBytes =
+    SEG == kScan ? 0
+    : SEG == kSegFused ? 128 * 4 * 2 + 128
+    : 8 * kSegTerms<SEG> * 4 * 8 +
+          (SEG == kSegPrecomp ? 0 : 8 * 4 * 4 + 8 * 16 * 2);
+template <int SEG>
+constexpr int kSegsumBytes = kWarps * kSegWarpBytes<SEG>;
+
+// mm_precomp's R, built outside the kernel (ops/spmv_variants.py::
+// segsum_rtiles), by warp step, the steps numbered run by run (step0[run]:
+// a run's first step, indexed as runs).  ranks[step][t]: 16 bytes, the
+// 16-bit word t of each of the step's 8 sub-blocks (q = 0 .. 7), which
+// holds the ranks of the sub-block's entries 4t .. 4t + 3 (the mma's k =
+// 2t, 2t + 1, 2t + 8, 2t + 9), four bits each from the lowest; rows[step]
+// [g]: 32 bytes, for each sub-block q the rows (in the chunk) of ranks g
+// and g + 8, kSentinelRow where no entry has the rank.  So lane 4g + t
+// takes its fragment data in one 16-byte load, and lane 4g its rows in
+// two.
+struct SegTiles {
+  const uint4* ranks;
+  const uint4* rows;
+  const int* step0;
+};
+
+// One step's R for mm_precomp, as this lane needs it, and how many of the
+// step's sub-blocks hold entries.
+struct PreR {
+  uint4 rk;
+  uint4 row[2];
+  int nsub;
+};
+
+__device__ __forceinline__ PreR load_pre(const SegTiles& rt, int step,
+                                         int nsub, int lane) {
+  const int t = lane & 3, g = lane >> 2;
+  PreR r;
+  r.nsub = nsub;
+  r.rk = __ldg(rt.ranks + 4 * step + t);
+  r.row[0] = r.row[1] = make_uint4(0, 0, 0, 0);
+  if (t == 0) {
+    r.row[0] = __ldg(rt.rows + 2 * (8 * step + g));
+    r.row[1] = __ldg(rt.rows + 2 * (8 * step + g) + 1);
+  }
+  return r;
+}
+
+// Component i of v.
+__device__ __forceinline__ uint32_t lane_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
 
 __device__ __forceinline__ uint32_t bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// TF32 rounding of v (to nearest, ties away from zero), in f32 layout.
+__device__ __forceinline__ uint32_t tf32_bits(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }
 
 // C += A B for A 16x16 (row), B 16x8 (col), bf16 in, f32 accumulate.
@@ -383,70 +457,98 @@ __device__ __forceinline__ void mma_bf16_k16(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// This warp's segsum staging (see kSegsumBytes).
-struct SegStage {
-  uint2* frags;
-  uint32_t* ranks;
-  uint16_t* rows;
-};
+// C += A B for A 16x8 (row), B 8x8 (col), TF32 in, f32 accumulate.  Lane
+// 4g + t: a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b = B[t][g],
+// B[t+4][g]; c as for mma_bf16_k16.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
-// Sum one step into ys by one-hot tensor-core products (the segsum study;
-// see the note at the top).  Lane 4q + t holds entries 4t .. 4t + 3 of
-// sub-block q, which are the mma's k = 2t, 2t + 1, 2t + 8, 2t + 9: it
-// stages their three bf16 terms as the B fragments of columns 0, 1, 2,
-// their ranks, and the rows its rank starts; then every sub-block's
-// product reads its fragments back.
+// Sum one step into ys by one-hot bf16 tensor-core products: full,
+// mm_precomp or mm_hi1 (see the note at the top).  Lane 4q + t holds
+// entries 4t .. 4t + 3 of sub-block q, which are the mma's k = 2t, 2t + 1,
+// 2t + 8, 2t + 9: it stages their bf16 terms as the B fragments of columns
+// 0 .. NT - 1, and (full, mm_hi1) their ranks and the rows its ranks
+// start; mm_precomp takes both from `pre`, the step's R loaded ahead.
+// Then every sub-block's product reads its fragments back.
+template <int SEG>
 __device__ __forceinline__ void onehot_step(const Step<float>& st,
                                             const float* xs, float* ys,
-                                            const SegStage& seg, int lane) {
+                                            unsigned char* stage,
+                                            const PreR& pre, int lane) {
   constexpr unsigned kFull = 0xffffffffu;
   constexpr uint32_t kOne = 0x3f80u;  // 1.0 in bf16
+  constexpr int NT = kSegTerms<SEG>;
   const int t = lane & 3, q_own = lane >> 2;
   const uint32_t g = static_cast<uint32_t>(lane >> 2);
-  uint32_t r[4], term[3][4];
+  uint2* frags = reinterpret_cast<uint2*>(stage);
+  uint32_t* ranks = reinterpret_cast<uint32_t*>(stage + 8 * NT * 4 * 8);
+  uint16_t* rows = reinterpret_cast<uint16_t*>(stage + 8 * NT * 4 * 8 +
+                                               8 * 4 * 4);
+  uint32_t r[4], term[NT][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     r[j] = st.k[j] >> 16;
-    // The exact three-term split: hi + mid + lo is the f32 product.
+    // hi, then (full, mm_precomp) the bf16 of the rest, then (full) the
+    // bf16 of what is left: hi + mid + lo is the f32 product exactly.
     const float p = __fmul_rn(st.v[j], xs[st.k[j] & 0xFFFFu]);
     term[0][j] = bf16_bits(p);
-    const float r1 = __fadd_rn(p, -__uint_as_float(term[0][j] << 16));
-    term[1][j] = bf16_bits(r1);
-    term[2][j] = bf16_bits(__fadd_rn(r1, -__uint_as_float(term[1][j] << 16)));
+    if constexpr (NT >= 2) {
+      const float r1 = __fadd_rn(p, -__uint_as_float(term[0][j] << 16));
+      term[1][j] = bf16_bits(r1);
+      if constexpr (NT == 3) {
+        term[2][j] =
+            bf16_bits(__fadd_rn(r1, -__uint_as_float(term[1][j] << 16)));
+      }
+    }
   }
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    seg.frags[(q_own * 3 + c) * 4 + t] =
+  for (int c = 0; c < NT; ++c) {
+    frags[(q_own * NT + c) * 4 + t] =
         make_uint2(term[c][0] | (term[c][1] << 16),
                    term[c][2] | (term[c][3] << 16));
   }
-  // Ranks within the sub-block of lanes 4q .. 4q + 3 (rows are sorted).
-  const uint32_t left = __shfl_up_sync(kFull, r[3], 1, 4);
-  int cnt[4];
-  cnt[0] = t > 0 && r[0] != left;
+  int nranks = 0;
+  if constexpr (SEG != kSegPrecomp) {
+    // Ranks within the sub-block of lanes 4q .. 4q + 3 (rows are sorted).
+    const uint32_t left = __shfl_up_sync(kFull, r[3], 1, 4);
+    int cnt[4];
+    cnt[0] = t > 0 && r[0] != left;
 #pragma unroll
-  for (int j = 1; j < 4; ++j) cnt[j] = cnt[j - 1] + (r[j] != r[j - 1]);
-  int incl = cnt[3];
+    for (int j = 1; j < 4; ++j) cnt[j] = cnt[j - 1] + (r[j] != r[j - 1]);
+    int incl = cnt[3];
 #pragma unroll
-  for (int d = 1; d < 4; d <<= 1) {
-    const int o = __shfl_up_sync(kFull, incl, d, 4);
-    if (t >= d) incl += o;
+    for (int d = 1; d < 4; d <<= 1) {
+      const int o = __shfl_up_sync(kFull, incl, d, 4);
+      if (t >= d) incl += o;
+    }
+    const int off = incl - cnt[3];
+    uint32_t rank4 = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int rk = off + cnt[j];
+      rank4 |= static_cast<uint32_t>(rk) << (4 * j);
+      const bool start = j == 0 ? (t == 0 || r[0] != left) : r[j] != r[j - 1];
+      if (start) rows[q_own * 16 + rk] = static_cast<uint16_t>(r[j]);
+    }
+    ranks[q_own * 4 + t] = rank4;
+    nranks = __shfl_sync(kFull, incl, lane | 3) + 1;
   }
-  const int off = incl - cnt[3];
-  uint32_t rank4 = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int rk = off + cnt[j];
-    rank4 |= static_cast<uint32_t>(rk) << (4 * j);
-    const bool start = j == 0 ? (t == 0 || r[0] != left) : r[j] != r[j - 1];
-    if (start) seg.rows[q_own * 16 + rk] = static_cast<uint16_t>(r[j]);
-  }
-  seg.ranks[q_own * 4 + t] = rank4;
-  const int nranks = __shfl_sync(kFull, incl, lane | 3) + 1;
   __syncwarp();
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
-    const uint32_t rk = seg.ranks[q * 4 + t];
+    if (SEG == kSegPrecomp && q >= pre.nsub) break;  // warp-uniform
+    const uint32_t rk =
+        SEG == kSegPrecomp
+            ? (lane_of(pre.rk, q / 2) >> (16 * (q % 2))) & 0xFFFFu
+            : ranks[q * 4 + t];
     uint32_t a[4];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // h = 0: entries 2t, 2t+1; 1: 2t+8, 2t+9
@@ -455,38 +557,106 @@ __device__ __forceinline__ void onehot_step(const Step<float>& st,
       a[2 * h + 1] = (k0 == g + 8 ? kOne : 0u) |
                      ((k1 == g + 8 ? kOne : 0u) << 16);
     }
-    const uint2 b = g < 3 ? seg.frags[(q * 3 + g) * 4 + t] : make_uint2(0, 0);
+    const uint2 b = g < NT ? frags[(q * NT + g) * 4 + t] : make_uint2(0, 0);
     float c[4] = {0.f, 0.f, 0.f, 0.f};
     // a[0], a[1]: rows g, g + 8 at entries 2t, 2t + 1; a[2], a[3]: the
     // same rows at entries 2t + 8, 2t + 9 (the fragment order above).
     mma_bf16_k16(c, a[0], a[1], a[2], a[3], b.x, b.y);
-    // Lane 4g holds columns 0 and 1 (hi, mid) of ranks g and g + 8; lane
-    // 4g + 1 holds column 2 (lo).
-    const float lo0 = __shfl_down_sync(kFull, c[0], 1);
-    const float lo2 = __shfl_down_sync(kFull, c[2], 1);
-    const int nq = __shfl_sync(kFull, nranks, 4 * q);
-    if (t == 0) {
-      if (static_cast<int>(g) < nq) {
-        add_row(ys, seg.rows[q * 16 + g],
-                __fadd_rn(__fadd_rn(c[0], c[1]), lo0));
+    // Lane 4g holds columns 0 and 1 of ranks g and g + 8; lane 4g + 1
+    // holds column 2 (full's lo).
+    float s0 = c[0], s8 = c[2];
+    if constexpr (NT == 3) {
+      const float lo0 = __shfl_down_sync(kFull, c[0], 1);
+      const float lo2 = __shfl_down_sync(kFull, c[2], 1);
+      s0 = __fadd_rn(__fadd_rn(c[0], c[1]), lo0);
+      s8 = __fadd_rn(__fadd_rn(c[2], c[3]), lo2);
+    } else if constexpr (NT == 2) {
+      s0 = __fadd_rn(c[0], c[1]);
+      s8 = __fadd_rn(c[2], c[3]);
+    }
+    if constexpr (SEG == kSegPrecomp) {
+      // Ranks no entry has map to the padding row, which add_row skips.
+      if (t == 0) {
+        const uint32_t rows2 = lane_of(pre.row[q / 4], q % 4);
+        add_row(ys, rows2 & 0xFFFFu, s0);
+        add_row(ys, rows2 >> 16, s8);
       }
-      if (static_cast<int>(g) + 8 < nq) {
-        add_row(ys, seg.rows[q * 16 + g + 8],
-                __fadd_rn(__fadd_rn(c[2], c[3]), lo2));
+    } else {
+      const int nq = __shfl_sync(kFull, nranks, 4 * q);
+      if (t == 0) {
+        if (static_cast<int>(g) < nq) add_row(ys, rows[q * 16 + g], s0);
+        if (static_cast<int>(g) + 8 < nq) add_row(ys, rows[q * 16 + g + 8], s8);
       }
     }
     __syncwarp();  // a row in the next sub-block adds after this one
   }
 }
 
-template <typename T, int CLUSTER, bool ONEHOT = false>
+// mm_fused: one product for the whole step (128 entries, 16 m16n8k8 TF32
+// products into one accumulator), each entry's rank its row less the
+// step's first row, clamped to 15, and the products as TF32 hi + lo (B's
+// columns 0, 1).  Entry 8j + k of the step (lane 2j + k / 4, entry k % 4)
+// is k-block j's k.  One flush per step, into the step's first row plus
+// each rank up to its last row: an entry more than 15 rows past the first
+// goes to row first + 15 (wrong; timing only), a row this warp owns.
+__device__ __forceinline__ void fused_step(const Step<float>& st,
+                                           const float* xs, float* ys,
+                                           unsigned char* stage, int lane) {
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr uint32_t kOne = 0x3f800000u;  // 1.0, exact in TF32
+  uint32_t* hi = reinterpret_cast<uint32_t*>(stage);
+  uint32_t* lo = hi + 128;
+  uint8_t* rank = reinterpret_cast<uint8_t*>(lo + 128);
+  const int t = lane & 3;
+  const uint32_t g = static_cast<uint32_t>(lane >> 2);
+  const uint32_t first = __shfl_sync(kFull, st.k[0] >> 16, 0);
+  int last = -1;  // this lane's last real row
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t row = st.k[j] >> 16;
+    const float p = __fmul_rn(st.v[j], xs[st.k[j] & 0xFFFFu]);
+    const uint32_t h = tf32_bits(p);
+    hi[4 * lane + j] = h;
+    lo[4 * lane + j] = tf32_bits(__fadd_rn(p, -__uint_as_float(h)));
+    rank[4 * lane + j] = static_cast<uint8_t>(min(row - first, 15u));
+    if (row != kSentinelRow) last = static_cast<int>(row);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    last = max(last, __shfl_xor_sync(kFull, last, d));
+  }
+  __syncwarp();
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int e0 = 8 * j + t, e1 = e0 + 4;
+    const uint32_t r0 = rank[e0], r1 = rank[e1];
+    const uint32_t b0 = g == 0 ? hi[e0] : g == 1 ? lo[e0] : 0u;
+    const uint32_t b1 = g == 0 ? hi[e1] : g == 1 ? lo[e1] : 0u;
+    mma_tf32(c, r0 == g ? kOne : 0u, r0 == g + 8 ? kOne : 0u,
+             r1 == g ? kOne : 0u, r1 == g + 8 ? kOne : 0u, b0, b1);
+  }
+  if (t == 0 && last >= 0) {
+    const int top = min(last - static_cast<int>(first), 15);
+    if (static_cast<int>(g) <= top) {
+      add_row(ys, first + g, __fadd_rn(c[0], c[1]));
+    }
+    if (static_cast<int>(g) + 8 <= top) {
+      add_row(ys, first + g + 8, __fadd_rn(c[2], c[3]));
+    }
+  }
+  __syncwarp();  // the staging is the next step's
+}
+
+template <typename T, int CLUSTER, int SEG = kScan>
 __global__ void __launch_bounds__(kThreads, 1)
 tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
                   int max_rows, const T* __restrict__ vals,
                   const uint32_t* __restrict__ keys,
                   const int* __restrict__ runs,
                   const int* __restrict__ row_start,
-                  const T* __restrict__ x, T* __restrict__ out) {
+                  const T* __restrict__ x, T* __restrict__ out,
+                  const SegTiles rt) {
   constexpr bool kStaged = CLUSTER > 0;
   // Shared memory: nbuf x strips of W entries, y of the largest chunk
   // (rounded up to 16 bytes), two mbarriers -- the same offsets in every
@@ -509,14 +679,9 @@ tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
   uint64_t* bar = reinterpret_cast<uint64_t*>(
       reinterpret_cast<unsigned char*>(ys) +
       ((static_cast<int64_t>(max_rows) * sizeof(T) + 15) & ~int64_t(15)));
-  unsigned char* seg_base = reinterpret_cast<unsigned char*>(bar + 2);
-  const SegStage seg{
-      reinterpret_cast<uint2*>(seg_base) + warp * kSegFrags,
-      reinterpret_cast<uint32_t*>(seg_base + kWarps * kSegFrags * 8) +
-          warp * kSegRanks,
-      reinterpret_cast<uint16_t*>(seg_base + kWarps * (kSegFrags * 8 +
-                                                       kSegRanks * 4)) +
-          warp * kSegRows};
+  // This warp's segsum staging, after the mbarriers.
+  unsigned char* stage = reinterpret_cast<unsigned char*>(bar + 2) +
+                         warp * kSegWarpBytes<SEG>;
 
   for (int i = tid; i < nrows_b; i += kThreads) ys[i] = T(0);
   if constexpr (kStaged) {
@@ -536,13 +701,17 @@ tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
   }
 
   // This warp's runs, strip by strip, are one contiguous stream.
-  const int* my_runs = runs + (static_cast<int64_t>(b) * kWarps + warp) * Kg;
+  const int64_t my_run0 = (static_cast<int64_t>(b) * kWarps + warp) * Kg;
+  const int* my_runs = runs + my_run0;
   Cursor next{0, static_cast<uint32_t>(my_runs[0]),
               static_cast<uint32_t>(my_runs[1])};
   settle(next, my_runs, Kg);
   Slot<T> ring[kDepth];
 #pragma unroll
   for (int i = 0; i < kDepth; ++i) ring[i] = next_slot(next, vals, keys, my_runs, Kg, lane);
+  // mm_precomp: this step's R and the next step's, loaded ahead.
+  PreR cur{}, next_pre{};
+  bool have_next = false;
 
   for (int l = 0; l < nstrips; ++l) {
     const int s = s0 + l;
@@ -564,15 +733,42 @@ tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
     const T* xg = x + static_cast<int64_t>(s) * W;
     uint32_t carry_row = kSentinelRow;
     T carry = T(0);
+    // mm_precomp: the step's number and the run's entries left from the
+    // step on.
+    int step = 0, left = 0;
+    if constexpr (SEG == kSegPrecomp) {
+      step = __ldg(rt.step0 + my_run0 + l);
+      left = my_runs[l + 1] - my_runs[l];
+    }
     while (ring[0].s == l) {
       const Step<T> st = ring[0].st;
 #pragma unroll
       for (int i = 0; i + 1 < kDepth; ++i) ring[i] = ring[i + 1];
       ring[kDepth - 1] = next_slot(next, vals, keys, my_runs, Kg, lane);
-      if constexpr (ONEHOT) {
-        onehot_step(st, xbuf, ys, seg, lane);
-      } else {
+      if constexpr (SEG == kScan) {
         sum_step<T, CLUSTER>(st, xbuf, xg, ys, carry_row, carry, lane);
+      } else if constexpr (SEG == kSegFused) {
+        fused_step(st, xbuf, ys, stage, lane);
+      } else {
+        if constexpr (SEG == kSegPrecomp) {
+          // This step's R (loaded one step ahead where it could be), and
+          // the next step's: in this run, else the next strip's.
+          cur = have_next ? next_pre
+                          : load_pre(rt, step, min(8, (left + 15) / 16), lane);
+          have_next = true;
+          if (left > 128) {
+            next_pre = load_pre(rt, step + 1, min(8, (left - 113) / 16), lane);
+          } else if (l + 1 < nstrips && my_runs[l + 2] > my_runs[l + 1]) {
+            next_pre = load_pre(rt, __ldg(rt.step0 + my_run0 + l + 1),
+                                min(8, (my_runs[l + 2] - my_runs[l + 1] + 15)
+                                           / 16), lane);
+          } else {
+            have_next = false;
+          }
+        }
+        onehot_step<SEG>(st, xbuf, ys, stage, cur, lane);
+        ++step;
+        left -= 128;
       }
     }
     if (lane == 0) add_row(ys, carry_row, carry);
@@ -633,12 +829,13 @@ struct Args {
   int nrows, ncols, W, K, G, Kg, C, max_rows;
   const void *vals, *keys, *runs, *row_start, *x;
   void *part, *y;
+  SegTiles rt;  // mm_precomp's R; null pointers for every other launch
 };
 
-template <typename T, int CLUSTER, bool ONEHOT = false>
+template <typename T, int CLUSTER, int SEG = kScan>
 int launch_stage(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(CLUSTER, a.W, a.Kg, a.max_rows) +
-                      (ONEHOT ? kSegsumBytes : 0);
+                      kSegsumBytes<SEG>;
   const int nblocks = a.G * a.C;
   if (smem > static_cast<size_t>(kMaxSmem) ||
       a.C % (CLUSTER > 1 ? CLUSTER : 1) || (a.G > 1 && !a.part)) {
@@ -649,10 +846,11 @@ int launch_stage(const Args& a, cudaStream_t stream) {
                                                     &attr);
   T* out = static_cast<T*>(a.G > 1 ? a.part : a.y);
   cudaError_t err = cudaLaunchKernelEx(
-      &cfg, tiled_spmv_kernel<T, CLUSTER, ONEHOT>, a.nrows, a.ncols, a.W, a.K, a.Kg,
-      a.C, a.max_rows, static_cast<const T*>(a.vals),
+      &cfg, tiled_spmv_kernel<T, CLUSTER, SEG>, a.nrows, a.ncols, a.W, a.K,
+      a.Kg, a.C, a.max_rows, static_cast<const T*>(a.vals),
       static_cast<const uint32_t*>(a.keys), static_cast<const int*>(a.runs),
-      static_cast<const int*>(a.row_start), static_cast<const T*>(a.x), out);
+      static_cast<const int*>(a.row_start), static_cast<const T*>(a.x), out,
+      a.rt);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err == cudaSuccess && a.G > 1) {
     const int grid = static_cast<int>(
@@ -711,7 +909,10 @@ int set_max_smem() {
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 2>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 4>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 8>),
-      reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, true>)};
+      reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, kSegFull>),
+      reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, kSegPrecomp>),
+      reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, kSegHi1>),
+      reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, kSegFused>)};
   for (const void* fn : fns) {
     const cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
@@ -741,23 +942,44 @@ int hprlp_tiled_spmv(int f64, int cluster, int nrows, int ncols, int W,
                      const void* row_start, const void* x, void* part,
                      void* y, void* stream) {
   const Args a{nrows, ncols, W, K, G, Kg, C, max_rows, vals, keys, runs,
-               row_start, x, part, y};
+               row_start, x, part, y, {}};
   return f64 ? launch<double>(cluster, a, stream)
              : launch<float>(cluster, a, stream);
 }
 
-// The segsum study (float, strips staged per block, one-hot tensor-core
-// row sums); the arguments as for hprlp_tiled_spmv.  Its shared memory
-// is the stage's plus kSegsumBytes.
-int hprlp_tiled_segsum(int nrows, int ncols, int W, int K, int G, int Kg,
-                       int C, int max_rows, const void* vals,
+// One variant of the segsum study (float, strips staged per block):
+// `variant` 1 full, 2 mm_precomp, 3 mm_hi1, 4 mm_fused; the arguments as
+// for hprlp_tiled_spmv, and for mm_precomp R's ranks, rows and step0 (see
+// SegTiles; null for the others; ranks and rows 16-byte aligned).  Its shared memory is the stage's plus
+// kSegsumBytes<variant>.  Returns cudaErrorInvalidValue for a variant it
+// does not have, or mm_precomp without R.
+int hprlp_tiled_segsum(int variant, int nrows, int ncols, int W, int K,
+                       int G, int Kg, int C, int max_rows, const void* vals,
                        const void* keys, const void* runs,
-                       const void* row_start, const void* x, void* part,
-                       void* y, void* stream) {
+                       const void* row_start, const void* x,
+                       const void* rt_ranks, const void* rt_rows,
+                       const void* rt_step0, void* part, void* y,
+                       void* stream) {
   const Args a{nrows, ncols, W, K, G, Kg, C, max_rows, vals, keys, runs,
-               row_start, x, part, y};
+               row_start, x, part, y,
+               {static_cast<const uint4*>(rt_ranks),
+                static_cast<const uint4*>(rt_rows),
+                static_cast<const int*>(rt_step0)}};
+  if (variant == kSegPrecomp &&
+      (!a.rt.ranks || !a.rt.rows || !a.rt.step0 ||
+       (reinterpret_cast<uintptr_t>(rt_ranks) |
+        reinterpret_cast<uintptr_t>(rt_rows)) % 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (a.G * a.C <= 0) return 0;
-  return launch_stage<float, 1, true>(a, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case kSegFull: return launch_stage<float, 1, kSegFull>(a, s);
+    case kSegPrecomp: return launch_stage<float, 1, kSegPrecomp>(a, s);
+    case kSegHi1: return launch_stage<float, 1, kSegHi1>(a, s);
+    case kSegFused: return launch_stage<float, 1, kSegFused>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // How many clusters of a stage can be resident at once at the given

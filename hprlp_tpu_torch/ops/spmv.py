@@ -17,14 +17,13 @@ PyTorch on the plan, and `spmv_reference` is the contract (any order).
 `csr_spmv_rowgroup` launches the previous design, `csrc/spmv.cu` (a group of
 threads per row), kept to be timed: no solve launches it.  `csr_study`
 launches the same kernel's variant-study instantiations (ops/
-spmv_variants.py's ablate and multi_acc families), and `plan_row_sums`
-gives their per-row sums in plain PyTorch.
+spmv_variants.py's ablate, multi_acc and flush families), and
+`plan_row_sums` gives the per-row sums of most of them in plain PyTorch.
 
 Each library is compiled with nvcc on first use into `_build/` next to
 this package (one file per source hash) and loaded with ctypes; nothing is
 built or imported from a GPU toolchain when this module is imported.
-`build` takes any source of the package's `csrc/`, so the variant-study
-kernels (ops/spmv_variants.py) build by the same rule.
+`build` takes any source of the package's `csrc/`.
 """
 
 from __future__ import annotations
@@ -55,8 +54,9 @@ CSR_BLOCK = 256  # threads per block (csrc/spmv_csr.cu kBlock)
 CSR_CAP_BYTES = 8192  # values per window of a row block (kCap<T>), in bytes
 CSR_VEC = 4  # entries per vector load (csrc/spmv_csr.cu kVec)
 # csrc/spmv_csr.cu's epilogues: y = A x, a fused half, or one of the
-# ablate study's measurements.
-STORE, X_HALF, Y_HALF, NO_GATHER, DMA_ONLY, ONE_GATHER, NO_FLUSH = range(7)
+# ablate or flush study's measurements.
+(STORE, X_HALF, Y_HALF, NO_GATHER, DMA_ONLY, ONE_GATHER, NO_FLUSH,
+ RUN_MERGE, MERGE_ALL) = range(9)
 
 
 def _nvcc() -> str:
@@ -293,7 +293,8 @@ def _raise_on(lib, err: int, what: str) -> None:
 def csr_study(variant: int, n_acc: int, A, x: torch.Tensor) -> torch.Tensor:
     """y of one variant-study instantiation of csrc/spmv_csr.cu (f32) on
     A's row-block plan: `variant` an epilogue (STORE, NO_GATHER, DMA_ONLY,
-    ONE_GATHER, NO_FLUSH) with n_acc 1, or STORE with n_acc 1, 2 or 4.
+    ONE_GATHER, NO_FLUSH, RUN_MERGE, MERGE_ALL) with n_acc 1, or STORE
+    with n_acc 1, 2 or 4.
     Checks A, x and the plan as csr_spmv does; f32 only.  Uncounted: the
     study wrappers of ops/spmv_variants.py count their own launches.
     Raises on a bad argument or a refused launch."""
@@ -301,7 +302,9 @@ def csr_study(variant: int, n_acc: int, A, x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32:
         raise TypeError(f"the variant studies are f32 only, got {x.dtype}")
     check_blocks(A, x)
-    y = torch.empty(A.nrows, dtype=x.dtype, device=x.device)
+    # merge_all adds into y with atomics; every other variant stores it.
+    y = (torch.zeros if variant == MERGE_ALL else torch.empty)(
+        A.nrows, dtype=x.dtype, device=x.device)
     lib = _library()
     P = A.blocks
     with torch.cuda.device(x.device):
@@ -445,7 +448,7 @@ def _tiled_library(device_index: int) -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.hprlp_tiled_spmv.argtypes = [i] * 10 + [ptr] * 8
     lib.hprlp_tiled_spmv.restype = i
-    lib.hprlp_tiled_segsum.argtypes = [i] * 8 + [ptr] * 8
+    lib.hprlp_tiled_segsum.argtypes = [i] * 9 + [ptr] * 11
     lib.hprlp_tiled_segsum.restype = i
     lib.hprlp_tiled_max_active_clusters.argtypes = [i, i, i]
     lib.hprlp_tiled_max_active_clusters.restype = i
@@ -594,12 +597,9 @@ def plan_row_sums(A, terms: torch.Tensor, blocks: RowBlocks | None = None,
     dev, n, dtype = terms.device, A.nrows, terms.dtype
     indptr = A.indptr.to(device=dev, dtype=torch.int64)
     y = torch.zeros(n, dtype=dtype, device=dev)
-    row0, ent0 = P.row0.to(dev, torch.int64), P.ent0.to(dev, torch.int64)
-    longb = (row0[1:] - row0[:-1] == 1) & (ent0[1:] - ent0[:-1] > P.cap)
-    long_rows = row0[:-1][longb].tolist()
     length = indptr[1:] - indptr[:-1]
     short = torch.ones(n, dtype=torch.bool, device=dev)
-    short[long_rows] = False
+    short[long_rows(A, P)] = False
     # Short rows: add entry j of every row longer than j, j = 0, 1, ...
     rows = torch.nonzero(short).flatten()
     rows = rows[torch.argsort(length[rows], descending=True, stable=True)]
@@ -611,7 +611,25 @@ def plan_row_sums(A, terms: torch.Tensor, blocks: RowBlocks | None = None,
     while acc.shape[1] > 1:
         acc = acc[:, 0::2] + acc[:, 1::2]
     y[rows] = acc[:, 0]
-    for r in long_rows:
+    return long_row_sums(A, terms, P, y)
+
+
+def long_rows(A, blocks: RowBlocks | None = None) -> list:
+    """The rows that are a block alone on the plan, longer than its cap."""
+    P = plan(A, blocks)
+    row0, ent0 = P.row0.to(torch.int64), P.ent0.to(torch.int64)
+    longb = (row0[1:] - row0[:-1] == 1) & (ent0[1:] - ent0[:-1] > P.cap)
+    return row0[:-1][longb].tolist()
+
+
+def long_row_sums(A, terms: torch.Tensor, blocks: RowBlocks | None,
+                  y: torch.Tensor) -> torch.Tensor:
+    """y with every long row (long_rows) set to the kernel's sum of its
+    `terms`: CSR_BLOCK strided partials in entry order, then a fixed tree.
+    Returns y."""
+    dev, dtype = terms.device, terms.dtype
+    indptr = A.indptr.to(device=dev, dtype=torch.int64)
+    for r in long_rows(A, blocks):
         p = terms[int(indptr[r]):int(indptr[r + 1])]
         steps = -(-p.numel() // CSR_BLOCK)
         part = torch.zeros(steps * CSR_BLOCK, dtype=dtype, device=dev)

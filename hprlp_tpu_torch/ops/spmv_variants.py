@@ -2,18 +2,17 @@
 their wrappers and their plain versions.
 
 Each family takes the place of one Pallas variant study in benchmarks/ and
-asks its question of a kernel the port runs.  The ablate and multi_acc
-families ablate the "gather" backend's CSR kernel on its row-block plan:
-they are instantiations of csrc/spmv_csr.cu (launched by ops/spmv.py::
-csr_study; `full` and `n_acc=1` are csr_spmv's own launch), whose note
-says what each variant isolates, and their plain versions repeat its
-order of sums on the plan (ops/spmv.py::plan_row_sums).  The flush
-family's `full` is that launch too; its run-based variants, and segsum's
-`mm_*`, are csrc/spmv_variants.cu's CSR kernels.  The segsum family's
-exact variant, full, asks its question of the main path's tiles
-(csrc/spmv_tiled.cu, template ONEHOT: one-hot tensor-core row sums in
-place of the segmented warp scan); its plain version,
-`segsum_onehot_plain`, builds the same one-hot products in plain PyTorch.
+asks its question of a kernel the port runs, on the layout a solve runs
+it on.  The ablate, multi_acc and flush families ablate the "gather"
+backend's CSR kernel on its row-block plan: they are instantiations of
+csrc/spmv_csr.cu (launched by ops/spmv.py::csr_study; `full` and `n_acc=1`
+are csr_spmv's own launch), whose note says what each variant isolates.
+Their plain versions repeat its order of sums on the plan (ops/spmv.py::
+plan_row_sums; runmerge's segmented warp scan: `runmerge_plain`).  The
+segsum family runs on the main path's tiles: csrc/spmv_tiled.cu, template
+SEG (one-hot tensor-core row sums in place of the segmented warp scan);
+mm_precomp reads its R from `segsum_rtiles`, built outside the kernel.
+Its plain versions are built from the same sub-blocks (`segsum_subblocks`).
 
     family      wrapper          JAX study                variants
     ablate      spmv_ablate      prof_lane_ablate.py      dma_only, no_gather,
@@ -25,47 +24,45 @@ place of the segmented warp scan); its plain version,
     segsum      spmv_segsum      prof_kernel_variants.py  mm_fused, mm_hi1,
                                                           mm_precomp, full
 
-A wrapper takes f32 CUDA tensors only (the CSR kernel's variants also the
-matrix's row-block plan, which they never build), launches its kernel,
+A wrapper takes f32 CUDA tensors only (and the matrix's row-block plan or
+tiles, which the plan's variants never build), launches its kernel,
 counts the launch and raises on a bad argument or a refused launch.
 `plain` computes what each variant computes -- the deliberately wrong
 ones included -- in plain PyTorch on any device (bit for bit where the
 variant is `bitwise`), and `variant_spmv` sends a CUDA tensor to the
-kernel and a CPU tensor to the plain version.  The libraries build with
-nvcc on first use, by the rule of ops/spmv.py.
+kernel and a CPU tensor to the plain version.  The two libraries build
+with nvcc on first use, by the rule of ops/spmv.py.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
-import os
 
 import torch
 
-from .spmv import (CSR_BLOCK, CSR_VEC, DMA_ONLY, NO_FLUSH, NO_GATHER,
-                   ONE_GATHER, STORE, _tiled_library, build, check_csr_args,
-                   check_tiled_args, csr_spmv_plain, csr_study, plan,
-                   plan_row_sums, row_of_entry, spmv_reference)
+from .spmv import (CSR_BLOCK, CSR_VEC, DMA_ONLY, MERGE_ALL, NO_FLUSH,
+                   NO_GATHER, ONE_GATHER, RUN_MERGE, STORE, _tiled_library,
+                   check_tiled_args, csr_spmv_plain, csr_study,
+                   long_row_sums, plan, plan_row_sums, row_of_entry)
 from .tiles import (SENTINEL_ROW, SMEM_BYTES, WARPS, TiledMatrix,
                     build_tiles)
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "spmv_variants.cu")
-
-RUN = 256       # nonzeros per warp in the run-based kernels (flush, segsum)
-TILE = 32       # nonzeros per mma tile in segsum (one per lane)
-SUB = 8         # nonzeros per mma product (k of m16n8k8) in segsum
-RANKS = 16      # rows per mma product (m of m16n8k8)
-SEG_SUB = 16    # entries per one-hot product of segsum full (k of m16n8k16)
+SEG_SUB = 16    # entries per one-hot product of segsum (k of m16n8k16)
 SEG_STEP = 128  # entries per warp step of the tiled kernel (32 lanes x 4)
-# segsum full's per-warp staging of mma fragments, ranks and rank-to-row
-# tables (csrc/spmv_tiled.cu kSegsumBytes), on top of the tiles' own
-# shared memory.
-SEG_SMEM_BYTES = 16 * (8 * 3 * 4 * 8 + 8 * 4 * 4 + 8 * 16 * 2)
+SEG_RANKS = 16  # rows per one-hot product (m of the mma): mm_fused's clamp
+FLUSH_SEG = 32 * CSR_VEC  # entries per warp segment of runmerge, merge_all
+# Each segsum variant's per-block staging (csrc/spmv_tiled.cu
+# kSegsumBytes<SEG>), on top of the tiles' own shared memory: 16 warps of
+# B fragments (8 sub-blocks x terms x 4 lanes x 8 B), full's and mm_hi1's
+# ranks (8 x 4 x 4 B) and rank-to-row tables (8 x 16 x 2 B); mm_fused's
+# TF32 hi and lo (128 x 4 B each) and ranks (128 B).
+SEG_SMEM_BYTES = {
+    "full": WARPS * (8 * 3 * 4 * 8 + 8 * 4 * 4 + 8 * 16 * 2),
+    "mm_precomp": WARPS * (8 * 2 * 4 * 8),
+    "mm_hi1": WARPS * (8 * 1 * 4 * 8 + 8 * 4 * 4 + 8 * 16 * 2),
+    "mm_fused": WARPS * (128 * 4 * 2 + 128),
+}
 WINDOW = 16384  # x entries per window in ablate/one_gather (128 x 128)
-_BF16_ONE = 0x3F80
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,14 +97,15 @@ VARIANTS: dict[str, dict[str, Variant]] = {
         for n in (1, 2, 4)]),
     "flush": _table("prof_flush_variants.py", [
         ("full", STORE, "exact", 1e-5, "full", True),
-        ("merge_all", 1, "timing_only", 1e-5, "merge_all", False),
-        ("runmerge", 2, "exact", 1e-5, "runmerge", False)]),
-    # mm_precomp carries p as two bf16 terms (~2^-16 relative): 1e-4.
+        ("merge_all", MERGE_ALL, "timing_only", 1e-5, "merge_all", False),
+        ("runmerge", RUN_MERGE, "exact", 1e-5, "runmerge", True)]),
+    # csrc/spmv_tiled.cu's SEG.  mm_precomp carries p as two bf16 terms
+    # (~2^-16 relative): 1e-4.
     "segsum": _table("prof_kernel_variants.py", [
-        ("mm_fused", 3, "timing_only", 1e-5, "mm_fused", False),
-        ("mm_hi1", 2, "timing_only", 1e-5, "mm_hi1", False),
-        ("mm_precomp", 1, "exact", 1e-4, "mm_precomp", False),
-        ("full", 0, "exact", 1e-5, "full", False)]),
+        ("mm_fused", 4, "timing_only", 1e-5, "mm_fused", False),
+        ("mm_hi1", 3, "timing_only", 1e-5, "mm_hi1", False),
+        ("mm_precomp", 2, "exact", 1e-4, "mm_precomp", False),
+        ("full", 1, "exact", 1e-5, "full", False)]),
 }
 
 
@@ -119,45 +117,6 @@ def variant(family: str, name: str) -> Variant:
 
 
 # ----------------------------------------------------------------- kernels
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build(SOURCE))
-    i, ll, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    argtypes = {
-        "hprlp_spmv_flush": [i, i, ll] + [ptr] * 6,
-        "hprlp_spmv_segsum": [i, i, ll] + [ptr] * 7,
-    }
-    for name, types in argtypes.items():
-        fn = getattr(lib, name)
-        fn.argtypes = types
-        fn.restype = ctypes.c_int
-    lib.hprlp_variants_error_string.argtypes = [ctypes.c_int]
-    lib.hprlp_variants_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(A, x: torch.Tensor) -> None:
-    check_csr_args(A, x)
-    if x.dtype != torch.float32:
-        raise TypeError(f"the variant kernels are f32 only, got {x.dtype}")
-
-
-def _launch(wrapper, fn_name: str, x: torch.Tensor, *args) -> None:
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
-    if err != 0:
-        msg = lib.hprlp_variants_error_string(err).decode()
-        raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
-    wrapper.launches += 1
-
-
-def _csr_ptrs(A, x, y):
-    return (A.indptr.data_ptr(), A.indices.data_ptr(), A.vals.data_ptr(),
-            x.data_ptr(), y.data_ptr())
-
 
 def spmv_ablate(A, x: torch.Tensor, variant_name: str) -> torch.Tensor:
     """The "gather" backend's CSR kernel on A's row-block plan with one
@@ -179,51 +138,136 @@ def spmv_multi_acc(A, x: torch.Tensor, variant_name: str) -> torch.Tensor:
 
 
 def spmv_flush(A, x: torch.Tensor, variant_name: str) -> torch.Tensor:
-    """Per-row sums and one store per row (full: csr_spmv's launch, on A's
-    row-block plan) against nnz-balanced runs flushed at row ends
-    (runmerge) or not at all (merge_all)."""
+    """The CSR kernel on A's row-block plan with per-row sums and one store
+    per row (full: csr_spmv's launch), flushed at row ends by a segmented
+    warp scan (runmerge), or not at all (merge_all)."""
     v = variant("flush", variant_name)
-    if variant_name == "full":
-        y = csr_study(STORE, 1, A, x)
-        spmv_flush.launches += 1
-        return y
-    _check(A, x)
-    # The run-based variants add into y with atomics.
-    y = torch.zeros(A.nrows, dtype=x.dtype, device=x.device)
-    _launch(spmv_flush, "hprlp_spmv_flush", x, v.code, A.nrows, A.nnz,
-            *_csr_ptrs(A, x, y))
+    y = csr_study(v.code, 1, A, x)
+    spmv_flush.launches += 1
     return y
 
 
 def segsum_tiles(A) -> TiledMatrix:
-    """A's tiles for segsum full: build_tiles' layout, with strips narrowed
-    where the kernel's staging (SEG_SMEM_BYTES) would not fit beside
-    them."""
+    """A's tiles for the segsum study: build_tiles' layout, with strips
+    narrowed where the largest variant staging (SEG_SMEM_BYTES) would not
+    fit beside them."""
+    seg = max(SEG_SMEM_BYTES.values())
     T = build_tiles(A)
-    while T.smem_bytes + SEG_SMEM_BYTES > SMEM_BYTES:
+    while T.smem_bytes + seg > SMEM_BYTES:
         ys = T.smem_bytes - (2 if T.group_strips > 1 else 1) \
             * T.strip_width * T.vals.element_size()
-        W = (SMEM_BYTES - SEG_SMEM_BYTES - ys) // (2 * T.vals
-                                                      .element_size())
+        W = (SMEM_BYTES - seg - ys) // (2 * T.vals.element_size())
         T = build_tiles(A, strip_width=min(W // 32 * 32,
                                            T.strip_width - 32))
     return T
 
 
-def _segsum_full(A, x: torch.Tensor, tiles: TiledMatrix | None
-                 ) -> torch.Tensor:
-    """segsum full: the tiled kernel with one-hot tensor-core row sums, on
-    `tiles` (else A's own, else segsum_tiles(A))."""
-    T = tiles if tiles is not None else (
-        A.tiles if getattr(A, "tiles", None) is not None
-        else segsum_tiles(A))
+def _segsum_tiles_of(A, tiles: TiledMatrix | None) -> TiledMatrix:
+    """`tiles`, else A's own, else segsum_tiles(A)."""
+    if tiles is not None:
+        return tiles
+    if getattr(A, "tiles", None) is not None:
+        return A.tiles
+    return segsum_tiles(A)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegRanks:
+    """mm_precomp's R on tiles T, built outside the kernel (segsum_rtiles),
+    by warp step: the steps of SEG_STEP entries numbered run by run, 8
+    sub-blocks of 16 entries each, as segsum_subblocks cuts them.  uint16
+    values are held in int16 tensors."""
+
+    ranks: torch.Tensor  # (n_steps, 4, 8) int16: [step, t, q] holds the
+    #                      ranks of sub-block q's entries 4t .. 4t + 3
+    #                      (the mma's k = 2t, 2t + 1, 2t + 8, 2t + 9), four
+    #                      bits each from the lowest
+    rows: torch.Tensor   # (n_steps, 8, 8, 2) int16: [step, g, q] the rows
+    #                      in its chunk of sub-block q's ranks g and g + 8,
+    #                      SENTINEL_ROW where no entry has the rank
+    step0: torch.Tensor  # (n_runs + 1,) int32: each run's first step
+    runs: torch.Tensor   # T.runs: the layout it was built for
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the kernel reads of it (each array once)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.ranks, self.rows, self.step0))
+
+
+def segsum_rtiles(T: TiledMatrix) -> SegRanks:
+    """mm_precomp's R on tiles T: every 16-entry sub-block's 16 four-bit
+    ranks in A-fragment order (8 B) and its rank-to-row table (32 B), laid
+    out by warp step so that a lane loads its part of a step at once; a
+    one-hot R is its ranks.  Positions past a run's end get rank 0 (the
+    kernel gives them zero products); a run's last step is padded with
+    empty sub-blocks."""
+    sb = segsum_subblocks(T)
+    dev = T.keys.device
+    counts = (T.runs[1:] - T.runs[:-1]).to(torch.int64)
+    per_run = -(-counts // SEG_STEP)
+    step0 = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                       torch.cumsum(per_run, 0)])
+    n_steps = int(step0[-1])
+    step = step0[sb["run"]] + sb["at"] // SEG_STEP
+    q = sb["at"] % SEG_STEP // SEG_SUB
+    pos = sb["pos"]
+    ranks = torch.zeros(n_steps * 4 * 8, dtype=torch.int64, device=dev)
+    ranks.index_add_(0, (step * 4 + pos // 4) * 8 + q,
+                     sb["rank"] << (4 * (pos % 4)))
+    rows = torch.full((n_steps * 8 * 8 * 2,), SENTINEL_ROW,
+                      dtype=torch.int64, device=dev)
+    rows[((step * 8 + sb["rank"] % 8) * 8 + q) * 2 + sb["rank"] // 8] = \
+        sb["rib"]
+
+    def u16(v, *shape):
+        return torch.where(v >= 1 << 15, v - (1 << 16), v).to(
+            torch.int16).view(*shape)
+
+    return SegRanks(ranks=u16(ranks, n_steps, 4, 8),
+                    rows=u16(rows, n_steps, 8, 8, 2),
+                    step0=step0.to(torch.int32), runs=T.runs)
+
+
+def spmv_segsum(A, x: torch.Tensor, variant_name: str,
+                rtiles: SegRanks | None = None,
+                tiles: TiledMatrix | None = None) -> torch.Tensor:
+    """K4: products summed by row with tensor-core one-hot products on
+    `tiles` (A's, or segsum_tiles(A), built here if not given); mm_precomp
+    reads `rtiles` (segsum_rtiles of those tiles, built here if not
+    given).  Raises on f64, tiles of another matrix or without room for
+    the variant's staging, R of other tiles, or a refused launch."""
+    v = variant("segsum", variant_name)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the variant kernels are f32 only, got {x.dtype}")
+    if not x.is_cuda:
+        raise ValueError(f"the CUDA kernels need a CUDA tensor, got "
+                         f"{x.device}")
+    T = _segsum_tiles_of(A, tiles)
     check_tiled_args(T, x)
     if (T.nrows, T.ncols) != (A.nrows, A.ncols):
         raise ValueError("the tiles are of another matrix")
-    if T.smem_bytes + SEG_SMEM_BYTES > SMEM_BYTES:
+    seg = SEG_SMEM_BYTES[variant_name]
+    if T.smem_bytes + seg > SMEM_BYTES:
         raise ValueError(f"tiles of {T.smem_bytes} B shared memory leave no "
-                         f"room for segsum's {SEG_SMEM_BYTES} B of staging: "
-                         f"build them with segsum_tiles")
+                         f"room for segsum {variant_name}'s {seg} B of "
+                         f"staging: build them with segsum_tiles")
+    rt = (None,) * 3
+    if variant_name == "mm_precomp":
+        if rtiles is None:
+            rtiles = segsum_rtiles(T)
+        if rtiles.runs is not T.runs or any(
+                t.device != x.device or not t.is_contiguous()
+                for t in (rtiles.ranks, rtiles.rows, rtiles.step0)) \
+                or rtiles.ranks.dtype != torch.int16 \
+                or rtiles.rows.dtype != torch.int16 \
+                or rtiles.step0.shape != T.runs.shape \
+                or rtiles.ranks.shape[0] != rtiles.rows.shape[0] \
+                or (rtiles.ranks.data_ptr() | rtiles.rows.data_ptr()) % 16:
+            raise ValueError("rtiles must be segsum_rtiles of the tiles, on "
+                             "x's device")
+        rt = (rtiles.ranks.data_ptr(), rtiles.rows.data_ptr(),
+              rtiles.step0.data_ptr())
     y = torch.empty(T.nrows, dtype=x.dtype, device=x.device)
     if T.nnz == 0:
         return y.zero_()
@@ -234,43 +278,16 @@ def _segsum_full(A, x: torch.Tensor, tiles: TiledMatrix | None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.hprlp_tiled_segsum(
-            T.nrows, T.ncols, T.strip_width, T.n_strips, T.n_groups,
+            v.code, T.nrows, T.ncols, T.strip_width, T.n_strips, T.n_groups,
             T.group_strips, T.n_chunks, T.max_block_rows, T.vals.data_ptr(),
             T.keys.data_ptr(), T.runs.data_ptr(), T.row_start.data_ptr(),
-            x.data_ptr(), None if part is None else part.data_ptr(),
+            x.data_ptr(), *rt, None if part is None else part.data_ptr(),
             y.data_ptr(), stream)
     if err != 0:
         msg = lib.hprlp_tiled_error_string(err).decode()
-        raise RuntimeError(f"hprlp_tiled_segsum launch failed: {msg} ({err})")
+        raise RuntimeError(f"hprlp_tiled_segsum launch failed "
+                           f"({variant_name}): {msg} ({err})")
     spmv_segsum.launches += 1
-    return y
-
-
-def spmv_segsum(A, x: torch.Tensor, variant_name: str,
-                rtiles: torch.Tensor | None = None,
-                tiles: TiledMatrix | None = None) -> torch.Tensor:
-    """K4: products summed by row with tensor-core one-hot products.  full
-    runs on `tiles` (A's, or segsum_tiles(A), built here if not given);
-    mm_precomp reads `rtiles` (segsum_rtiles(A), built here if not
-    given)."""
-    v = variant("segsum", variant_name)
-    _check(A, x)
-    if variant_name == "full":
-        return _segsum_full(A, x, tiles)
-    if variant_name == "mm_precomp":
-        if rtiles is None:
-            rtiles = segsum_rtiles(A)
-        if rtiles.device != x.device or rtiles.dtype != torch.int32 \
-                or rtiles.shape != (-(-A.nnz // SUB), 32, 2) \
-                or not rtiles.is_contiguous():
-            raise ValueError("rtiles must be segsum_rtiles(A) on x's device")
-        rt_ptr = rtiles.data_ptr()
-    else:
-        rt_ptr = None
-    y = torch.zeros(A.nrows, dtype=x.dtype, device=x.device)
-    indptr, indices, vals, xp, yp = _csr_ptrs(A, x, y)
-    _launch(spmv_segsum, "hprlp_spmv_segsum", x, v.code, A.nrows, A.nnz,
-            indptr, indices, vals, xp, rt_ptr, yp)
     return y
 
 
@@ -278,27 +295,6 @@ WRAPPERS = {"ablate": spmv_ablate, "multi_acc": spmv_multi_acc,
             "flush": spmv_flush, "segsum": spmv_segsum}
 for _w in WRAPPERS.values():
     _w.launches = 0
-
-
-def segsum_rtiles(A) -> torch.Tensor:
-    """The one-hot R of every 8-entry sub-block for segsum/mm_precomp, as
-    bf16 in the A-fragment order of mma m16n8k8: (ceil(nnz/8), 32 lanes,
-    2) int32, lane 4g + t holding (R[g][2t], R[g][2t+1]) and (R[g+8][2t],
-    R[g+8][2t+1]), the lower column in the low half.  R[r][k] = 1 where
-    entry k lies r rows past the sub-block's first entry (r < 16)."""
-    nsub = -(-A.nnz // SUB)
-    rows = row_of_entry(A)
-    pad = rows.new_full((nsub * SUB - A.nnz,), -1)  # matches no rank
-    rows = torch.cat([rows, pad]).view(nsub, SUB)
-    ranks = torch.where(rows >= 0, rows - rows[:, :1], -1)
-    lane = torch.arange(32, device=rows.device)
-    g, t = lane >> 2, lane & 3
-    r0, r1 = ranks[:, 2 * t], ranks[:, 2 * t + 1]
-
-    def pack(rank_g):
-        return ((r0 == rank_g) * _BF16_ONE) | ((r1 == rank_g) * _BF16_ONE << 16)
-
-    return torch.stack([pack(g), pack(g + 8)], dim=-1).to(torch.int32)
 
 
 # ---------------------------------------------------------- plain versions
@@ -373,29 +369,147 @@ def _multi_acc_plain(A, x, name):
                          variant("multi_acc", name).code)
 
 
+def _shift(v: torch.Tensor, d: int, fill) -> torch.Tensor:
+    """v moved d lanes up (d > 0, as __shfl_up_sync) or down along its last
+    axis, `fill` in the lanes nothing moves into."""
+    out = torch.full_like(v, fill)
+    if d > 0:
+        out[..., d:] = v[..., :-d]
+    else:
+        out[..., :d] = v[..., -d:]
+    return out
+
+
+def _segments(P, dev, blocks=None):
+    """The warp segments of the flush study on plan P: for every segment of
+    the selected blocks (all where `blocks` is None), its block and its
+    index s in the block (segment s of block b covers vectors q0 + 32 s ..
+    + 31, q0 = ent0[b] // 4)."""
+    e0 = P.ent0.to(dev, torch.int64)
+    q0, q1 = e0[:-1] // CSR_VEC, -(-e0[1:] // CSR_VEC)
+    nseg = -(-(q1 - q0) // (FLUSH_SEG // CSR_VEC))
+    if blocks is not None:
+        nseg = torch.where(blocks, nseg, 0)
+    blk = torch.repeat_interleave(torch.arange(nseg.numel(), device=dev),
+                                  nseg)
+    first = torch.cumsum(nseg, 0) - nseg
+    return blk, torch.arange(blk.numel(), device=dev) - first[blk]
+
+
+def runmerge_plain(A, x: torch.Tensor, blocks=None) -> torch.Tensor:
+    """flush runmerge in plain PyTorch (any device), bit for bit: the
+    kernel's order of sums on the plan (csrc/spmv_csr.cu kRunMerge).  Each
+    block of short rows is cut into warp segments of 32 lanes x 4 entries;
+    a lane sums its last row's entries from +0, a Hillis-Steele inclusive
+    scan over the lanes (steps 1, 2, 4, 8, 16) joins rows that span lanes,
+    the lane's other rows are summed from the sum flowing in from the left;
+    a row inside one segment is that value, a row across segments the sum
+    of its segments' partials, left to right.  Long rows: the plan's
+    strided partials and tree."""
+    P = plan(A, blocks)
+    dev = x.device
+    terms = A.vals * x[A.indices.to(torch.int64)]
+    y = torch.zeros(A.nrows, dtype=x.dtype, device=dev)
+    row0, ent0 = P.row0.to(dev, torch.int64), P.ent0.to(dev, torch.int64)
+    short = ~((row0[1:] - row0[:-1] == 1) & (ent0[1:] - ent0[:-1] > P.cap))
+    blk, s = _segments(P, dev, short)
+    if blk.numel():
+        r0, n = row0[blk], (row0[1:] - row0[:-1])[blk]
+        e0, e1 = ent0[blk], ent0[1:][blk]
+        base = (e0 // CSR_VEC + s * (FLUSH_SEG // CSR_VEC)) * CSR_VEC
+        lo, hi = torch.maximum(base, e0), torch.minimum(base + FLUSH_SEG, e1)
+        k = base[:, None] + torch.arange(FLUSH_SEG, device=dev)
+        k = k.view(-1, 32, CSR_VEC)
+        e0_, e1_ = e0[:, None, None], e1[:, None, None]
+        valid = (k >= e0_) & (k < e1_)
+        kc = torch.clamp(k, 0, max(A.nnz - 1, 0))
+        rows = row_of_entry(A)
+        key = torch.where(valid, rows[kc] - r0[:, None, None],
+                          torch.where(k < e0_, -1, n[:, None, None]))
+        p = torch.where(valid, terms[kc], torch.zeros((), dtype=x.dtype,
+                                                       device=dev))
+        lane = torch.arange(32, device=dev)
+        last = key[..., -1]
+        acc = torch.zeros_like(p[..., 0])
+        for j in range(CSR_VEC):
+            acc = torch.where(key[..., j] == last, acc + p[..., j], acc)
+        S = acc
+        for d in (1, 2, 4, 8, 16):
+            o, kr = _shift(S, d, 0.0), _shift(last, d, -2)
+            S = torch.where((lane >= d) & (kr == last), S + o, S)
+        cur = torch.where((lane > 0) & (_shift(last, 1, -2) == key[..., 0]),
+                          _shift(S, 1, 0.0), torch.zeros_like(S))
+        closes = []  # (row in block, value, closes here)
+        for j in range(CSR_VEC - 1):
+            cur = cur + p[..., j]
+            c = key[..., j] != key[..., j + 1]
+            closes.append((key[..., j], cur, c))
+            cur = torch.where(c, torch.zeros_like(cur), cur)
+        closes.append((last, S, (lane == 31)
+                       | (_shift(key[..., 0], -1, -2) != last)))
+        n_seg = blk.numel()
+        first_part = torch.zeros(n_seg, dtype=x.dtype, device=dev)
+        last_part = torch.zeros(n_seg, dtype=x.dtype, device=dev)
+        last_row = torch.full((n_seg,), -1, dtype=torch.int64, device=dev)
+        indptr = A.indptr.to(dev, torch.int64)
+        seg = torch.arange(n_seg, device=dev)[:, None].expand(-1, 32)
+        for i, v, c in closes:
+            c = c & (i >= 0) & (i < n[:, None])
+            g, row, v = seg[c], (r0[:, None] + i)[c], v[c]
+            before, after = indptr[row] < lo[g], indptr[row + 1] > hi[g]
+            first_part[g[before]] = v[before]
+            keep = ~before & after
+            last_part[g[keep]] = v[keep]
+            last_row[g[keep]] = row[keep]
+            alone = ~before & ~after
+            y[row[alone]] = v[alone]
+        # Rows across segments: their partials, left to right.
+        g = torch.nonzero(last_row >= 0).flatten()
+        row, v = last_row[g], last_part[g]
+        end = indptr[row + 1]
+        while g.numel():
+            g = g + 1
+            v = v + first_part[g]
+            done = end <= base[g] + FLUSH_SEG
+            y[row[done]] = v[done]
+            g, row, v, end = g[~done], row[~done], v[~done], end[~done]
+    return long_row_sums(A, terms, P, y)
+
+
+def _merge_all_plain(A, x):
+    """merge_all: every warp segment's sum added into row (q0 / 32 + s) mod
+    nrows (long rows' blocks too); the sum's order aside."""
+    P = plan(A)
+    dev = x.device
+    terms = A.vals * x[A.indices.to(torch.int64)]
+    b = _entry_blocks(A, P)
+    q0 = P.ent0.to(dev, torch.int64)[b] // CSR_VEC
+    k = torch.arange(A.nnz, device=dev)
+    s = (k // CSR_VEC - q0) // (FLUSH_SEG // CSR_VEC)
+    target = (q0 // (FLUSH_SEG // CSR_VEC) + s) % max(A.nrows, 1)
+    return _row_sums(A, terms, target)
+
+
 def _flush_plain(A, x, name):
     if name == "full":
         return csr_spmv_plain(A, x)
     if name == "runmerge":
-        return spmv_reference(A, x)
-    # Each run's sum, added into row (run % nrows).
-    nruns = -(-A.nnz // RUN)
-    run = torch.arange(A.nnz, device=x.device) // RUN
-    sums = torch.zeros(nruns, dtype=x.dtype, device=x.device).index_add_(
-        0, run, A.vals * x[A.indices.to(torch.int64)])
-    return _row_sums(A, sums,
-                     torch.arange(nruns, device=x.device) % max(A.nrows, 1))
+        return runmerge_plain(A, x)
+    return _merge_all_plain(A, x)
 
 
 def segsum_subblocks(T: TiledMatrix) -> dict:
-    """segsum full's one-hot products on tiles T, as the kernel forms them:
-    every warp run is cut into steps of SEG_STEP and sub-blocks of SEG_SUB
-    entries from its start; an entry's rank is the number of distinct rows
-    before it in its sub-block.  Returns (int64, on T's device) "sub" (the
-    sub-block of each tile position), "pos" (its place in the sub-block),
-    "rank", "row" (its row; padding gets nrows) and "row_of_rank"
-    (n_sub, SEG_SUB): the row each rank sums into (nrows where no entry
-    has the rank)."""
+    """The segsum study's one-hot products on tiles T, as the kernel forms
+    them: every warp run is cut into steps of SEG_STEP and sub-blocks of
+    SEG_SUB entries from its start; an entry's rank is the number of
+    distinct rows before it in its sub-block.  Returns (int64, on T's
+    device) "sub" (the sub-block of each tile position, numbered run by
+    run), "pos" (its place in the sub-block), "rank", "row" (its row;
+    padding gets nrows), "rib" (its row in its chunk, SENTINEL_ROW for
+    padding), "step_row" (the row of its warp step's first entry), "run"
+    (its warp run), "at" (its place in the run) and "row_of_rank" (n_sub,
+    SEG_SUB): the row each rank sums into (nrows where no entry has the
+    rank)."""
     dev = T.keys.device
     L = T.vals.shape[0]
     counts = (T.runs[1:] - T.runs[:-1]).to(torch.int64)
@@ -424,8 +538,10 @@ def segsum_subblocks(T: TiledMatrix) -> dict:
     row_of_rank = torch.full((n_sub, SEG_SUB), T.nrows, dtype=torch.int64,
                              device=dev)
     row_of_rank[sub[new], rank[new]] = row[new]
-    return {"sub": sub, "pos": pos, "rank": rank, "row": row,
-            "row_of_rank": row_of_rank}
+    step_first = T.runs.to(torch.int64)[run] + at // SEG_STEP * SEG_STEP
+    return {"sub": sub, "pos": pos, "rank": rank, "row": row, "rib": rib,
+            "row_of_rank": row_of_rank, "run": run, "at": at,
+            "step_row": row[step_first]}
 
 
 def _bf16_terms(p: torch.Tensor) -> torch.Tensor:
@@ -461,12 +577,17 @@ def segsum_onehot_plain(T: TiledMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _segsum_plain(A, x, name, tiles=None):
+    """The segsum variants on A's tiles (segsum_tiles where A has none):
+    full's one-hot products; every other variant's per-entry terms (bf16
+    hi + lo, bf16 hi, TF32 hi + lo) added into the row its rank maps to
+    (mm_fused: the step's first row plus the row's distance from it,
+    clamped to 15), in another order than the tensor cores'."""
+    T = _segsum_tiles_of(A, tiles)
     if name == "full":
-        T = tiles if tiles is not None else (
-            A.tiles if getattr(A, "tiles", None) is not None
-            else segsum_tiles(A))
         return segsum_onehot_plain(T, x)
-    p = A.vals * x[A.indices.to(torch.int64)]
+    sb = segsum_subblocks(T)
+    col = T.coo[2][torch.argsort(T.coo[0])]  # column of each tile position
+    p = T.vals * x[torch.clamp(col, max=T.ncols - 1)]
     if name == "mm_fused":
         hi = _tf32(p)
         per_entry = hi + _tf32(p - hi)
@@ -475,13 +596,14 @@ def _segsum_plain(A, x, name, tiles=None):
         per_entry = hi + _bf16(p - hi)
     else:  # mm_hi1
         per_entry = _bf16(p)
-    rows = row_of_entry(A)
+    rows = sb["row"]
     if name == "mm_fused":
-        # Every entry of a 32-entry tile goes to the tile's first row plus
-        # its rank, clamped to 15.
-        first = rows[torch.arange(A.nnz, device=x.device) // TILE * TILE]
-        rows = first + torch.clamp(rows - first, max=RANKS - 1)
-    return _row_sums(A, per_entry, rows)
+        first = sb["step_row"]
+        rows = torch.where(rows == T.nrows, rows,
+                           first + torch.clamp(rows - first,
+                                               max=SEG_RANKS - 1))
+    y = torch.zeros(T.nrows + 1, dtype=x.dtype, device=x.device)
+    return y.index_add_(0, rows, per_entry)[:T.nrows]
 
 
 _PLAIN = {"ablate": _ablate_plain, "multi_acc": _multi_acc_plain,

@@ -1,10 +1,11 @@
 """Counterpart of benchmarks/prof_flush_variants.py on an NVIDIA GPU: the
 "flush" kernel family of ops/spmv_variants.py.
 
-Flush strategies: per-row sums and one store per row (full: the "gather"
-backend's CSR kernel on its row-block plan, csr_spmv's launch), against
-nnz-balanced warp runs flushed at row ends (runmerge, exact) or merged
-into one atomicAdd per run (merge_all, wrong: the ceiling).
+Flush strategies, all on the "gather" backend's CSR kernel and its
+row-block plan (csrc/spmv_csr.cu): per-row sums and one store per row
+(full: csr_spmv's launch), against the same stream flushed at row ends by
+a segmented warp scan over 128-entry warp segments (runmerge, exact), or
+merged into one atomicAdd per segment (merge_all, wrong: the ceiling).
 
     python -m hprlp_tpu_torch.prof.prof_flush_variants [--size huge]
 

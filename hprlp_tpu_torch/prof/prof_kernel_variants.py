@@ -2,11 +2,13 @@
 "segsum" kernel family of ops/spmv_variants.py.
 
 The segmented sum of products by row as tensor-core one-hot products
-(mma.sync): on the main path's tiles, one m16n8k16 product per 16 entries
-of a warp's stream with the products as three bf16 terms, in place of the
-tiled kernel's segmented warp scan (full); on CSR, with host-built bf16 R
-tiles and bf16 hi+lo (mm_precomp), in one bf16 pass (mm_hi1), or one
-product per 32-entry tile with clamped ranks (mm_fused).
+(mma.sync), all on the main path's tiles (csrc/spmv_tiled.cu, template
+SEG): one m16n8k16 product per 16 entries of a warp's stream in place of
+the tiled kernel's segmented warp scan, with the products as three bf16
+terms and ranks found in the kernel (full), as bf16 hi + lo with R built
+outside the kernel (mm_precomp: segsum_rtiles), as one bf16 term
+(mm_hi1), or one TF32 product per 128-entry warp step with ranks against
+its first row clamped to 15 (mm_fused).
 
     python -m hprlp_tpu_torch.prof.prof_kernel_variants [--size huge]
 

@@ -3,7 +3,7 @@ on the card, hold every variant of one kernel family against its plain
 version (bit for bit where the variant is `bitwise`; the exact ones also
 against A @ x), then time each on A and A^T.  The matrices carry the
 "gather" backend's row-block plan, which the CSR kernel's variants run
-on, and the tiles segsum full runs on.
+on, and the tiles the segsum family runs on.
 
 Sizes: "bench" is bench.py's LP (make_problem: 65536 x 131072, 1.31M nnz;
 one SpMV reads ~11.5 MB, inside the 50 MB L2); "huge" is
@@ -36,7 +36,7 @@ def device_matrices(problem, device="cuda") -> dict:
     """A and A^T of the scaled f32 LP on `device`, as the solver sees them
     (the port's build_device_problem + scale_problem), each on the "gather"
     backend (its row-block plan attached, as with_spmv_backend does) and
-    carrying the tiles segsum full runs on (segsum_tiles, built once
+    carrying the tiles the segsum family runs on (segsum_tiles, built once
     here)."""
     lp, _ = build_device_problem(problem, dtype=torch.float32, device=device)
     scaled, _ = scale_problem(lp)
@@ -51,10 +51,10 @@ def study_x(M, seed: int = 0) -> torch.Tensor:
 
 
 def _call(family, M, x, name):
-    """The kernel call a study times: mm_precomp gets its R tiles built
-    once, outside the call."""
+    """The kernel call a study times: mm_precomp gets its R (of M's tiles)
+    built once, outside the call."""
     if family == "segsum" and name == "mm_precomp":
-        rtiles = segsum_rtiles(M)
+        rtiles = segsum_rtiles(M.tiles)
         return lambda: WRAPPERS[family](M, x, name, rtiles=rtiles)
     return lambda: WRAPPERS[family](M, x, name)
 
@@ -62,29 +62,36 @@ def _call(family, M, x, name):
 def variant_bound(family: str, name: str, M) -> tuple[int, float, str]:
     """(bytes, bound_ms, bound_by) of one variant's SpMV: the byte model of
     prof/timing.py, less x where the variant reads none (ablate dma_only:
-    the stream alone)."""
+    the stream alone), plus what it reads beside the matrix (segsum
+    mm_precomp: its R, segsum_rtiles of M's tiles)."""
     bound_ms, bound_by = spmv_bound(M, torch.float32)
     nbytes = spmv_bytes(M, torch.float32)
     if (family, name) == ("ablate", "dma_only"):
         nbytes -= M.ncols * 4
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2 * M.nnz / FLOPS_PER_S[torch.float32] * 1e3
-        bound_ms, bound_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
-                              else (ops_ms, "operations"))
-    return nbytes, bound_ms, bound_by
+    elif (family, name) == ("segsum", "mm_precomp"):
+        nbytes += segsum_rtiles(M.tiles).nbytes
+    else:
+        return nbytes, bound_ms, bound_by
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * M.nnz / FLOPS_PER_S[torch.float32] * 1e3
+    return nbytes, *((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                     else (ops_ms, "operations"))
 
 
 def measure(family: str, mats: dict, variants) -> list:
     """Time every variant on every matrix (name -> CUDA CsrMatrix) by
-    CUDA-graph replay.  One record per (matrix, variant)."""
+    CUDA-graph replay.  One record per (matrix, variant), with the launches
+    its wrapper counted (the warm-up and captured calls)."""
     records = []
     for mat, M in mats.items():
         x = study_x(M)
         for name in variants:
             nbytes, bound_ms, bound_by = variant_bound(family, name, M)
+            before = WRAPPERS[family].launches
             ms = time_ms(_call(family, M, x, name))
             records.append({
                 "family": family, "matrix": mat, "variant": name,
+                "launches": WRAPPERS[family].launches - before,
                 "kind": variant(family, name).kind, "ms": ms,
                 "gbps": nbytes / (ms * 1e-3) / 1e9, "bound_ms": bound_ms,
                 "bound_by": bound_by, "share": bound_ms / ms})

@@ -4,28 +4,37 @@ card, tests/test_torch_spmv_variants_gpu.py), the study path's helpers,
 and parity with the Pallas studies of benchmarks/ they replace.
 
 - Every variant's plain version against a loop-by-loop numpy reading of
-  its definition (the notes of csrc/spmv_csr.cu and csrc/spmv_variants.cu),
+  its definition (the notes of csrc/spmv_csr.cu and csrc/spmv_tiled.cu),
   on the CSR cases of the card's tests: empty rows, a row longer than a
-  warp run and one longer than the row-block plan's window, rows split
-  across warp runs and segsum tiles, blocks of 256 rows, several x
-  windows.  The ablate and multi_acc families (and flush full) run on the
-  row-block plan: their definitions repeat the kernel's f32 arithmetic on
-  the plan, and their plain versions give the same bits.
+  flush segment and one longer than the row-block plan's window, rows
+  split across flush segments and segsum steps, blocks of 256 rows,
+  several x windows.  The ablate, multi_acc and flush families run on the
+  row-block plan: the definitions of the exact ones (and of no_flush,
+  dma_only, no_gather, one_gather) repeat the kernel's f32 arithmetic on
+  the plan -- runmerge's segmented warp scan included -- and their plain
+  versions give the same bits; merge_all's segments are the plan's.  The
+  segsum family runs on the tiles: its definitions read the tiles
+  position by position (mm_fused's ranks against each warp step's first
+  row).
 - The exact variants against scipy's A @ x.
 - The exact variants against the JAX study kernel they translate, run in
   interpret mode on LaneELL tiles of the same matrix: prof_lane_ablate
   full, prof_dual_acc n_acc 1/2/4 (outputs summed as its spmv_loop does),
-  prof_flush_variants full/runmerge, prof_kernel_variants full with the
-  identity rank (its segment sum then reduces to the production kernel's
-  flush); segsum full runs on the main path's tiles (csrc/spmv_tiled.cu,
-  ONEHOT), and its one-hot products are held to a numpy segment sum.  The timing-only variants have no JAX comparison: their TPU
+  prof_flush_variants full/runmerge, prof_kernel_variants full and
+  mm_precomp with the identity rank (its segment sum then reduces to the
+  production kernel's flush; mm_precomp's R tiles the one-hot of that
+  rank); segsum runs on the main path's tiles (csrc/spmv_tiled.cu, SEG),
+  full's one-hot products are held to a numpy segment sum, and
+  mm_precomp's R (segsum_rtiles) to the sub-blocks' ranks and rows.  The
+  timing-only variants have no JAX comparison: their TPU
   counterparts compute layout-specific values (LaneELL slots, flushes
   into 128-row windows, clamped ranks within a tile) that have no meaning
   for a CSR matrix.
 
 Tolerance: bitwise for the variants on the row-block plan against their
-definitions; else max abs error <= 1e-5 * max(1, max|y|) (1e-4 for the
-two-term bf16 mm_precomp against A @ x): the sums run in other orders.
+definitions (merge_all aside); else max abs error <= 1e-5 * max(1,
+max|y|) (1e-4 for the two-term bf16 mm_precomp against A @ x): the sums
+run in other orders.
 """
 
 import ast
@@ -33,6 +42,7 @@ import dataclasses
 import importlib
 import os
 
+import ml_dtypes
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -41,14 +51,15 @@ import torch
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
 from hprlp_tpu_torch.ops.spmv import (CSR_BLOCK, csr_cap, csr_spmv_plain,
                                       row_blocks)
-from hprlp_tpu_torch.ops.spmv_variants import (RANKS, RUN, SEG_STEP,
-                                               SEG_SUB, SUB, TILE, VARIANTS,
-                                               WINDOW, WRAPPERS, plain,
+from hprlp_tpu_torch.ops.spmv_variants import (FLUSH_SEG, SEG_RANKS,
+                                               SEG_SMEM_BYTES, SEG_STEP,
+                                               SEG_SUB, VARIANTS, WINDOW,
+                                               WRAPPERS, plain,
                                                segsum_onehot_plain,
                                                segsum_rtiles,
                                                segsum_subblocks, segsum_tiles,
                                                variant_spmv)
-from hprlp_tpu_torch.ops.tiles import build_tiles
+from hprlp_tpu_torch.ops.tiles import SENTINEL_ROW, WARPS, build_tiles
 from hprlp_tpu_torch.prof import study, timing
 from test_torch_spmv_variants_gpu import CASES, FAMILY_VARIANTS
 
@@ -56,9 +67,11 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXACT = [(f, v) for f, v in FAMILY_VARIANTS if VARIANTS[f][v].exact]
-# The variants that run on the CSR kernel's row-block plan.
+# The variants that run on the CSR kernel's row-block plan and give the
+# bits of a numpy reading of it.
 ON_PLAN = [(f, v) for f, v in FAMILY_VARIANTS
-           if f in ("ablate", "multi_acc") or (f, v) == ("flush", "full")]
+           if f in ("ablate", "multi_acc")
+           or (f, v) in (("flush", "full"), ("flush", "runmerge"))]
 
 
 def _case(case):
@@ -140,33 +153,136 @@ def _plan_definition(name, A, x, P):
     return y
 
 
-def _definition(family, name, A, x):
-    """What the variant computes, entry by entry (CSR A, f32 x)."""
-    nrows, ncols = A.shape
+def _runmerge_definition(A, x, P):
+    """flush runmerge on plan P, lane by lane as csrc/spmv_csr.cu kRunMerge
+    runs it: a block of short rows in warp segments of 32 lanes x 4
+    entries from its first aligned vector; each lane's last row summed
+    from 0, a Hillis-Steele scan over the lanes joining equal last rows,
+    the lane's other rows summed from what flows in from the left; a row
+    inside a segment stored, a row across segments the sum of its
+    partials left to right; empty rows 0; a long row's block as full's."""
     indptr, idx = A.indptr, A.indices
-    vals = A.data.astype(np.float32)
+    terms = (A.data.astype(np.float32) * x[idx]).astype(np.float32)
+    row_of = np.repeat(np.arange(A.shape[0]), np.diff(indptr))
+    y = _plan_definition("full", A, x, P)  # long rows; the rest below
+    row0, ent0 = P.row0.numpy(), P.ent0.numpy()
+    for b in range(len(row0) - 1):
+        r0, r1, e0, e1 = (int(v) for v in (row0[b], row0[b + 1], ent0[b],
+                                            ent0[b + 1]))
+        if r1 - r0 == 1 and e1 - e0 > P.cap:
+            continue
+        n = r1 - r0
+        y[r0:r1] = 0
+        q0, q1 = e0 // 4, -(-e1 // 4)
+        first, last = {}, {}
+        for s in range(-(-(q1 - q0) // 32)):
+            base = (q0 + 32 * s) * 4
+            lo, hi = max(base, e0), min(base + FLUSH_SEG, e1)
+            key = np.empty((32, 4), np.int64)
+            p = np.zeros((32, 4), np.float32)
+            for lane in range(32):
+                for j in range(4):
+                    k = base + 4 * lane + j
+                    if k < e0:
+                        key[lane, j] = -1
+                    elif k >= e1:
+                        key[lane, j] = n
+                    else:
+                        key[lane, j] = row_of[k] - r0
+                        p[lane, j] = terms[k]
+            S = np.zeros(32, np.float32)
+            for lane in range(32):
+                for j in range(4):
+                    if key[lane, j] == key[lane, 3]:
+                        S[lane] = S[lane] + p[lane, j]
+            for d in (1, 2, 4, 8, 16):
+                S = np.array([S[i] + S[i - d] if i >= d and key[i - d, 3]
+                              == key[i, 3] else S[i] for i in range(32)],
+                             np.float32)
+            closes = []
+            for lane in range(32):
+                cur = (S[lane - 1] if lane and key[lane - 1, 3] == key[lane, 0]
+                       else np.float32(0))
+                for j in range(3):
+                    cur = np.float32(cur + p[lane, j])
+                    if key[lane, j] != key[lane, j + 1]:
+                        closes.append((key[lane, j], cur))
+                        cur = np.float32(0)
+                if lane == 31 or key[lane + 1, 0] != key[lane, 3]:
+                    closes.append((key[lane, 3], S[lane]))
+            for i, v in closes:
+                if not 0 <= i < n:
+                    continue
+                row = r0 + i
+                if indptr[row] < lo:
+                    first[s] = v
+                elif indptr[row + 1] > hi:
+                    last[s] = (row, v)
+                else:
+                    y[row] = v
+        for s, (row, v) in last.items():
+            s2 = s
+            while True:
+                s2 += 1
+                v = np.float32(v + first[s2])
+                if indptr[row + 1] <= (q0 + 32 * (s2 + 1)) * 4:
+                    break
+            y[row] = v
+    return y
+
+
+def _tile_positions(T):
+    """Each tile position of T as (run, row, col): padding has row -1."""
+    runs = T.runs.numpy().astype(np.int64)
+    keys = T.keys.numpy().astype(np.int64) & 0xFFFFFFFF
+    row_start = T.row_start.numpy()
+    out = []
+    for run in range(len(runs) - 1):
+        block, strip_l = run // (T.group_strips * WARPS), run % T.group_strips
+        chunk = block % T.n_chunks
+        strip = block // T.n_chunks * T.group_strips + strip_l
+        for i in range(runs[run], runs[run + 1]):
+            rib, c = keys[i] >> 16, keys[i] & 0xFFFF
+            out.append((run, -1 if rib == SENTINEL_ROW
+                        else row_start[chunk] + rib, strip * T.strip_width + c))
+    return out
+
+
+def _definition(family, name, A, x, M, T=None):
+    """What the variant computes, entry by entry (CSR A, f32 x; M the same
+    matrix as the port holds it): the flush family on M's row-block plan,
+    the segsum family on tiles T (segsum_tiles(M) where not given)."""
+    nrows, ncols = A.shape
     y = np.zeros(nrows)
-    row_of = np.repeat(np.arange(nrows), np.diff(indptr))
-    for r in range(nrows):
-        for k in range(indptr[r], indptr[r + 1]):
-            c = idx[k]
-            p = np.float32(vals[k] * x[c])
-            target, add = r, float(p)
-            if name == "merge_all":
-                target = (k // RUN) % nrows
-            elif family == "segsum" and name == "full":
-                add = float(p)  # hi + mid + lo, exact in three bf16 terms
-            elif name == "mm_fused":
-                hi = _tf32(p)
-                add = float(hi) + float(_tf32(p - hi))
-                first = row_of[k // TILE * TILE]
-                target = first + min(r - first, RANKS - 1)
-            elif name == "mm_precomp":
-                hi = _bf16(p)
-                add = float(hi) + float(_bf16(p - hi))
-            elif name == "mm_hi1":
-                add = float(_bf16(p))
-            y[target] += add
+    if family == "flush":  # merge_all: each warp segment into one row
+        P = row_blocks(M)
+        row0, ent0 = P.row0.numpy(), P.ent0.numpy()
+        for b in range(len(row0) - 1):
+            q0 = ent0[b] // 4
+            for k in range(ent0[b], ent0[b + 1]):
+                s = (k // 4 - q0) // (FLUSH_SEG // 4)
+                y[(q0 // (FLUSH_SEG // 4) + s) % nrows] += float(
+                    np.float32(A.data[k] * x[A.indices[k]]))
+        return y
+    T = segsum_tiles(M) if T is None else T
+    vals, runs = T.vals.numpy(), T.runs.numpy()
+    pos = _tile_positions(T)
+    for i, (run, r, c) in enumerate(pos):
+        if r < 0:
+            continue
+        p = np.float32(vals[i] * x[c])
+        target, add = r, float(p)  # full: hi + mid + lo, exact
+        if name == "mm_fused":
+            hi = _tf32(p)
+            add = float(hi) + float(_tf32(p - hi))
+            first = pos[runs[run] + (i - runs[run]) // SEG_STEP * SEG_STEP][1]
+            target = first + min(r - first, SEG_RANKS - 1)
+        elif name == "mm_precomp":
+            hi = _bf16(p)
+            add = float(hi) + float(_bf16(p - hi))
+        elif name == "mm_hi1":
+            add = float(_bf16(p))
+        y[target] += add
     return y
 
 
@@ -183,11 +299,14 @@ def test_plain_variant_matches_its_definition(family, name, case):
     A, M, x = _case(case)
     y = plain(family, M, torch.as_tensor(x), name)
     assert y.dtype == torch.float32 and y.shape == (A.shape[0],)
-    if (family, name) in ON_PLAN:
+    if (family, name) == ("flush", "runmerge"):
+        np.testing.assert_array_equal(
+            y.numpy(), _runmerge_definition(A, x, row_blocks(M)))
+    elif (family, name) in ON_PLAN:
         np.testing.assert_array_equal(
             y.numpy(), _plan_definition(name, A, x, row_blocks(M)))
     else:
-        _assert_close(y.numpy(), _definition(family, name, A, x), 1e-5)
+        _assert_close(y.numpy(), _definition(family, name, A, x, M), 1e-5)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -232,31 +351,70 @@ def test_exact_variant_matches_scipy(family, name, case):
                   VARIANTS[family][name].tol)
 
 
+SEGSUM = [v for f, v in FAMILY_VARIANTS if f == "segsum"]
+
+
+@pytest.mark.parametrize("case", ["empty_rows", "one_per_row", "tpr8"])
+@pytest.mark.parametrize("name", SEGSUM)
+def test_segsum_plain_on_strip_groups(name, case):
+    """The segsum variants on tiles of two strip groups and narrow strips
+    (more runs, each group's partial y): the plain version, given the
+    tiles, against the definition read from the same tiles."""
+    A, M, x = _case(case)
+    T = build_tiles(M, strip_width=128, block_rows=300, strip_groups=2)
+    assert T.n_groups == 2
+    assert T.smem_bytes + SEG_SMEM_BYTES[name] <= 232448
+    G = M.with_tiles(T)
+    y = plain("segsum", G, torch.as_tensor(x), name)
+    _assert_close(y.numpy(), _definition("segsum", name, A, x, M, T), 1e-5)
+
+
 def test_segsum_rtiles_hold_the_fragment_order_of_r():
-    """Unpacking the tiles as mma m16n8k8 reads them (lane 4g + t: rows g
-    and g + 8, columns 2t and 2t + 1) gives the one-hot R of every 8-entry
-    sub-block: R[r][k] = 1 where entry k lies r < 16 rows past the
-    sub-block's first entry."""
-    A, M, _ = _case("empty_rows")
-    tiles = segsum_rtiles(M).numpy().view(np.uint32)
-    nsub = -(-A.nnz // SUB)
-    assert tiles.shape == (nsub, 32, 2)
-    rows = np.repeat(np.arange(A.shape[0]), np.diff(A.indptr))
-    R = np.zeros((nsub, RANKS, SUB))
-    for lane in range(32):
-        g, t = lane >> 2, lane & 3
-        for reg, rank in ((0, g), (1, g + 8)):
-            for half, col in ((0, 2 * t), (1, 2 * t + 1)):
-                bits = (tiles[:, lane, reg] >> (16 * half)) & 0xFFFF
-                assert set(np.unique(bits)) <= {0, 0x3F80}
-                R[:, rank, col] = bits == 0x3F80
-    expect = np.zeros_like(R)
-    for k in range(A.nnz):
-        rank = rows[k] - rows[k // SUB * SUB]
-        if rank < RANKS:
-            expect[k // SUB, rank, k % SUB] = 1
-    np.testing.assert_array_equal(R, expect)
-    assert (expect.sum(axis=(1, 2)) < SUB).any()  # ranks >= 16 occur here
+    """Unpacking mm_precomp's R as the kernel's lanes read it (lane 4g + t:
+    word t of each of a step's 8 sub-blocks, the ranks of the sub-block's
+    entries 4t .. 4t + 3, which are the mma's k = 2t, 2t + 1, 2t + 8, 2t +
+    9; rows g and g + 8 of R) gives the one-hot R of every 16-entry
+    sub-block of segsum_subblocks, its steps numbered run by run; the row
+    table maps ranks g and g + 8 to the row (in its chunk) of their
+    entries, the padding row where none has the rank.  Cases with
+    sub-blocks of 16 ranks and runs of empty rows."""
+    for case in ("one_per_row", "empty_rows"):
+        _, M, _ = _case(case)
+        T = segsum_tiles(M)
+        rt = segsum_rtiles(T)
+        sb = {k: v.numpy() for k, v in segsum_subblocks(T).items()}
+        runs = T.runs.numpy().astype(np.int64)
+        steps = -(-np.diff(runs) // SEG_STEP)
+        step0 = np.concatenate([[0], np.cumsum(steps)])
+        n_steps = int(step0[-1])
+        assert rt.ranks.shape == (n_steps, 4, 8)
+        assert rt.rows.shape == (n_steps, 8, 8, 2)
+        np.testing.assert_array_equal(rt.step0.numpy(), step0)
+        assert rt.nbytes == n_steps * 320 + 4 * len(runs)
+        words = rt.ranks.numpy().view(np.uint16)
+        R = np.zeros((n_steps, 8, SEG_SUB, SEG_SUB))
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for j, k in enumerate((2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)):
+                rank = (words[:, t, :] >> (4 * j)) & 15
+                for row in (g, g + 8):
+                    R[:, :, row, k] = np.maximum(R[:, :, row, k],
+                                                 rank == row)
+        expect = np.zeros_like(R)
+        expect[:, :, 0, :] = 1  # positions without an entry: rank 0
+        want = np.full((n_steps, 8, 8, 2), SENTINEL_ROW)
+        k_of = np.array([0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14,
+                         15])  # entry 4t + j -> k
+        for run, at, pos, rank, rib in zip(sb["run"], sb["at"], sb["pos"],
+                                           sb["rank"], sb["rib"]):
+            st, q = step0[run] + at // SEG_STEP, at % SEG_STEP // SEG_SUB
+            expect[st, q, :, k_of[pos]] = 0
+            expect[st, q, rank, k_of[pos]] = 1
+            want[st, rank % 8, q, rank // 8] = rib
+        np.testing.assert_array_equal(R, expect)
+        np.testing.assert_array_equal(rt.rows.numpy().view(np.uint16), want)
+        if case == "one_per_row":  # a sub-block of 16 rows of one entry
+            assert (sb["rank"] == SEG_SUB - 1).any()
 
 
 @pytest.mark.parametrize("layout", ["segsum", "narrow"])
@@ -368,6 +526,22 @@ def test_spmv_byte_model_and_bound():
     nbytes, ms, by = study.variant_bound("ablate", "dma_only", Shape)
     assert nbytes == 11_533_692 - 131072 * 4 and by == "bytes"
     assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    # mm_precomp also reads its R: 64 B of ranks and 256 B of rows per
+    # 128-entry warp step, 4 B per run; no other variant reads more.
+    from hprlp_tpu_torch.prof.problems import random_lp
+
+    M = study.device_matrices(random_lp(300, 500, 4, seed=1),
+                              device="cpu")["A"]
+    base = timing.spmv_bytes(M, torch.float32)
+    rt = segsum_rtiles(M.tiles)
+    nbytes, ms, by = study.variant_bound("segsum", "mm_precomp", M)
+    assert nbytes == base + rt.nbytes > base and by == "bytes"
+    assert rt.nbytes == 320 * rt.rows.shape[0] + 4 * M.tiles.runs.numel()
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    for family, name in (("segsum", "full"), ("segsum", "mm_hi1"),
+                         ("segsum", "mm_fused"), ("flush", "runmerge"),
+                         ("flush", "merge_all")):
+        assert study.variant_bound(family, name, M)[0] == base
 
 
 def test_study_matrices_carry_the_plan_and_the_tiles():
@@ -470,6 +644,7 @@ PARITY = [
     ("prof_flush_variants", "full", "flush", "full"),
     ("prof_flush_variants", "runmerge", "flush", "runmerge"),
     ("prof_kernel_variants", "full", "segsum", "full"),
+    ("prof_kernel_variants", "mm_precomp", "segsum", "mm_precomp"),
 ]
 
 
@@ -494,8 +669,10 @@ def test_exact_variant_matches_jax_study(jax_studies, study, arg, family,
         C = p["idx2"].shape[0]
         rank = np.broadcast_to(np.tile(np.arange(LANES, dtype=np.int32),
                                        SUBBLOCKS), (C, 8, CHUNK_SUB))
+        # R tiles: the one-hot of the rank (mm_precomp reads them as bf16).
+        rtiles = (rank[:, :1, :] == np.arange(LANES)[None, :, None])
         extra = [np.ascontiguousarray(rank),
-                 np.zeros((C, LANES, CHUNK_SUB), np.float32)]
+                 rtiles.astype(ml_dtypes.bfloat16)]
     elif study == "prof_dual_acc":
         n_out = arg
     y_jax = _run_jax_study(jax_studies[study], arg, x, p, extra, n_out,

@@ -1,15 +1,16 @@
-"""The SpMV variant-study kernels on the card: the ablate and multi_acc
-families and flush full (csrc/spmv_csr.cu on the row-block plan), the
-run-based flush and segsum mm_* kernels (csrc/spmv_variants.cu) and
-segsum full (csrc/spmv_tiled.cu).
+"""The SpMV variant-study kernels on the card: the ablate, multi_acc and
+flush families (csrc/spmv_csr.cu on the row-block plan) and the segsum
+family (csrc/spmv_tiled.cu on the tiles).
 
 Every family and variant against its plain version on the same card, at
 small shapes that reach each kernel's edges: empty rows (runs of more than
-32, and rows 16 or more past a segsum sub-block's first row), a row longer
-than a warp run and one longer than the row-block plan's window of 2048
-entries, rows split across runs and tiles, blocks of 256 short rows, mean
-row lengths 1..30, and more than one 16384-entry x window.  One launch per
-call.
+32 within blocks and segsum sub-blocks), a row across many 128-entry warp
+segments and one longer than the row-block plan's window of 2048 entries
+(a block of its own), rows split across segments, a block's last step and
+segsum steps, blocks of 256 short rows, segsum sub-blocks of 16 ranks and
+steps across more than 16 rows (one entry a row), tiles of two strip
+groups, mean row lengths 1..30, and more than one 16384-entry x window.
+One launch per call.
 
 Every test needs a CUDA device (the kernels have no CPU mode) and skips
 without one.  The file imports neither JAX nor the JAX package, so that it
@@ -19,13 +20,12 @@ runs on a machine that has only the port's dependencies:
 
 Tolerance: a `bitwise` variant (ablate full, multi_acc, flush full: the
 plain version repeats the kernel's order of sums on the plan) equals its
-plain version bit for bit; every other variant is within its tol
+plain version bit for bit, and so does flush runmerge (runmerge_plain
+repeats its segmented warp scan); every other variant is within its tol
 (ops/spmv_variants.VARIANTS: 1e-5, 1e-4 for segsum/mm_precomp) times
-max(1, max|y_plain|).  Their sums run in another order than the plain
-version's, and the atomicAdd variants in an order that changes between
-runs: each row there sums at most 2 + len/8 partials, whose rounding
-stays far inside that bound.  The exact variants are also held to A @ x
-at their tol.
+max(1, max|y_plain|).  The tensor cores' sums run in another order than
+the plain versions', and merge_all's atomicAdd in an order that changes
+between runs.  The exact variants are also held to A @ x at their tol.
 """
 
 import numpy as np
@@ -37,8 +37,10 @@ from hprlp_tpu_torch.ops.device_problem import csr_from_coo
 from hprlp_tpu_torch.ops.sparse import with_spmv_backend
 from hprlp_tpu_torch.ops.spmv import csr_spmv, csr_spmv_plain, spmv_reference
 from hprlp_tpu_torch.ops.spmv_variants import (VARIANTS, WRAPPERS, plain,
+                                               segsum_rtiles, segsum_tiles,
                                                spmv_ablate, spmv_flush,
                                                spmv_multi_acc, spmv_segsum)
+from hprlp_tpu_torch.ops.tiles import build_tiles
 
 pytestmark = pytest.mark.gpu
 
@@ -83,6 +85,15 @@ def _cap_row():
     return A
 
 
+def _one_per_row():
+    """One entry in each of 3000 rows: runs of a hundred rows of one entry,
+    so segsum sub-blocks of 16 ranks and warp steps across 128 rows."""
+    rng = np.random.default_rng(10)
+    return sp.coo_matrix((rng.normal(size=3000),
+                          (np.arange(3000), rng.integers(0, 3500, 3000))),
+                         shape=(3000, 3500))
+
+
 def _tiny():
     return sp.coo_matrix((np.array([1.0, 2.0, 3.0]),
                           (np.array([0, 0, 1]), np.array([0, 1, 0]))),
@@ -102,6 +113,7 @@ CASES = {
     "windows": lambda: _random(7, 400, 40000, 20),
     "empty_rows": _empty_rows,
     "long_row": _long_row,
+    "one_per_row": _one_per_row,
     "tiny": _tiny,
 }
 
@@ -160,15 +172,24 @@ def test_variant_kernels_reject_bad_arguments(cuda):
         WRAPPERS["flush"](M, torch.ones(131, device=cuda), "runmerge")
     with pytest.raises(ValueError, match="unknown variant"):
         WRAPPERS["multi_acc"](M, torch.ones(130, device=cuda), "n_acc=3")
+    x = torch.ones(130, device=cuda)
+    other = segsum_rtiles(build_tiles(M, strip_width=64))
     with pytest.raises(ValueError, match="rtiles"):
-        spmv_segsum(M, torch.ones(130, device=cuda), "mm_precomp",
-                    rtiles=torch.zeros(2, 32, 2, dtype=torch.int32,
-                                       device=cuda))
+        spmv_segsum(M, x, "mm_precomp", rtiles=other,
+                    tiles=segsum_tiles(M))
+    B = case_matrix("tpr8", cuda)
+    with pytest.raises(ValueError, match="another matrix"):
+        spmv_segsum(M, case_x(B), "mm_hi1", tiles=segsum_tiles(B))
+    # One strip that leaves no room for any variant's staging.
+    W = case_matrix("windows", cuda)
+    T = build_tiles(W, strip_width=57344)
+    for name in VARIANTS["segsum"]:
+        with pytest.raises(ValueError, match="staging"):
+            spmv_segsum(W, case_x(W), name, tiles=T)
 
 
 PLAN_VARIANTS = [(f, v) for f, v in FAMILY_VARIANTS
-                 if f in ("ablate", "multi_acc") or (f, v) == ("flush",
-                                                           "full")]
+                 if f in ("ablate", "multi_acc", "flush")]
 
 
 @pytest.mark.parametrize("family,name", PLAN_VARIANTS,
@@ -199,3 +220,46 @@ def test_full_variants_are_csr_spmv(cuda, case):
     assert torch.equal(y, csr_spmv_plain(M, x))
     for other in ys:
         assert torch.equal(y, other)
+
+
+SEGSUM = list(VARIANTS["segsum"])
+
+
+@pytest.mark.parametrize("case", ["empty_rows", "one_per_row", "tpr8",
+                                  "cap_row"])
+@pytest.mark.parametrize("name", SEGSUM)
+def test_segsum_on_strip_groups(cuda, name, case):
+    """Every segsum variant on tiles of two strip groups and narrow strips
+    (each group's partial y, summed by the second pass), against its plain
+    version on the same tiles; mm_precomp with its R given and built by
+    the wrapper."""
+    M = case_matrix(case, cuda)
+    T = build_tiles(M, strip_width=128, block_rows=300, strip_groups=2)
+    assert T.n_groups == 2
+    G = M.with_tiles(T)
+    x = case_x(G)
+    y = spmv_segsum(G, x, name)
+    torch.cuda.synchronize()
+    y_plain = plain("segsum", G, x, name)
+    scale = max(1.0, float(y_plain.abs().max()))
+    assert float((y - y_plain).abs().max()) <= \
+        VARIANTS["segsum"][name].tol * scale
+    if name == "mm_precomp":
+        assert torch.equal(spmv_segsum(G, x, name,
+                                       rtiles=segsum_rtiles(T)), y)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("family,name", [("flush", "runmerge"),
+                                         ("segsum", "full"),
+                                         ("segsum", "mm_precomp"),
+                                         ("segsum", "mm_hi1")])
+def test_variants_without_atomics_repeat_bitwise(cuda, family, name, case):
+    """runmerge and the segsum variants add into rows in a fixed order (no
+    atomics): two launches on the same inputs give the same bits."""
+    M = case_matrix(case, cuda)
+    x = case_x(M)
+    y0 = WRAPPERS[family](M, x, name)
+    y1 = WRAPPERS[family](M, x, name)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1)
