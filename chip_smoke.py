@@ -8,7 +8,8 @@ drives the main path (hprlp_tpu_torch.solve) on three LPs, the SpMV
 variant studies, the CLI on an MPS file with presolve, then the batched
 solver (hprlp_tpu_torch.solve_batched), the solve loops' CUDA graphs
 against their eager steps, the SpMV backend autotune, the solver server
-and the C ABI with their workers on the card, and precision="mixed".  Every solve
+and the C ABI with their workers on the card, precision="mixed", and a
+113M-nnz LP through Model.solve, its ingest built beside presolve.  Every solve
 on the card replays its chunk boundary from a CUDA graph captured before
 its clock starts, and (single LP) runs the SpMV backend the autotune
 chose; a solve fails its phase unless it launched that backend's kernel
@@ -146,6 +147,25 @@ and no other SpMV kernel (the probes' launches are counted apart), on
                  on assignment64; sparse_large at 1e-6 (OPTIMAL, host-f64
                  KKT < 1e-6); every stage and tail launches the SpMV
                  kernel of the backend it ran and no other
+ 14. giant       (a) sparse_huge f32 on the giant route (the tiles kept
+                 alone: GIANT_LANE_FIRST_NNZ lowered for the call) and the
+                 standard route (the CSR arrays kept too), both on the
+                 tiles: bitwise-equal iterations, objective and point;
+                 each route's setup and scaling seconds, its device memory
+                 to the power method, after the ingest and in the solve;
+                 (b) banded_lp(1572864, 3145728, 72, 16384, 5) (~113M nnz,
+                 benchmarks/run.py's banded giant), generated once,
+                 through Model.solve with presolve on: presolve beside the
+                 ingest, the reduced nnz and whether the ingest was reused
+                 (one ingest where presolve removes at most
+                 model.REINGEST_SHARE of nnz, else two), the stage seconds, Model.solve's wall against
+                 presolve + ingest (it must be below) and all stages in
+                 a row, device memory, host peak RSS; OPTIMAL
+                 with host-f64 KKT < 1e-3 on the tiled kernel only; (c)
+                 the tiled SpMV at the giant's A and A^T (the solve's
+                 tiles) against its plain version, beside its bound and
+                 cuSPARSE (torch.mv on the same matrix, built after the
+                 solve)
 
 Any failure raises (exit code != 0).  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -2031,6 +2051,245 @@ def memory_check(card, problem):
             "spread_mib": spread, "previous_capture_mib": fault}
 
 
+# Phase 14's giant LP: benchmarks/run.py's banded giant (:488-491), ~113M
+# nnz, through Model.solve with presolve on.
+GIANT_ARGS = (1572864, 3145728, 72, 16384, 5)
+GIB = 2**30
+
+
+@contextlib.contextmanager
+def ingest_memory(mem):
+    """Record into `mem`, when the power method starts (the ingest and
+    the autotune done): "ingest_peak" (max_memory_allocated since the
+    caller's reset) and "resident" (memory_allocated); then reset the
+    peak, so that max_memory_allocated after the solve is the solve's."""
+    from hprlp_tpu_torch.solver import loop
+
+    power = loop.power_method
+
+    def at_power(lp, *args, **kw):
+        torch.cuda.synchronize()
+        mem["ingest_peak"] = torch.cuda.max_memory_allocated()
+        mem["resident"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return power(lp, *args, **kw)
+
+    with swapped(loop, power_method=at_power):
+        yield mem
+
+
+def host_peak_rss_gib():
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / GIB
+
+
+def giant_phase(card, prob6):
+    """Phase 14: (a) sparse_huge f32 on the giant route (the module constant
+    lowered for the call) and on the standard route, bitwise equal; (b) the
+    banded giant through Model.solve with presolve on, presolve beside the
+    ingest; (c) the tiled SpMV at the giant's A and A^T by graph replay
+    against its plain version, its bound and cuSPARSE.  Returns (tiled
+    launches of (a) and (b), csr_spmm launches there (the scaling's row
+    sums), {"giant_A", "giant_AT": shape record}, record)."""
+    import hprlp_tpu_torch as hp
+    from hprlp_tpu_torch import presolve
+    from hprlp_tpu_torch.model import REINGEST_SHARE
+    from hprlp_tpu_torch.ops.spmm import csr_spmm
+    from hprlp_tpu_torch.ops.spmv import tiled_spmv
+    from hprlp_tpu_torch.ops.tiles import tiled_spmv_reference
+    from hprlp_tpu_torch.prof.problems import banded_lp
+    from hprlp_tpu_torch.solver import loop
+
+    # (a) sparse_huge on both routes, on the tiles ("lane": no probe).
+    params = hp.Parameters(stop_tol=1e-4, verbose=False, max_iter=50_000,
+                           spmv_backend="lane")
+    routes, launches, row_sums = {}, 0, 0
+    for route, threshold in (("standard", 10**18), ("giant", 1)):
+        mem = {}
+        reset_spmv_launches()
+        csr_spmm.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with swapped(loop, GIANT_LANE_FIRST_NNZ=threshold), \
+                ingest_memory(mem):
+            res = loop.solve_problem(prob6, params)
+        l = spmv_launches()
+        check_backend(14, "tiled", l)
+        check(csr_spmm.launches > 0, f"phase 14: sparse_huge {route}: the "
+              f"scaling's row sums never ran on the SpMM kernel")
+        launches += l["tiled"]
+        row_sums += csr_spmm.launches
+        routes[route] = res
+        rec = {"setup_s": res.setup_time, "scaling_s": res.scaling_time,
+               "ingest_peak_gib": (mem["ingest_peak"] - base) / GIB,
+               "resident_gib": (mem["resident"] - base) / GIB,
+               "solve_peak_gib": (torch.cuda.max_memory_allocated() - base)
+               / GIB, "iter": res.iter, "tiled_launches": l["tiled"]}
+        routes[route + "_record"] = rec
+        phase(14, f"(a) sparse_huge f32 {route} route: status={res.status} "
+                  f"iter={res.iter} setup={res.setup_time:.3f}s scaling="
+                  f"{res.scaling_time:.3f}s solve={res.time:.3f}s; device "
+                  f"memory above the {base / GIB:.3f} GiB before it: peak "
+                  f"to the power method {rec['ingest_peak_gib']:.3f} GiB "
+                  f"({mem['ingest_peak'] - base:.0f} B, "
+                  f"{(mem['ingest_peak'] - base) / prob6.nnz:.1f} B/nnz), "
+                  f"allocated after the ingest {rec['resident_gib']:.3f} "
+                  f"GiB, peak in the solve {rec['solve_peak_gib']:.3f} GiB "
+                  f"[{card}]")
+        check(res.status == "OPTIMAL", f"phase 14: sparse_huge {route} "
+              f"status {res.status}")
+    rs, rg = routes["standard"], routes["giant"]
+    same = (rs.iter == rg.iter and rs.primal_obj == rg.primal_obj
+            and all(np.array_equal(getattr(rs, k), getattr(rg, k))
+                    for k in ("x", "y", "z")))
+    phase(14, f"(a) giant route bitwise the standard route: {same} "
+              f"(iterations {rg.iter} / {rs.iter}, objectives "
+              f"{float(rg.primal_obj)!r} / {float(rs.primal_obj)!r}) "
+              f"[{card}]")
+    check(same, "phase 14: sparse_huge's giant route differs from its "
+          "standard route")
+
+    # (b) the banded giant, generated once.
+    rss0 = host_peak_rss_gib()
+    t0 = time.perf_counter()
+    problem = banded_lp(*GIANT_ARGS)
+    gen_s = time.perf_counter() - t0
+    phase(14, f"(b) banded_lp{GIANT_ARGS}: m={problem.m} n={problem.n} "
+              f"nnz={problem.nnz}, generated in {gen_s:.2f} s on the host")
+    calls, mem = [], {}
+    reset_spmv_launches()
+    csr_spmm.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with recorded(calls, [(loop, "build_ingest"),
+                          (presolve, "presolve_problem")]), \
+            ingest_memory(mem):
+        t0 = time.perf_counter()
+        res = hp.Model(problem).solve(hp.Parameters(stop_tol=1e-4,
+                                                    verbose=False))
+        wall = time.perf_counter() - t0
+    solve_peak = torch.cuda.max_memory_allocated() - base
+    l = spmv_launches()
+    launches += l["tiled"]
+    giant_sums = csr_spmm.launches
+    row_sums += giant_sums
+    capture_s = loop.solve_problem.capture_time
+    rss = host_peak_rss_gib()
+    ingests = [(secs, out) for name, secs, out in calls
+               if name == "build_ingest"]
+    (pre_status, reduced, _), = [out for name, _, out in calls
+                                 if name == "presolve_problem"]
+    # Where presolve removes at most REINGEST_SHARE of nnz, Model.solve
+    # solves the original on the ingest built beside presolve, so the
+    # solve builds none of its own: one ingest.  Else two.
+    reuse_due = reduced is not None and (
+        problem.nnz - reduced.nnz <= REINGEST_SHARE * problem.nnz)
+    reused = len(ingests) == 1
+    ingest_s, (_, _, _, stages) = ingests[0]
+    lp = ingests[-1][1][0]  # the solve's
+    t0 = time.perf_counter()
+    kkt = problem.kkt_error(res.x, res.y, res.z)["kkt"]
+    kkt_s = time.perf_counter() - t0
+    serial = (res.presolve_time + ingest_s + res.power_time + capture_s
+              + res.time)
+    record = {
+        "m": problem.m, "n": problem.n, "nnz": problem.nnz,
+        "generate_s": gen_s, "presolve_status": pre_status,
+        "reduced_nnz": None if reduced is None else reduced.nnz,
+        "ingest_reused": reused, "presolve_s": res.presolve_time,
+        "ingest_s": ingest_s, "ingest_stages_s": stages,
+        "setup_s": res.setup_time, "scaling_s": res.scaling_time,
+        "power_s": res.power_time, "capture_s": capture_s,
+        "solve_s": res.time, "iter": res.iter, "model_solve_wall_s": wall,
+        "serial_sum_s": serial, "kkt_f64": kkt, "kkt_s": kkt_s,
+        "ingest_peak_gib": (mem["ingest_peak"] - base) / GIB,
+        "ingest_peak_b_per_nnz": (mem["ingest_peak"] - base) / problem.nnz,
+        "resident_gib": (mem["resident"] - base) / GIB,
+        "solve_peak_gib": solve_peak / GIB, "host_peak_rss_gib": rss,
+        "host_peak_rss_before_gib": rss0, "tiled_launches": l["tiled"],
+        "csr_launches": l["gather"], "status": res.status,
+        "s_per_it": res.time / max(res.iter, 1)}
+    phase(14, f"(b) Model.solve: status={res.status} iter={res.iter} "
+              f"presolve {pre_status} -> "
+              f"{record['reduced_nnz']} nnz, ingest reused: {reused}; "
+              f"presolve={res.presolve_time:.3f}s ingest={ingest_s:.3f}s "
+              f"(" + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+              + f") setup={res.setup_time:.3f}s scaling="
+              f"{res.scaling_time:.3f}s power={res.power_time:.3f}s "
+              f"capture={capture_s:.3f}s solve={res.time:.3f}s "
+              f"({record['s_per_it'] * 1e3:.3f} ms/it); Model.solve wall "
+              f"{wall:.3f}s against presolve + ingest "
+              f"{res.presolve_time + ingest_s:.3f}s and all stages in a "
+              f"row {serial:.3f}s [{card}]")
+    phase(14, f"(b) device memory above the {base / GIB:.3f} GiB before "
+              f"it: peak to the power method {record['ingest_peak_gib']:.3f}"
+              f" GiB ({record['ingest_peak_b_per_nnz']:.1f} B/nnz), "
+              f"allocated after the ingest {record['resident_gib']:.3f} "
+              f"GiB, peak in the solve {record['solve_peak_gib']:.3f} GiB; "
+              f"host peak RSS {rss:.2f} GiB ({rss0:.2f} before (b)); "
+              f"launches {l}; host f64 KKT {kkt:.3e} ({kkt_s:.1f} s) "
+              f"[{card}]")
+    check(res.status == "OPTIMAL", f"phase 14: the giant's status "
+          f"{res.status}")
+    check(kkt < 1e-3, f"phase 14: the giant's host f64 KKT {kkt}")
+    check_backend(14, "tiled", l)
+    check(giant_sums > 0, "phase 14: the giant's scaling never ran its row "
+          "sums on the SpMM kernel")
+    check(pre_status == "OK" and len(ingests) == (1 if reuse_due else 2),
+          f"phase 14: presolve {pre_status} to {record['reduced_nnz']} "
+          f"nnz, {len(ingests)} ingests")
+    check(wall < res.presolve_time + ingest_s, f"phase 14: Model.solve "
+          f"took {wall} s, no less than presolve + ingest "
+          f"({res.presolve_time + ingest_s} s): no overlap")
+
+    # (c) the tiled SpMV at the giant's shapes, on the solve's tiles.
+    rng = np.random.default_rng(0)
+    shapes = {}
+    for mat_name, M in (("A", lp.A), ("AT", lp.AT)):
+        T = M.tiles
+        x = torch.as_tensor(rng.normal(size=M.ncols), dtype=M.dtype,
+                            device=M.device)
+        y = tiled_spmv(T, x)
+        y_ref = tiled_spmv_reference(T, x)
+        torch.cuda.synchronize()
+        scale = float(y_ref.abs().max())
+        err = float((y - y_ref).abs().max())
+        check(err <= 1e-5 * scale, f"phase 14: giant {mat_name} tiled max "
+              f"abs err {err} > 1e-5 * {scale}")
+        order, row, col = T.coo
+        keep = row < T.nrows
+        S = torch.sparse_coo_tensor(
+            torch.stack([row[keep], col[keep]]), T.vals[order][keep],
+            (T.nrows, T.ncols), check_invariants=False
+        ).coalesce().to_sparse_csr()
+        del order, row, col, keep
+        bound_ms, bound_by = spmv_bound(M, M.dtype)
+        rec = {"nnz": M.nnz, "err": err, "scale": scale,
+               "ms": time_ms(lambda: tiled_spmv(T, x)),
+               "plain_ms": time_ms(lambda: tiled_spmv_reference(T, x),
+                                   reps=10),
+               "library_ms": time_ms(lambda: torch.mv(S, x)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "strips": T.n_strips, "groups": T.n_groups,
+               "chunks": T.n_chunks, "tile_bytes": T.vals.nbytes
+               + T.keys.nbytes + T.runs.nbytes + T.row_start.nbytes}
+        shapes["giant_" + mat_name] = rec
+        del S
+        T.__dict__.pop("coo", None)
+        phase(14, f"(c) giant {mat_name} ({M.nnz} nnz, tiles "
+                  f"{rec['tile_bytes'] / GIB:.3f} GiB: {T.n_strips} strips "
+                  f"in {T.n_groups} groups x {T.n_chunks} chunks): tiled "
+                  f"{rec['ms']:.5f} ms ({bound_ms / rec['ms']:.1%} of bound "
+                  f"{bound_ms:.5f} ms, {bound_by}), plain "
+                  f"{rec['plain_ms']:.5f}, cuSPARSE {rec['library_ms']:.5f}"
+                  f"; max_abs_err={err:.3e} (<= 1e-5*{scale:.3e}) [{card}]")
+    record["a"] = {k: v for k, v in routes.items() if k.endswith("record")}
+    return launches, row_sums, shapes, record
+
+
 def fused_spmv_phase(card, problem):
     """Phase 10 (b): the single-LP middle iteration fused into the CSR
     kernel, at `problem` (sparse_large) on the gather backend, f32 and
@@ -2217,6 +2476,9 @@ def main():
     mixed_rec, l13 = mixed_phase(card, prob4)
     phase(13, f"phases 12 and 13 took {time.perf_counter() - t_service:.1f}"
               f" s [{card}]")
+    t_giant = time.perf_counter()
+    l14, s14, giant_shapes, giant_rec = giant_phase(card, prob6)
+    phase(14, f"took {time.perf_counter() - t_giant:.1f} s [{card}]")
     # Phase 12's workers by the precision they solved in: the server and
     # the ctypes consumer f32 (1e-4), the C examples f64 (f64 or 1e-6).
     w32 = [l12a, l12b["ctypes"]]
@@ -2237,7 +2499,7 @@ def main():
     kernels = []
     for tag, launches, replaces, also in (
             ("f32", l4["tiled"] + l6["tiled"] + l8["tiled"] + l9_tiled
-             + worker_sum(w32, "tiled_spmv") + l13["f32"]["tiled"],
+             + worker_sum(w32, "tiled_spmv") + l13["f32"]["tiled"] + l14,
              "hprlp_tpu/ops/pallas_spmv.py:67",
              "thin_spmv hprlp_tpu/ops/pallas_spmv.py:272"),
             ("f64", l5["tiled"] + worker_sum(w64, "tiled_spmv")
@@ -2343,7 +2605,10 @@ def main():
                              for t, r in single_fused.items()}
     kernels[0]["launches_by_phase"] = {
         "4": l4["tiled"], "6": l6["tiled"], "8": l8["tiled"], "9": l9_tiled,
-        "12": worker_sum(w32, "tiled_spmv"), "13": l13["f32"]["tiled"]}
+        "12": worker_sum(w32, "tiled_spmv"), "13": l13["f32"]["tiled"],
+        "14": l14}
+    kernels[0]["shapes"].update(giant_shapes)
+    kernels[0]["giant"] = giant_rec
     kernels[1]["launches_by_phase"] = {
         "5": l5["tiled"], "12": worker_sum(w64, "tiled_spmv"),
         "13": l13["f64"]["tiled"]}
@@ -2365,7 +2630,8 @@ def main():
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"]}
     spmm_by_phase = {"4": s4, "5": s5, "6": s6, "8": s8, "9": l9["csr_spmm"],
-                     "12": p12["csr_spmm"], "13": l13["csr_spmm"]}
+                     "12": p12["csr_spmm"], "13": l13["csr_spmm"],
+                     "14": s14}
     kernels.append({
         "name": "csr_spmm", **spmm_common,
         "note": "no Pallas kernel in the JAX package: spmm is an XLA "

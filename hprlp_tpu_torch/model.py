@@ -2,15 +2,16 @@
 solve_mps, solve_with_presolve).
 
 `Model.solve` runs presolve -> solve -> postsolve -> original-space KKT
-validation, as the JAX package does (use_presolve is on by default).  The
-JAX package's giant-regime overlap of presolve with the TPU's lane-first
-ingest is not carried over.
+validation, as the JAX package does (use_presolve is on by default).  In
+the giant regime (solver/loop.py::giant_regime) it overlaps presolve with
+the ingest of the original problem, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -19,7 +20,12 @@ from .io.mps import read_mps
 from .params import Parameters
 from .problem import LpProblem
 from .results import Results
+from .solver import loop
 from .solver.loop import solve_problem
+
+# Presolve must remove more than this share of nnz for the ingest of the
+# original problem, built beside it, to be dropped for the reduced one.
+REINGEST_SHARE = 0.1
 
 
 class Model:
@@ -77,6 +83,21 @@ class Model:
         return False
 
 
+def _presolve(ps, problem: LpProblem, budget: float):
+    """presolve_problem behind the reference's error boundary: a failure of
+    any kind degrades to the unreduced model with a warning.  Returns
+    (status, reduced, handle, seconds)."""
+    t0 = time.perf_counter()
+    try:
+        status, reduced, handle = ps.presolve_problem(problem,
+                                                      max_time=budget)
+    except Exception as e:  # error boundary: degrade to the full model
+        print(f"[presolve] failed ({e}); solving the original model",
+              file=sys.stderr)
+        status, reduced, handle = "UNAVAILABLE", None, None
+    return status, reduced, handle, time.perf_counter() - t0
+
+
 def solve_with_presolve(problem: LpProblem,
                         parameters: Optional[Parameters] = None,
                         x0=None, y0=None, device=None) -> Results:
@@ -85,6 +106,13 @@ def solve_with_presolve(problem: LpProblem,
     A presolve failure of any kind falls back to solving the unreduced
     model with a warning.  An original-space warm start (x0, y0) is
     projected onto the reduced problem via the presolver's index maps.
+
+    In the giant regime with no warm start, presolve (native, the GIL
+    released) runs in a worker thread while this thread builds the ingest
+    of the original problem (solver/loop.py::build_ingest).  If presolve removes at most
+    REINGEST_SHARE of nnz (or fails), the original is solved on that
+    ingest with no postsolve; else the ingest is dropped and the reduced
+    problem solved.  A failed ingest raises once the worker has joined.
     """
     params = parameters or Parameters()
     log = print if params.verbose else (lambda *a, **k: None)
@@ -93,18 +121,34 @@ def solve_with_presolve(problem: LpProblem,
 
     from . import presolve as ps
 
-    t0 = time.perf_counter()
     # Presolve wall budget: the 60 s default clipped to the solver's time
     # limit.
     pre_budget = min(60.0, float(params.time_limit))
-    try:
-        status, reduced, handle = ps.presolve_problem(problem,
-                                                      max_time=pre_budget)
-    except Exception as e:  # error boundary: degrade to the full model
-        print(f"[presolve] failed ({e}); solving the original model",
-              file=sys.stderr)
-        status, reduced, handle = "UNAVAILABLE", None, None
-    t_pre = time.perf_counter() - t0
+    ingest = None
+    if x0 is None and y0 is None and loop.giant_regime(problem, params):
+        # Both threads start by canonicalising A in place: done here, once,
+        # before they share it.
+        problem.A.sum_duplicates()
+        with ThreadPoolExecutor(1) as pool:
+            worker = pool.submit(_presolve, ps, problem, pre_budget)
+            # An ingest error leaves the with block, which joins the
+            # worker first.
+            ingest = loop.build_ingest(problem, params, device)
+            status, reduced, handle, t_pre = worker.result()
+        if status == "OK" and reduced.n > 0:
+            removed = problem.nnz - reduced.nnz
+            if removed > REINGEST_SHARE * problem.nnz:
+                ingest = None  # frees it before the reduced problem's
+            else:
+                log(f"Presolve removed {removed} nnz (<= "
+                    f"{REINGEST_SHARE:.0%}); solving the original on the "
+                    f"ingest built beside it")
+                res = solve_problem(problem, params, device=device,
+                                    _ingest=ingest)
+                res.presolve_time = t_pre
+                return res
+    else:
+        status, reduced, handle, t_pre = _presolve(ps, problem, pre_budget)
 
     if status in ("INFEASIBLE", "UNBOUNDED"):
         res = Results()
@@ -114,7 +158,9 @@ def solve_with_presolve(problem: LpProblem,
         log(f"Presolve detected {status} in {t_pre:.2f} seconds")
         return res
     if status != "OK":
-        return solve_problem(problem, params, x0=x0, y0=y0, device=device)
+        return solve_problem(problem, params, x0=x0, y0=y0, device=device,
+                             _ingest=ingest)
+    ingest = None
 
     st = handle.stats()
     log(f"Presolve: {problem.m}x{problem.n} ({problem.nnz} nnz) -> "

@@ -13,6 +13,10 @@ space to a multiple of PAD_MULTIPLE.  The TPU package's layout passes
 serve its LaneELL crossbar only and have no counterpart here; a caller may
 still pass positions and padded sizes (row_pos, col_pos, m_pad, n_pad) to
 reproduce another layout index for index, as the parity tests do.
+
+The default layout is built by `host_csr` and `upload_problem`: A's CSR
+once on the host, A^T by one transpose, one upload.  `build_device_problem`
+builds it so too, and builds other layouts from COO entries.
 """
 
 from __future__ import annotations
@@ -116,7 +120,11 @@ def build_device_problem(problem: LpProblem, dtype=torch.float32,
                          device="cpu", row_pos=None, col_pos=None,
                          m_pad: int | None = None, n_pad: int | None = None
                          ) -> tuple[LpDevice, HostMaps]:
-    """Lay an LpProblem out on `device` as padded CSR A and A^T."""
+    """Lay an LpProblem out on `device` as padded CSR A and A^T: the
+    default layout by upload_problem, another from COO entries."""
+    if all(v is None for v in (row_pos, col_pos, m_pad, n_pad)):
+        return upload_problem(problem, *host_csr(problem), dtype=dtype,
+                              device=device)
     A = problem.A.tocsr()
     A.sum_duplicates()
     m, n = A.shape
@@ -131,19 +139,68 @@ def build_device_problem(problem: LpProblem, dtype=torch.float32,
     rows, cols = row_pos[coo.row], col_pos[coo.col]
     A_dev = csr_from_coo(rows, cols, coo.data, m_pad, n_pad, dtype, device)
     AT_dev = csr_from_coo(cols, rows, coo.data, n_pad, m_pad, dtype, device)
+    lp = LpDevice(A=A_dev, AT=AT_dev,
+                  **_vectors(problem, row_pos, col_pos, m_pad, n_pad, dtype,
+                             device))
+    return lp, _host_maps(problem, row_pos, col_pos)
 
+
+def _vectors(problem: LpProblem, row_pos, col_pos, m_pad: int, n_pad: int,
+             dtype, device) -> dict:
+    """The padded AL, AU (padding rows free) and c, l, u (padding columns
+    fixed at zero) on `device`."""
     def scatter_vec(vals, pos, size, fill):
         out = np.full(size, fill, dtype=np.float64)
         out[pos] = vals
         return torch.as_tensor(out, device=device).to(dtype)
 
-    lp = LpDevice(A=A_dev, AT=AT_dev,
-                  AL=scatter_vec(problem.AL, row_pos, m_pad, -np.inf),
-                  AU=scatter_vec(problem.AU, row_pos, m_pad, np.inf),
-                  c=scatter_vec(problem.c, col_pos, n_pad, 0.0),
-                  l=scatter_vec(problem.l, col_pos, n_pad, 0.0),
-                  u=scatter_vec(problem.u, col_pos, n_pad, 0.0))
-    maps = HostMaps(row_pos=row_pos, col_pos=col_pos, m_orig=m, n_orig=n,
+    return {"AL": scatter_vec(problem.AL, row_pos, m_pad, -np.inf),
+            "AU": scatter_vec(problem.AU, row_pos, m_pad, np.inf),
+            "c": scatter_vec(problem.c, col_pos, n_pad, 0.0),
+            "l": scatter_vec(problem.l, col_pos, n_pad, 0.0),
+            "u": scatter_vec(problem.u, col_pos, n_pad, 0.0)}
+
+
+def _host_maps(problem: LpProblem, row_pos, col_pos) -> HostMaps:
+    return HostMaps(row_pos=row_pos, col_pos=col_pos, m_orig=problem.m,
+                    n_orig=problem.n,
                     obj_constant=float(problem.obj_constant),
                     objective_sense=problem.objective_sense)
-    return lp, maps
+
+
+def host_csr(problem: LpProblem) -> tuple[sp.csr_matrix, sp.csr_matrix]:
+    """A's canonical CSR (tocsr, sum_duplicates) and A^T's, by one
+    transpose: the host's whole share of the default layout."""
+    A = problem.A.tocsr()
+    A.sum_duplicates()
+    AT = A.T.tocsr()
+    AT.sum_duplicates()
+    return A, AT
+
+
+def _padded_csr(M: sp.csr_matrix, nrows: int, ncols: int, dtype, device
+                ) -> CsrMatrix:
+    """Upload canonical CSR M as the (nrows, ncols) matrix whose first rows
+    and columns are M's: M's own arrays, indptr extended over the padding
+    rows."""
+    indptr = np.empty(nrows + 1, np.int64)
+    indptr[:M.shape[0] + 1] = M.indptr
+    indptr[M.shape[0] + 1:] = M.nnz
+    return csr_from_numpy(indptr, M.indices, M.data, nrows, ncols, dtype,
+                          device)
+
+
+def upload_problem(problem: LpProblem, A: sp.csr_matrix, AT: sp.csr_matrix,
+                   dtype=torch.float32, device="cpu"
+                   ) -> tuple[LpDevice, HostMaps]:
+    """The default layout of `problem` on `device`, from host_csr's A and
+    A^T: the matrix crosses the link once, as int32 indices and values
+    already in `dtype`.  The layout keeps the original order, so each
+    padded CSR is the matrix's own arrays with indptr extended."""
+    m, n = A.shape
+    m_pad, n_pad = padded_size(m), padded_size(n)
+    lp = LpDevice(A=_padded_csr(A, m_pad, n_pad, dtype, device),
+                  AT=_padded_csr(AT, n_pad, m_pad, dtype, device),
+                  **_vectors(problem, np.arange(m), np.arange(n), m_pad,
+                             n_pad, dtype, device))
+    return lp, _host_maps(problem, np.arange(m), np.arange(n))

@@ -26,13 +26,17 @@ from .spmv import (RowBlocks, csr_spmv, row_blocks, row_of_entry,
 from .tiles import TiledMatrix, tiled_spmv_reference
 
 INT32_MAX = 2**31 - 1
+NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 @dataclasses.dataclass(frozen=True)
 class CsrMatrix:
-    indptr: torch.Tensor   # (nrows + 1,) int32
-    indices: torch.Tensor  # (nnz,) int32 column positions
-    vals: torch.Tensor     # (nnz,) float32 or float64
+    """A matrix on a device.  Its CSR arrays are None once `tiles_only`
+    released them; the tiles then hold the matrix."""
+
+    indptr: torch.Tensor | None   # (nrows + 1,) int32
+    indices: torch.Tensor | None  # (nnz,) int32 column positions
+    vals: torch.Tensor | None     # (nnz,) float32 or float64
     nrows: int
     ncols: int
     tiles: TiledMatrix | None = None  # the same matrix as SpMV tiles
@@ -41,15 +45,17 @@ class CsrMatrix:
 
     @property
     def nnz(self) -> int:
+        if self.indices is None:
+            return self.tiles.nnz
         return int(self.indices.shape[0])
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.vals.dtype
+        return (self.tiles if self.vals is None else self).vals.dtype
 
     @property
     def device(self) -> torch.device:
-        return self.vals.device
+        return (self.tiles if self.vals is None else self).vals.device
 
     def with_vals(self, vals: torch.Tensor) -> "CsrMatrix":
         """New values; the tiles and the dense copy are dropped, since they
@@ -62,10 +68,24 @@ class CsrMatrix:
             raise ValueError("the tiles are of another matrix")
         return dataclasses.replace(self, tiles=tiles)
 
+    def tiles_only(self) -> "CsrMatrix":
+        """The matrix on its tiles alone: the CSR arrays, the row-block
+        plan, a dense copy and the tiles' CSR order (`perm`) released, so
+        the device keeps only what the tiled SpMV reads.  Nothing that
+        reads the CSR arrays (the scaling, the "gather" backend, the
+        batched SpMM, retile) runs on the result."""
+        if self.tiles is None:
+            raise ValueError("tiles_only needs the matrix's tiles")
+        return dataclasses.replace(self, indptr=None, indices=None,
+                                   vals=None, dense=None, blocks=None,
+                                   tiles=self.tiles.without_perm())
+
 
 def csr_from_numpy(indptr, indices, vals, nrows: int, ncols: int,
                    dtype: torch.dtype, device) -> CsrMatrix:
-    """Upload host CSR arrays.  Raises if an index would not fit int32."""
+    """Upload host CSR arrays: int32 indices, and values cast to `dtype` on
+    the host, so no wider copy crosses the link.  Raises if an index would
+    not fit int32."""
     indptr = np.asarray(indptr)
     nnz = int(indptr[-1]) if len(indptr) else 0
     if nnz > INT32_MAX or nrows > INT32_MAX or ncols > INT32_MAX:
@@ -77,8 +97,8 @@ def csr_from_numpy(indptr, indices, vals, nrows: int, ncols: int,
     return CsrMatrix(
         indptr=torch.as_tensor(indptr.astype(np.int32), device=device),
         indices=torch.as_tensor(np.asarray(indices, np.int32), device=device),
-        vals=torch.as_tensor(np.asarray(vals, np.float64), device=device
-                             ).to(dtype),
+        vals=torch.as_tensor(np.asarray(vals, np.float64).astype(
+            NUMPY_DTYPES[dtype], copy=False), device=device),
         nrows=int(nrows), ncols=int(ncols))
 
 

@@ -29,7 +29,8 @@ column strip at a time and keep their rows of y there:
 * `runs[(b * WARPS + w) * Kg + l]` is where the run of warp w in the
   l-th strip of block b's group starts, and `runs[-1]` the padded length;
 * `perm` maps CSR entry order to tile order, so `retile` takes rescaled
-  values without a rebuild.
+  values without a rebuild; tiles built from final values may drop it
+  (`without_perm`), as the solve's ingest does.
 
 `build_tiles` runs on A's device with torch ops (stable sorts and
 cumsums, no loop over rows).  `strip_width`, `block_rows` and
@@ -80,9 +81,10 @@ class TiledMatrix:
     keys: torch.Tensor       # (L,) int32: row_in_chunk << 16 | col_in_strip
     runs: torch.Tensor       # (n_blocks * WARPS * group_strips + 1,) int32
     row_start: torch.Tensor  # (n_chunks + 1,) int32, first row of a chunk
-    perm: torch.Tensor       # (nnz,) int64: CSR entry -> tile position
+    perm: torch.Tensor | None  # (nnz,) int64: CSR entry -> tile position
     nrows: int
     ncols: int
+    nnz: int                 # stored entries, without the padding
     strip_width: int
     n_strips: int            # K
     n_groups: int            # G
@@ -93,10 +95,6 @@ class TiledMatrix:
     @property
     def n_blocks(self) -> int:
         return self.n_groups * self.n_chunks
-
-    @property
-    def nnz(self) -> int:
-        return int(self.perm.shape[0])
 
     @property
     def dtype(self) -> torch.dtype:
@@ -133,8 +131,16 @@ class TiledMatrix:
         col = strip * self.strip_width + (key & 0xFFFF)
         return order, row, col
 
+    def without_perm(self) -> "TiledMatrix":
+        """The same tiles without `perm` (8 B per entry), which only
+        `retile` reads."""
+        return dataclasses.replace(self, perm=None)
+
     def retile(self, vals: torch.Tensor) -> "TiledMatrix":
         """The same layout with new values, given in CSR entry order."""
+        if self.perm is None:
+            raise ValueError("these tiles dropped their CSR order "
+                             "(without_perm): retile needs it")
         if vals.shape != (self.nnz,) or vals.dtype != self.dtype:
             raise ValueError(f"retile needs ({self.nnz},) {self.dtype} "
                              f"values, got {tuple(vals.shape)} {vals.dtype}")
@@ -243,16 +249,25 @@ def build_tiles(A, strip_width: int | None = None,
                          f"need {need} B of shared memory, more than "
                          f"{SMEM_BYTES}")
 
+    # Each int64 per-entry temporary is 8 B/nnz: each is dropped as soon
+    # as it is dead, since this is the ingest's peak of device memory.
     row = torch.repeat_interleave(
         torch.arange(nrows, device=dev), indptr[1:] - indptr[:-1],
         output_size=nnz)
-    col = A.indices.to(torch.int64)
     chunk = torch.searchsorted(chunk_start, row, right=True) - 1
+    key = (row - chunk_start[chunk]) << 16  # row in chunk
+    del row
+    col = A.indices.to(torch.int64)
     strip = col // W
-    block = strip // Kg * C + chunk
-    group = block * Kg + strip % Kg   # one (block, strip) pair
+    key |= col - strip * W
+    del col
+    group = (strip // Kg * C + chunk) * Kg + strip % Kg  # (block, strip)
+    del strip, chunk
     order = torch.sort(group, stable=True).indices  # rows stay sorted
-    g, r = group[order], row[order]
+    g = group[order]
+    del group
+    # Within a (block, strip) pair the row in chunk orders as the row.
+    r = key[order] >> 16
     n_groups = G * C * Kg
     g_count = torch.bincount(g, minlength=n_groups)
     g_first = torch.cumsum(g_count, 0) - g_count
@@ -261,8 +276,11 @@ def build_tiles(A, strip_width: int | None = None,
     # A row's entries go to the warp of its first entry in the pair.
     head = torch.ones(nnz, dtype=torch.bool, device=dev)
     head[1:] = (g[1:] != g[:-1]) | (r[1:] != r[:-1])
+    del r
     warp = warp[head][torch.cumsum(head, 0) - 1]
+    del head
     run = (g // Kg * WARPS + warp) * Kg + g % Kg
+    del g, warp
     r_count = torch.bincount(run, minlength=n_groups * WARPS)
     runs = torch.zeros(n_groups * WARPS + 1, dtype=torch.int64, device=dev)
     runs[1:] = torch.cumsum(-(-r_count // vec) * vec, 0)
@@ -273,20 +291,22 @@ def build_tiles(A, strip_width: int | None = None,
     r_head = torch.ones(nnz, dtype=torch.bool, device=dev)
     r_head[1:] = run[1:] != run[:-1]
     r_first = torch.cummax(torch.where(r_head, idx, 0), 0).values
+    del r_head
     perm = torch.empty(nnz, dtype=torch.int64, device=dev)
     perm[order] = runs[run] + idx - r_first
+    del order, run, idx, r_first
 
-    key = ((row - chunk_start[chunk]) << 16) | (col - strip * W)
     keys = torch.full((length,), SENTINEL_ROW << 16, dtype=torch.int64,
                       device=dev)
     keys[perm] = key
+    del key
     keys = torch.where(keys >= 2**31, keys - 2**32, keys).to(torch.int32)
     vals = torch.zeros(length, dtype=A.vals.dtype, device=dev)
     vals[perm] = A.vals
     return TiledMatrix(vals=vals, keys=keys, runs=runs.to(torch.int32),
                        row_start=chunk_start.to(torch.int32), perm=perm,
-                       nrows=nrows, ncols=ncols, strip_width=W, n_strips=K,
-                       n_groups=G, group_strips=Kg, n_chunks=C,
+                       nrows=nrows, ncols=ncols, nnz=nnz, strip_width=W,
+                       n_strips=K, n_groups=G, group_strips=Kg, n_chunks=C,
                        max_block_rows=max_rows)
 
 

@@ -2,7 +2,7 @@
 smoke run and variant studies.  Each is a copy of its original, pinned to
 it by tests/test_torch_copies.py:
 
-  random_lp, assignment_problem   benchmarks/run.py
+  random_lp, banded_lp, assignment_problem   benchmarks/run.py
   make_problem (M, N, NNZ_PER_ROW, SEED)   bench.py:44-46, 69-82
   structured_lp   benchmarks/prof_presolve_scale.py (the presolvable LP
                   of benchmarks/report_presolve_scale.json)
@@ -38,6 +38,26 @@ def random_lp(m, n, nnz_per_row, seed=0, name=""):
     return LpProblem.from_arrays(A, Ax - 1.0, Ax + 1.0, x_feas - 2.0,
                                  x_feas + 2.0, rng.normal(size=n),
                                  name=name or f"random{m}x{n}")
+
+
+def banded_lp(m, n, nnz_per_row, halfwidth, seed=0, name=""):
+    """Copy of benchmarks/run.py::banded_lp: a random LP whose row i has
+    its columns within +-halfwidth of its diagonal position, the locality
+    of giant network and staircase models.  banded_lp(1572864, 3145728,
+    72, 16384, 5) is the repository's banded giant (~113M nnz)."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(m), nnz_per_row)
+    center = (rows * (n / m)).astype(np.int64)
+    cols = (center + rng.integers(-halfwidth, halfwidth + 1,
+                                  size=m * nnz_per_row)) % n
+    vals = rng.normal(size=m * nnz_per_row)
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
+    A.sum_duplicates()
+    x_feas = rng.uniform(-1.0, 1.0, n)
+    Ax = A @ x_feas
+    return LpProblem.from_arrays(A, Ax - 1.0, Ax + 1.0, x_feas - 2.0,
+                                 x_feas + 2.0, rng.normal(size=n),
+                                 name=name or f"banded{m}x{n}")
 
 
 def assignment_problem(n=64, seed=0):

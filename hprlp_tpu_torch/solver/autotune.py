@@ -16,7 +16,10 @@ a CUDA graph and timed by its replays between CUDA events
 JAX package's mixed pairs are tried only where its lane kernel is not
 available, which on the card it always is, and its f64 lane pin has no
 counterpart: the H100's f64 is native.  On the CPU no probe runs: the probe
-ranks kernels, and no kernel runs there.
+ranks kernels, and no kernel runs there.  Nor does one from
+AUTOTUNE_LANE_DIRECT_NNZ on, where the solve's ingest keeps the tiles alone
+(solver/loop.py::giant_regime, CsrMatrix.tiles_only) and the other
+candidates would need the CSR arrays it released.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ MERIT_RTOL = 0.01   # reference: within 1% of baseline merit
 # Below this nnz no probe runs: it would cost more than it could win.
 AUTOTUNE_MIN_NNZ = 10_000
 # At or above this nnz the tiled kernel is taken without probing, as the
-# JAX package takes its lane kernel.
+# JAX package takes its lane kernel; solver/loop.py's GIANT_LANE_FIRST_NNZ
+# is this number.
 AUTOTUNE_LANE_DIRECT_NNZ = 20_000_000
 # A dense product reads the whole matrix: below this density it cannot win.
 DENSE_MIN_DENSITY = 0.01
@@ -86,9 +90,9 @@ def autotune_backends(lp: LpDevice, probe_args,
     autotune_backends.record = None
     if not _lane_ok(lp) or lp.A.nnz < AUTOTUNE_MIN_NNZ:
         return lp
-    if lp.A.nnz >= AUTOTUNE_LANE_DIRECT_NNZ:
-        log(f"[autotune] nnz={lp.A.nnz} >= {AUTOTUNE_LANE_DIRECT_NNZ}: "
-            f"tiled selected without probing")
+    if lp.A.nnz >= AUTOTUNE_LANE_DIRECT_NNZ or lp.A.vals is None:
+        log(f"[autotune] nnz={lp.A.nnz} >= {AUTOTUNE_LANE_DIRECT_NNZ} (or "
+            f"the tiles kept alone): tiled selected without probing")
         return lp
     itemsize = torch.empty((), dtype=lp.c.dtype).element_size()
     density = lp.A.nnz / max(1, lp.A.nrows * lp.A.ncols)

@@ -7,6 +7,10 @@ capture of one chunk boundary in a CUDA graph -> restart/sigma/stopping
 loop over chunks (device_loop.run_superchunk, replaying the graph) ->
 unscale.  Chunk boundaries reproduce the reference's schedule: every
 check_iter iterations (restart + stopping).
+
+The layout, upload and scaling are one ingest (`build_ingest`); in the
+giant regime (`giant_regime`) it keeps only the SpMV tiles on the device,
+and model.py may build it beside presolve and pass it in.
 """
 
 from __future__ import annotations
@@ -18,15 +22,15 @@ import time
 import numpy as np
 import torch
 
-from ..ops.device_problem import (attach_blocks, attach_tiles,
-                                  build_device_problem)
+from ..ops.device_problem import attach_blocks, host_csr, upload_problem
 from ..ops.sparse import spmv_backend
 from ..ops.tiles import build_tiles
 from ..params import Parameters
 from ..problem import LpProblem
 from ..results import Results
 from .chunk import init_state, initial_metrics, unscale_solution
-from .autotune import autotune_backends, set_spmv_backend
+from .autotune import (AUTOTUNE_LANE_DIRECT_NNZ, autotune_backends,
+                       set_spmv_backend)
 from .device_loop import capture_superchunk, init_restart_dev, run_superchunk
 from .power_iteration import power_method
 from .scaling import scale_problem
@@ -35,6 +39,11 @@ from .scaling import scale_problem
 # below it (the GPU's f64 is native, so "auto" never routes to the
 # refinement of precision="mixed").
 F64_BELOW_TOL = 1e-5
+# At or above this nnz a solve on the tiles keeps the tiles alone
+# (giant_regime).  It is the autotune's rule, which owns the number: from
+# there on the tiled kernel is taken without a probe, so the CSR arrays
+# and the "gather" plan would be kept only to go unused.
+GIANT_LANE_FIRST_NNZ = AUTOTUNE_LANE_DIRECT_NNZ
 
 
 @dataclasses.dataclass
@@ -111,8 +120,75 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def giant_regime(problem: LpProblem, params: Parameters) -> bool:
+    """Whether the ingest of `problem` under `params` keeps the tiles
+    alone: nnz >= GIANT_LANE_FIRST_NNZ on the tiles ("auto" or "lane"),
+    and not precision="mixed", whose stages build their own ingests."""
+    return (problem.nnz >= GIANT_LANE_FIRST_NNZ
+            and params.spmv_backend in ("auto", "lane")
+            and params.precision != "mixed")
+
+
+def build_ingest(problem: LpProblem, params: Parameters, device=None):
+    """The solve's ingest of `problem` under `params` on `device` (None:
+    cuda:{params.device_number}).  The matrix crosses the link once and
+    never comes back:
+      1. "host": A's CSR and A^T's (ops/device_problem.py::host_csr);
+      2. "upload": the default layout at the solve's dtype (upload_problem);
+      3. "scaling": solver/scaling.py::scale_problem on the device;
+      4. "layout": what the SpMV backends read, from the scaled matrices:
+         the "gather" plan where that backend may run, and the SpMV tiles
+         (ops/tiles.py) where the tiles may.  In the giant regime no plan
+         is built and each matrix keeps its tiles alone
+         (CsrMatrix.tiles_only), A's CSR arrays released before A^T's
+         tiles are built.
+    Returns (lp, maps, scal, seconds): seconds of the stages above, each
+    ended by a device sync, and "wall".  Raises on any failure, and for
+    precision="mixed"; no caller tries another route."""
+    t0 = time.perf_counter()
+    params.validate()
+    _check_supported(params)
+    if params.precision == "mixed":
+        raise ValueError("precision='mixed' solves in stages, each with its "
+                         "own ingest: no single ingest")
+    device = resolve_device(params, device)
+    giant = giant_regime(problem, params)
+
+    def synced() -> float:
+        _sync(device)
+        return time.perf_counter()
+
+    A, AT = host_csr(problem)
+    t1 = time.perf_counter()
+    lp, maps = upload_problem(problem, A, AT,
+                              dtype=resolve_dtype(params, device),
+                              device=device)
+    del A, AT
+    t2 = synced()
+    lp, scal = scale_problem(lp, use_cr=params.use_CR_scaling,
+                             use_ruiz=params.use_Ruiz_scaling,
+                             use_pc=params.use_Pock_Chambolle_scaling,
+                             use_bc=params.use_bc_scaling)
+    t3 = synced()
+    if params.spmv_backend in ("auto", "gather") and not giant:
+        lp = attach_blocks(lp)
+    if params.spmv_backend in ("auto", "lane"):
+        # Nothing retiles these tiles, so they keep no CSR order (perm).
+        for name in ("A", "AT"):
+            M = getattr(lp, name)
+            M = M.with_tiles(build_tiles(M).without_perm())
+            lp = dataclasses.replace(
+                lp, **{name: M.tiles_only() if giant else M})
+            del M
+    t4 = synced()
+    return lp, maps, scal, {"host": t1 - t0, "upload": t2 - t1,
+                            "scaling": t3 - t2, "layout": t4 - t3,
+                            "wall": t4 - t0}
+
+
 def solve_problem(problem: LpProblem, params: Parameters | None = None,
-                  x0=None, y0=None, sigma0=None, device=None) -> Results:
+                  x0=None, y0=None, sigma0=None, device=None,
+                  _ingest=None) -> Results:
     """Full solve: upload -> scale -> SpMV backend -> power method -> HPR
     loop -> unscale.
 
@@ -129,6 +205,12 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     the CSR kernel or a dense product (on the CPU their plain versions).  After the call, solve_problem.capture_time holds the
     seconds of the CUDA graph's warm-up and capture (None on the CPU),
     which no field of Results counts.
+
+    The solve builds its ingest (build_ingest), or takes `_ingest`, one
+    that model.py built for this problem, params and device beside
+    presolve.  setup_time is the ingest's wall less its scaling, and
+    scaling_time its scaling.  A failed ingest raises: no other route is
+    tried.
     """
     params = params or Parameters()
     params.validate()
@@ -143,36 +225,17 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
 
     out = Results()
 
-    t_setup = time.perf_counter()
     solve_problem.capture_time = None
-    lp_raw, maps = build_device_problem(problem, dtype=dtype, device=device)
-    # The SpMV tiles' structure (ops/tiles.py) is layout and counts here;
-    # the scaled values are gathered into it below, in scaling_time.
-    # "gather" and "dense" never run on them.
-    tiled = params.spmv_backend in ("auto", "lane")
-    tiles = (build_tiles(lp_raw.A), build_tiles(lp_raw.AT)) if tiled else None
-    # So is the CSR kernel's row-block plan ("gather", which the autotune
-    # may choose); it holds no values, so the scaling keeps it.
-    if params.spmv_backend in ("auto", "gather"):
-        lp_raw = attach_blocks(lp_raw)
-    _sync(device)
-    out.setup_time = time.perf_counter() - t_setup
+    if _ingest is None:
+        _ingest = build_ingest(problem, params, device)
+    lp, maps, scal, seconds = _ingest
+    del _ingest
+    out.setup_time = seconds["wall"] - seconds["scaling"]
+    out.scaling_time = seconds["scaling"]
     log(f"Setup (layout and upload) time = {out.setup_time:.2f} seconds")
-
-    t_scale = time.perf_counter()
-    lp, scal = scale_problem(lp_raw,
-                             use_cr=params.use_CR_scaling,
-                             use_ruiz=params.use_Ruiz_scaling,
-                             use_pc=params.use_Pock_Chambolle_scaling,
-                             use_bc=params.use_bc_scaling)
-    del lp_raw
-    if tiled:
-        lp = attach_tiles(lp, *tiles)
-    del tiles
     scal_host = {k: float(getattr(scal, k)) for k in
                  ("b_scale", "c_scale", "norm_b", "norm_c",
                   "norm_b_org", "norm_c_org")}
-    out.scaling_time = time.perf_counter() - t_scale
     log(f"Scaling time = {out.scaling_time:.2f} seconds")
 
     if sigma0 is not None:

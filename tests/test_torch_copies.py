@@ -121,6 +121,7 @@ def test_chip_smoke_generators_match_benchmarks(name, args):
 
 @pytest.mark.parametrize("name,args", [
     ("random_lp", (300, 500, 7, 2)),
+    ("banded_lp", (300, 600, 9, 20, 5)),
     ("assignment_problem", (8,)),
     ("make_problem", ()),
 ])
