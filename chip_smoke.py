@@ -166,6 +166,23 @@ and no other SpMV kernel (the probes' launches are counted apart), on
                  tiles) against its plain version, beside its bound and
                  cuSPARSE (torch.mv on the same matrix, built after the
                  solve)
+ 15. mesh        (a) sparse_huge's A and A^T (f32) cut into 2 and 4
+                 column slices (parallel/sharded.py::column_slices), each
+                 slice tiled and timed by graph replay beside its bound,
+                 the slices' partial y's summed against the tiled kernel
+                 on the whole matrix and its plain version; (b) a one-rank
+                 NCCL group in this process: sparse_huge f32 (1e-4) and
+                 assignment64 f64 (1e-8) with mesh_shape=1 (the slice,
+                 the all-reduces captured in the CUDA graph), bitwise the
+                 spmv_backend="lane" solve (iterations, objective, x),
+                 both Results.time, the tiled launches and the all-reduces
+                 per iteration; (c) batched_large with mesh_shape=1,
+                 every member bitwise the single-device batched solve;
+                 (d) `python -m hprlp_tpu_torch.cli -i data/model.mps
+                 --mesh 1 --quiet` (a launched rank): rc 0, -26.4, the
+                 rank's start seconds; (e) with two cards, a 2-rank
+                 sparse_huge solve against the single-card one, else a
+                 line saying why it did not run
 
 Any failure raises (exit code != 0).  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -2381,6 +2398,231 @@ def fused_spmv_phase(card, problem):
     return records
 
 
+MESH_SLICES = (2, 4)
+MESH_TOL = 1e-5  # the sum of the slices' partial y's, f32, relative
+GROUP_UP = re.compile(r"\[mesh rank (\d+)/(\d+)\] .* group up in (\S+) s")
+
+
+def mesh_counts(fn):
+    """(fn(), each counted wrapper's launches during it, the sharded
+    SpMV's all-reduces included: solver/graph.py::launch_counts)."""
+    from hprlp_tpu_torch.solver.graph import launch_counts
+
+    before = launch_counts()
+    out = fn()
+    after = launch_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def same_point(a, b):
+    """Iterations, objective and x bitwise equal."""
+    return (a.iter == b.iter and a.primal_obj == b.primal_obj
+            and np.array_equal(a.x, b.x))
+
+
+def mesh_slices(card, problem):
+    """Phase 15 (a): sparse_huge's A and A^T (f32) cut by column_slices at
+    each N of MESH_SLICES, each slice tiled on the card and timed by graph
+    replay beside its bound; the slices' partial y's summed against the
+    tiled kernel on the whole matrix and its plain version."""
+    from hprlp_tpu_torch.ops.device_problem import build_device_problem
+    from hprlp_tpu_torch.ops.spmv import tiled_spmv
+    from hprlp_tpu_torch.ops.tiles import build_tiles, tiled_spmv_reference
+    from hprlp_tpu_torch.parallel.sharded import (column_slices,
+                                                  slice_columns)
+
+    rng = np.random.default_rng(15)
+    lp, _ = build_device_problem(problem, dtype=torch.float32,
+                                 device="cuda")
+    rec = {}
+    for name, M in (("A", lp.A), ("AT", lp.AT)):
+        x = torch.as_tensor(rng.normal(size=M.ncols), device="cuda"
+                            ).to(torch.float32)
+        T = build_tiles(M).without_perm()
+        whole = tiled_spmv(T, x)
+        plain = tiled_spmv_reference(T, x)
+        whole_ms = time_ms(lambda: tiled_spmv(T, x))
+        scale = float(plain.abs().max())
+        col = torch.bincount(M.indices.long(), minlength=M.ncols)
+        for N in MESH_SLICES:
+            total = torch.zeros_like(whole)
+            slices = []
+            for c0, c1 in column_slices(col.cpu().numpy(), N):
+                S = slice_columns(M, c0, c1)
+                TS = build_tiles(S).without_perm()
+                xs = x[c0:c1]
+                total += tiled_spmv(TS, xs)
+                bound, by = spmv_bound(S, torch.float32)
+                slices.append({"c0": c0, "c1": c1, "nnz": S.nnz,
+                               "ms": time_ms(lambda: tiled_spmv(TS, xs)),
+                               "bound_ms": bound, "bound_by": by})
+                del S, TS
+            torch.cuda.synchronize()
+            err = float((total - whole).abs().max())
+            err_plain = float((total - plain).abs().max())
+            check(max(err, err_plain) <= MESH_TOL * scale,
+                  f"phase 15 (a): {name} at N={N}: the slices' partial y's "
+                  f"are {err} from the whole kernel's and {err_plain} from "
+                  f"the plain version's, more than {MESH_TOL} * {scale}")
+            top = max(slices, key=lambda r: r["ms"])
+            rec[f"{name}_N{N}"] = {"slices": slices, "max_abs_err": err,
+                                   "max_abs_err_plain": err_plain,
+                                   "whole_ms": whole_ms,
+                                   "largest_slice_ms": top["ms"]}
+            phase(15, f"(a) sparse_huge {name} f32 ({M.nnz} nnz) in {N} "
+                      f"column slices: " + "; ".join(
+                          f"[{r['c0']}, {r['c1']}) {r['nnz']} nnz "
+                          f"{r['ms']:.5f} ms (bound {r['bound_ms']:.5f} ms, "
+                          f"{r['bound_by']})" for r in slices)
+                  + f"; sum of the partial y's against the whole kernel "
+                    f"max_abs_err={err:.3e}, against the plain version "
+                    f"{err_plain:.3e} (<= {MESH_TOL:g}*{scale:.3e}); the "
+                    f"largest slice {top['ms']:.5f} ms beside the whole "
+                    f"matrix's {whole_ms:.5f} ms [{card}]")
+    return rec
+
+
+def mesh_phase(card, prob6, prob5):
+    """Phase 15: the mesh route on one card.  (a) mesh_slices; (b) a
+    one-rank NCCL group in this process: sparse_huge f32 (1e-4) and
+    assignment64 f64 (1e-8) with mesh_shape=1, captured, bitwise the
+    spmv_backend="lane" solve; (c) batched_large with mesh_shape=1 bitwise
+    the single-device batched solve; (d) `python -m hprlp_tpu_torch.cli
+    --mesh 1` on data/model.mps (its own group, in a launched rank); (e)
+    with two cards or more, a 2-rank sparse_huge solve against the
+    single-card one, else why not.  Returns ({"f32", "f64": tiled launches,
+    and each other counted wrapper's} of the mesh-route solves, record)."""
+    import torch.distributed as dist
+
+    import hprlp_tpu_torch as hp
+    from hprlp_tpu_torch.parallel import distributed
+    from hprlp_tpu_torch.prof.problems import batched_lp
+
+    t_start = time.perf_counter()
+    rec = {"slices": mesh_slices(card, prob6)}
+    launches = {"f32": {}, "f64": {}}
+
+    def add(tag, counts):
+        for k, v in counts.items():
+            launches[tag][k] = launches[tag].get(k, 0) + v
+
+    params = {"sparse_huge": (prob6, "f32", dict(
+        stop_tol=1e-4, verbose=False, use_presolve=False,
+        max_iter=50_000)),
+        "assignment64": (prob5, "f64", dict(
+            stop_tol=1e-8, verbose=False, use_presolve=False,
+            max_iter=100_000))}
+    singles = {}
+    arrays = batched_lp(65536, 131072, 64, seed=3)
+    distributed.initialize(f"tcp://127.0.0.1:{distributed._free_port()}",
+                           1, 0, "cuda")
+    try:
+        for name, (problem, tag, kw) in params.items():
+            mesh, counts = mesh_counts(lambda: hp.solve_problem(
+                problem, hp.Parameters(mesh_shape=1, **kw)))
+            add(tag, counts)
+            lane = hp.solve_problem(problem, hp.Parameters(
+                spmv_backend="lane", **kw))
+            singles[name] = lane
+            same = same_point(mesh, lane)
+            per_it = counts["all_reduce_sum"] / max(mesh.iter, 1)
+            rec[name] = {"iter": mesh.iter, "status": mesh.status,
+                         "time_mesh": mesh.time, "time_lane": lane.time,
+                         "setup_mesh": mesh.setup_time,
+                         "setup_lane": lane.setup_time,
+                         "launches": counts, "all_reduce_per_iter": per_it,
+                         "bitwise": same}
+            phase(15, f"(b) {name} {tag} mesh_shape=1 (one NCCL rank, "
+                      f"all-reduces in the CUDA graph): status={mesh.status} "
+                      f"iter={mesh.iter} Results.time={mesh.time:.4f}s "
+                      f"(lane, no mesh: {lane.time:.4f}s, iter={lane.iter}) "
+                      f"setup={mesh.setup_time:.3f}s (lane "
+                      f"{lane.setup_time:.3f}s) tiled_spmv launches "
+                      f"{counts['tiled_spmv']}, all-reduces "
+                      f"{counts['all_reduce_sum']} ({per_it:.3f} per "
+                      f"iteration), csr_spmv {counts['csr_spmv']}; bitwise "
+                      f"the lane solve (iterations, objective, x): {same} "
+                      f"[{card}]")
+            check(same, f"phase 15 (b): {name} with mesh_shape=1 is not "
+                  f"bitwise the lane solve")
+            check(mesh.status == "OPTIMAL" and mesh.spmv_backend == "tiled",
+                  f"phase 15 (b): {name} {mesh.status} {mesh.spmv_backend}")
+            check(counts["tiled_spmv"] > 0 and counts["all_reduce_sum"] > 0
+                  and counts["csr_spmv"] == 0, f"phase 15 (b): {name} "
+                  f"launched {counts}")
+        A, C, AL, AU, l, u = arrays
+        bkw = dict(stop_tol=1e-4, verbose=False, time_limit=300)
+        bmesh, counts = mesh_counts(lambda: hp.solve_batched(
+            A, C, AL, AU, l, u, params=hp.Parameters(mesh_shape=1, **bkw)))
+        add("f32", counts)
+        bone = hp.solve_batched(A, C, AL, AU, l, u,
+                                params=hp.Parameters(**bkw))
+        bsame = (bmesh.status == bone.status
+                 and np.array_equal(bmesh.iter, bone.iter)
+                 and np.array_equal(bmesh.primal_obj, bone.primal_obj)
+                 and np.array_equal(bmesh.x, bone.x))
+        rec["batched_large"] = {"time_mesh": bmesh.time,
+                                "time_single": bone.time,
+                                "launches": counts, "bitwise": bsame}
+        phase(15, f"(c) batched_large B={C.shape[1]} mesh_shape=1: "
+                  f"{sum(st == 'OPTIMAL' for st in bmesh.status)}/"
+                  f"{C.shape[1]} OPTIMAL, every member bitwise the "
+                  f"single-device batched solve (status, iterations, "
+                  f"objective, x): {bsame}; time {bmesh.time:.3f}s (single "
+                  f"{bone.time:.3f}s); launches csr_spmm "
+                  f"{counts['csr_spmm']}, spmm halves "
+                  f"{counts['spmm_x_half']}/{counts['spmm_y_half']} "
+                  f"[{card}]")
+        check(bsame, "phase 15 (c): batched_large with mesh_shape=1 is not "
+              "bitwise the single-device batched solve")
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "hprlp_tpu_torch.cli", "-i",
+                          MODEL, "--mesh", "1", "--quiet"], cwd=HERE,
+                         capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    line = [ln for ln in cli.stdout.splitlines()
+            if ln.startswith("status=")]
+    obj = float(line[0].split("obj=")[1].split()[0]) if line else None
+    ups = [float(m.group(3)) for m in GROUP_UP.finditer(cli.stderr)]
+    rec["cli"] = {"rc": cli.returncode, "obj": obj, "wall_s": wall,
+                  "rank_start_s": ups}
+    phase(15, f"(d) python -m hprlp_tpu_torch.cli -i data/model.mps --mesh 1 "
+              f"--quiet: rc={cli.returncode} {line[0] if line else ''}; the "
+              f"rank's group up {ups} s after its start (outside "
+              f"Results.time), wall {wall:.2f}s [{card}]")
+    check(cli.returncode == 0 and obj is not None
+          and abs(obj + 26.4) <= 1e-3 * 26.4 and len(ups) == 1,
+          f"phase 15 (d): rc {cli.returncode}, objective {obj}, stderr "
+          f"{cli.stderr[-2000:]}")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        two = hp.solve_problem(prob6, hp.Parameters(
+            mesh_shape=2, **params["sparse_huge"][2]))
+        one = singles["sparse_huge"]
+        rel = abs(two.primal_obj - one.primal_obj) / abs(one.primal_obj)
+        rec["two_cards"] = {"status": two.status, "iter": two.iter,
+                            "time": two.time, "rel_obj": rel,
+                            "rank_start_s":
+                                distributed.launch.record["start_s"]}
+        phase(15, f"(e) sparse_huge on 2 cards (2 NCCL ranks): status="
+                  f"{two.status} iter={two.iter} time={two.time:.4f}s "
+                  f"objective rel diff {rel:.3e} against one card "
+                  f"({one.status}, iter {one.iter}, {one.time:.4f}s) "
+                  f"[{card}]")
+        check(two.status == one.status and rel <= 1e-4,
+              f"phase 15 (e): 2 cards {two.status} rel {rel}")
+    else:
+        rec["two_cards"] = None
+        phase(15, f"(e) 2-card solve not run: this machine has {n_cards} "
+                  f"card(s), and NCCL runs one rank per card [{card}]")
+    phase(15, f"took {time.perf_counter() - t_start:.1f} s [{card}]")
+    return launches, rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2479,6 +2721,7 @@ def main():
     t_giant = time.perf_counter()
     l14, s14, giant_shapes, giant_rec = giant_phase(card, prob6)
     phase(14, f"took {time.perf_counter() - t_giant:.1f} s [{card}]")
+    l15, mesh_rec = mesh_phase(card, prob6, prob5)
     # Phase 12's workers by the precision they solved in: the server and
     # the ctypes consumer f32 (1e-4), the C examples f64 (f64 or 1e-6).
     w32 = [l12a, l12b["ctypes"]]
@@ -2499,11 +2742,13 @@ def main():
     kernels = []
     for tag, launches, replaces, also in (
             ("f32", l4["tiled"] + l6["tiled"] + l8["tiled"] + l9_tiled
-             + worker_sum(w32, "tiled_spmv") + l13["f32"]["tiled"] + l14,
+             + worker_sum(w32, "tiled_spmv") + l13["f32"]["tiled"] + l14
+             + l15["f32"]["tiled_spmv"],
              "hprlp_tpu/ops/pallas_spmv.py:67",
              "thin_spmv hprlp_tpu/ops/pallas_spmv.py:272"),
             ("f64", l5["tiled"] + worker_sum(w64, "tiled_spmv")
-             + l13["f64"]["tiled"], "hprlp_tpu/ops/pallas_spmv.py:178",
+             + l13["f64"]["tiled"] + l15["f64"]["tiled_spmv"],
+             "hprlp_tpu/ops/pallas_spmv.py:178",
              "thin_spmv_df64 hprlp_tpu/ops/pallas_spmv.py:394")):
         a = rec["bench", tag, "A"]
         kernels.append({
@@ -2606,12 +2851,13 @@ def main():
     kernels[0]["launches_by_phase"] = {
         "4": l4["tiled"], "6": l6["tiled"], "8": l8["tiled"], "9": l9_tiled,
         "12": worker_sum(w32, "tiled_spmv"), "13": l13["f32"]["tiled"],
-        "14": l14}
+        "14": l14, "15": l15["f32"]["tiled_spmv"]}
     kernels[0]["shapes"].update(giant_shapes)
     kernels[0]["giant"] = giant_rec
+    kernels[0]["mesh"] = mesh_rec
     kernels[1]["launches_by_phase"] = {
         "5": l5["tiled"], "12": worker_sum(w64, "tiled_spmv"),
-        "13": l13["f64"]["tiled"]}
+        "13": l13["f64"]["tiled"], "15": l15["f64"]["tiled_spmv"]}
     kernels[0]["mps_presolve"] = mps_record
     kernels[0]["graphs"] = graph_rec
     kernels[0]["server"] = server_rec
@@ -2631,7 +2877,8 @@ def main():
         "bound_by": head["bound_by"], "library_ms": head["library_ms"]}
     spmm_by_phase = {"4": s4, "5": s5, "6": s6, "8": s8, "9": l9["csr_spmm"],
                      "12": p12["csr_spmm"], "13": l13["csr_spmm"],
-                     "14": s14}
+                     "14": s14, "15": sum(l15[t]["csr_spmm"]
+                                          for t in ("f32", "f64"))}
     kernels.append({
         "name": "csr_spmm", **spmm_common,
         "note": "no Pallas kernel in the JAX package: spmm is an XLA "
@@ -2662,9 +2909,11 @@ def main():
                     f"SpMM over {matrix}'s rows; no Pallas kernel in the "
                     f"JAX package (XLA fuses it); batched_large B=64 f32, "
                     f"plain_ms the plain ops by graph replay",
-            "launches": l9[f"spmm_{half}_half"] + p12[f"spmm_{half}_half"],
+            "launches": l9[f"spmm_{half}_half"] + p12[f"spmm_{half}_half"]
+            + l15["f32"][f"spmm_{half}_half"],
             "launches_by_phase": {"9": l9[f"spmm_{half}_half"],
-                                  "12": p12[f"spmm_{half}_half"]},
+                                  "12": p12[f"spmm_{half}_half"],
+                                  "15": l15["f32"][f"spmm_{half}_half"]},
             "max_abs_err": max(fused_rec[t]["max_abs_err"]
                                for t in fused_rec),
             "ms": r32["ms"], "plain_ms": r32["plain_ms"],

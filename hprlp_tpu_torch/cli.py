@@ -5,9 +5,11 @@ codes (0 OPTIMAL, 1 input or parse error, 2 any other status).  --device
 takes a CUDA device index (default 0) or ``cpu``; without CUDA the CLI
 fails unless ``--device cpu`` is given.  --cusparse-spmv true forces the
 CSR SpMV backend ("gather"), as the JAX CLI does.  --precision mixed
-solves by f32 stages refined in host f64 (solver/refine.py).  Flags whose
-feature the port does not have yet exit 1 with a message that names them:
---mesh and --malloc-tune.
+solves by f32 stages refined in host f64 (solver/refine.py).  --mesh N
+solves on N ranks, one process per card (cards 0..N-1), or N gloo ranks
+on the CPU with --device cpu (Parameters.mesh_shape, parallel/).  A flag
+whose feature the port does not have yet exits 1 with a message that
+names it: --malloc-tune.
 """
 
 from __future__ import annotations
@@ -78,8 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Solve precision (default: auto; mixed: f32 "
                         "stages refined in host f64, then an f64 tail)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="Shard the solve over N devices (not ported: "
-                        "exits 1)")
+                   help="Shard the solve over N ranks, one per card "
+                        "(cards 0..N-1; with --device cpu, N CPU ranks)")
     p.add_argument("--mps-format", choices=("free", "fixed"),
                    default="free",
                    help="MPS card format: free (whitespace tokens, default) "
@@ -120,8 +122,6 @@ def write_solution(path: str, res) -> None:
 def unported_flags(args) -> list[str]:
     """The flags given whose feature the port does not have yet."""
     out = []
-    if args.mesh is not None:
-        out.append("--mesh (multi-device solves)")
     if args.malloc_tune:
         out.append("--malloc-tune (host allocator tuning)")
     return out
@@ -144,10 +144,32 @@ def main(argv=None) -> int:
               "CPU", file=sys.stderr)
         return 1
 
+    if args.mesh is not None and args.device not in (0, "cpu"):
+        print("--mesh N runs rank r on card r: --device takes 0 or cpu with "
+              "it", file=sys.stderr)
+        return 1
     from .model import Model
+
+    params = params_from_args(args)
+    try:
+        model = Model.from_mps(args.input, mps_format=args.mps_format)
+    except Exception as e:  # parse errors -> exit 1 with message
+        print(f"Failed to read {args.input}: {e}", file=sys.stderr)
+        return 1
+    res = model.solve(params, device="cpu" if args.device == "cpu" else None)
+    if args.quiet:
+        print(f"status={res.status} iter={res.iter} time={res.time:.3f}s "
+              f"obj={res.primal_obj:.12e} kkt={res.residuals:.3e}")
+    if args.solution_out:
+        write_solution(args.solution_out, res)
+    return 0 if res.status == "OPTIMAL" else 2
+
+
+def params_from_args(args):
+    """The Parameters of parsed CLI arguments."""
     from .params import Parameters
 
-    params = Parameters(
+    return Parameters(
         max_iter=args.max_iter,
         stop_tol=args.tol,
         time_limit=args.time_limit,
@@ -161,20 +183,9 @@ def main(argv=None) -> int:
         use_bc_scaling=args.bc,
         use_presolve=args.presolve,
         precision=args.precision,
+        mesh_shape=args.mesh,
         verbose=not args.quiet,
     )
-    try:
-        model = Model.from_mps(args.input, mps_format=args.mps_format)
-    except Exception as e:  # parse errors -> exit 1 with message
-        print(f"Failed to read {args.input}: {e}", file=sys.stderr)
-        return 1
-    res = model.solve(params, device="cpu" if args.device == "cpu" else None)
-    if args.quiet:
-        print(f"status={res.status} iter={res.iter} time={res.time:.3f}s "
-              f"obj={res.primal_obj:.12e} kkt={res.residuals:.3e}")
-    if args.solution_out:
-        write_solution(args.solution_out, res)
-    return 0 if res.status == "OPTIMAL" else 2
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@ solve_mps, solve_with_presolve).
 `Model.solve` runs presolve -> solve -> postsolve -> original-space KKT
 validation, as the JAX package does (use_presolve is on by default).  In
 the giant regime (solver/loop.py::giant_regime) it overlaps presolve with
-the ingest of the original problem, as the JAX package does.
+the ingest of the original problem, as the JAX package does, except under
+a mesh (Parameters.mesh_shape), where presolve runs first and then the
+mesh solve of the reduced problem (solver/loop.py::solve_problem).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional
 import numpy as np
 
 from .io.mps import read_mps
+from .parallel import distributed
 from .params import Parameters
 from .problem import LpProblem
 from .results import Results
@@ -107,9 +110,11 @@ def solve_with_presolve(problem: LpProblem,
     model with a warning.  An original-space warm start (x0, y0) is
     projected onto the reduced problem via the presolver's index maps.
 
-    In the giant regime with no warm start, presolve (native, the GIL
-    released) runs in a worker thread while this thread builds the ingest
-    of the original problem (solver/loop.py::build_ingest).  If presolve removes at most
+    In the giant regime with no warm start and no mesh (mesh_shape; the
+    overlap is not taken under a mesh: ROADMAP.md queue 1), presolve
+    (native, the GIL released) runs in a worker thread while this thread
+    builds the ingest of the original problem (solver/loop.py::
+    build_ingest).  If presolve removes at most
     REINGEST_SHARE of nnz (or fails), the original is solved on that
     ingest with no postsolve; else the ingest is dropped and the reduced
     problem solved.  A failed ingest raises once the worker has joined.
@@ -125,7 +130,8 @@ def solve_with_presolve(problem: LpProblem,
     # limit.
     pre_budget = min(60.0, float(params.time_limit))
     ingest = None
-    if x0 is None and y0 is None and loop.giant_regime(problem, params):
+    if (x0 is None and y0 is None and not params.mesh_shape
+            and loop.giant_regime(problem, params)):
         # Both threads start by canonicalising A in place: done here, once,
         # before they share it.
         problem.A.sum_duplicates()
@@ -149,6 +155,10 @@ def solve_with_presolve(problem: LpProblem,
                 return res
     else:
         status, reduced, handle, t_pre = _presolve(ps, problem, pre_budget)
+        if params.mesh_shape and distributed.in_group():
+            # Each rank presolved the same problem; they agree on its time.
+            t_pre = distributed.all_ranks_max(
+                [t_pre], distributed.mesh_device(device))[0]
 
     if status in ("INFEASIBLE", "UNBOUNDED"):
         res = Results()

@@ -11,6 +11,12 @@ matrix that `with_backend(A, "dense")` attaches.  A single LP's SpMV
 runs on the tiles, on the CSR arrays with their row-block plan (the
 "gather" backend, ops/spmv.py::row_blocks) or on a dense copy, as
 `with_spmv_backend` sets it up.
+
+Under a mesh (parallel/sharded.py) each rank's matrix is a `Shard` of
+the whole: its tiles hold the rank's column slice A[:, c0:c1], and `spmv`
+runs the tiled kernel on x[c0:c1], which gives a partial y over all rows,
+then sums the ranks' partials with one all-reduce (`all_reduce_sum`), the
+JAX package's psum.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .spmm import csr_spmm, spmm_reference
 from .spmv import (RowBlocks, csr_spmv, row_blocks, row_of_entry,
@@ -30,9 +37,23 @@ NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 @dataclasses.dataclass(frozen=True)
+class Shard:
+    """This rank's part of a matrix column-sharded over a process group:
+    columns [c0, c1), whose tiles the rank holds.  group: the
+    torch.distributed group the partial products are summed over (None:
+    the default group)."""
+
+    c0: int
+    c1: int
+    group: object = None
+
+
+@dataclasses.dataclass(frozen=True)
 class CsrMatrix:
     """A matrix on a device.  Its CSR arrays are None once `tiles_only`
-    released them; the tiles then hold the matrix."""
+    released them, or on a shard; the tiles then hold the matrix (on a
+    shard, its columns [shard.c0, shard.c1) only, while nrows and ncols
+    stay the whole matrix's)."""
 
     indptr: torch.Tensor | None   # (nrows + 1,) int32
     indices: torch.Tensor | None  # (nnz,) int32 column positions
@@ -42,9 +63,11 @@ class CsrMatrix:
     tiles: TiledMatrix | None = None  # the same matrix as SpMV tiles
     dense: torch.Tensor | None = None  # the same matrix, (nrows, ncols)
     blocks: RowBlocks | None = None  # the CSR kernel's row-block plan
+    shard: Shard | None = None  # this rank's columns under a mesh
 
     @property
     def nnz(self) -> int:
+        """Stored entries; on a shard, those of this rank's columns."""
         if self.indices is None:
             return self.tiles.nnz
         return int(self.indices.shape[0])
@@ -102,12 +125,33 @@ def csr_from_numpy(indptr, indices, vals, nrows: int, ncols: int,
         nrows=int(nrows), ncols=int(ncols))
 
 
+def all_reduce_sum(y: torch.Tensor, group=None) -> torch.Tensor:
+    """y summed in place over the ranks of `group` (torch.distributed's
+    all_reduce: NCCL on the card, gloo on the CPU); every rank gets the
+    same bits.  Counts its calls in `all_reduce_sum.launches`, as the
+    kernel wrappers count theirs.  Raises on a failed or timed-out
+    collective."""
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    all_reduce_sum.launches += 1
+    return y
+
+
+all_reduce_sum.launches = 0
+
+
 def spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x.  A dense copy, where attached, goes to the dense product.
     Else a CUDA tensor goes to a hand-written kernel (which raises on
     failure): the tiled kernel when A carries tiles, else the CSR kernel
     (on A's row-block plan, which it must carry).
-    A CPU tensor goes to the matching plain version."""
+    A CPU tensor goes to the matching plain version.  On a shard, the tiled
+    kernel (or its plain version) on x[c0:c1] gives this rank's partial y,
+    and all_reduce_sum adds the ranks' partials."""
+    if A.shard is not None:
+        xs = x[A.shard.c0:A.shard.c1]
+        part = (tiled_spmv(A.tiles, xs) if x.device.type == "cuda"
+                else tiled_spmv_reference(A.tiles, xs))
+        return all_reduce_sum(part, A.shard.group)
     if A.dense is not None:
         return _dense_matmul(A.dense, x)
     if x.device.type == "cuda":

@@ -10,7 +10,10 @@ The port's solver (solver/loop.py) honours every precision: "auto",
 below) and "mixed" (f32 stages refined in host f64 with an f64 tail,
 solver/refine.py; refine_stage_precision="f64" runs native f64 stages).
 spmv_backend "auto" and "lane" run the tiled SpMV kernel, the port of the
-lane kernels.  mesh_shape is not ported and raises NotImplementedError.
+lane kernels.  mesh_shape=N runs the solve on N ranks, one process per
+card (gloo ranks with device="cpu"), with the tiled kernel on each rank's
+column slice of A (parallel/); it takes spmv_backend "auto" or "lane" and
+not precision="mixed" (NotImplementedError otherwise).
 """
 
 from __future__ import annotations

@@ -63,6 +63,10 @@ def _params(d: dict):
         if not hasattr(p, k):
             raise ValueError(f"unknown parameter {k!r}")
         setattr(p, k, v)
+    if p.mesh_shape:
+        raise NotImplementedError("mesh_shape in a server or C-ABI request "
+                                  "is not ported yet (ROADMAP.md queue 1 "
+                                  "item 6)")
     return p
 
 

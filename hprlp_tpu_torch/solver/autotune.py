@@ -19,7 +19,9 @@ counterpart: the H100's f64 is native.  On the CPU no probe runs: the probe
 ranks kernels, and no kernel runs there.  Nor does one from
 AUTOTUNE_LANE_DIRECT_NNZ on, where the solve's ingest keeps the tiles alone
 (solver/loop.py::giant_regime, CsrMatrix.tiles_only) and the other
-candidates would need the CSR arrays it released.
+candidates would need the CSR arrays it released, nor on a mesh, where each
+rank keeps the tiles of its column slice alone (parallel/sharded.py): one
+condition, the CSR arrays released, covers both.
 """
 
 from __future__ import annotations
@@ -92,7 +94,8 @@ def autotune_backends(lp: LpDevice, probe_args,
         return lp
     if lp.A.nnz >= AUTOTUNE_LANE_DIRECT_NNZ or lp.A.vals is None:
         log(f"[autotune] nnz={lp.A.nnz} >= {AUTOTUNE_LANE_DIRECT_NNZ} (or "
-            f"the tiles kept alone): tiled selected without probing")
+            f"the tiles kept alone: the giant regime or a mesh): tiled "
+            f"selected without probing")
         return lp
     itemsize = torch.empty((), dtype=lp.c.dtype).element_size()
     density = lp.A.nnz / max(1, lp.A.nrows * lp.A.ncols)

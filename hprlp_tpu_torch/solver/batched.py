@@ -21,12 +21,14 @@ Differences from the single-LP path, matching the reference:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..constants import DENSE_BYTES_LIMIT_BATCHED
 from ..ops.device_problem import (HostMaps, LpDevice, attach_tiles,
@@ -34,11 +36,12 @@ from ..ops.device_problem import (HostMaps, LpDevice, attach_tiles,
 from ..ops.sparse import CsrMatrix, spmm, with_backend
 from ..ops.spmm import spmm_x_half, spmm_y_half
 from ..ops.tiles import build_tiles
+from ..parallel import distributed
 from ..params import Parameters
 from ..problem import LpProblem, _normalize_inf
 from ..results import BatchedResults
 from .graph import time_probe
-from .loop import _sync, resolve_device, resolve_dtype
+from .loop import _sync, mesh_rank_device, resolve_device, resolve_dtype
 from .power_iteration import power_method
 from .scaling import scale_matrix
 
@@ -274,13 +277,6 @@ def initial_bmetrics(lp: BatchedLpDevice, row_norm, col_norm,
     return m
 
 
-def _check_supported(params: Parameters) -> None:
-    if params.mesh_shape:
-        raise NotImplementedError(
-            "mesh_shape (batched solves over several devices) is not ported "
-            "yet (ROADMAP.md queue 1 item 6, multi-GPU)")
-
-
 def _probe_dense(lp, row_norm_d, col_norm_d, state, sigma, lam, log):
     """The batched autotune (reference protocol: >= 5% faster and merit
     within 1%, src/main_iterate.cu:517-595): PROBE_ITERS iterations of
@@ -460,13 +456,69 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
     probe's record, or None when no probe ran, and
     solve_batched.capture_time the seconds of the CUDA graph's warm-up and
     capture (None on the CPU).
+
+    mesh_shape=N shards the batch axis, as the JAX package does: B must be
+    a multiple of N (else ValueError).  Inside a process group of N ranks
+    rank r solves members [r B / N, (r + 1) B / N) on its device
+    (distributed.mesh_device) with A replicated, so the shared lambda_max
+    is the same on every rank, and no dense probe runs; nothing is
+    communicated in the loop, and the members' results are all-gathered at
+    the end, so every rank returns the whole BatchedResults, whose times
+    are the ranks' maxima.  Without a group the N ranks are launched
+    (distributed.launch) and rank 0's result is returned.
     """
     params = params or Parameters()
     params.validate()
-    _check_supported(params)
-    device = resolve_device(params, device)
+    if params.mesh_shape:
+        return _solve_batched_mesh(A, C, AL, AU, l, u, obj_constants,
+                                   params, device)
+    return _solve_batched(A, C, AL, AU, l, u, obj_constants, params,
+                          resolve_device(params, device))
+
+
+def _solve_batched_mesh(A, C, AL, AU, l, u, obj_constants,
+                        params: Parameters, device) -> BatchedResults:
+    N = params.mesh_shape
+    B = np.shape(C)[1] if np.ndim(C) == 2 else None
+    if B is None:
+        raise ValueError("C must be (n, batch)")
+    if B % N:
+        raise ValueError(f"batch size {B} not divisible by mesh size {N}")
+    if not distributed.in_group():
+        dev_type = distributed.check_launch(N, device)
+        return distributed.launch(
+            solve_batched, (A, C, AL, AU, l, u, obj_constants, params),
+            {"device": dev_type}, world=N, device_type=dev_type,
+            timeout=params.time_limit + distributed.LAUNCH_SLACK_S)[0]
+    device = mesh_rank_device(params, device)
+    lo, hi = distributed.rank() * B // N, (distributed.rank() + 1) * B // N
+    part = _solve_batched(
+        A, *(np.asarray(v)[:, lo:hi] for v in (C, AL, AU, l, u)),
+        None if obj_constants is None
+        else np.asarray(obj_constants)[lo:hi], params, device)
+    parts = [None] * N
+    # Over NCCL the pickled parts travel on the current card: the rank's.
+    with (torch.cuda.device(device) if device.type == "cuda"
+          else contextlib.nullcontext()):
+        dist.all_gather_object(parts, part)
+    out = BatchedResults(m=part.m, n=part.n, batch_size=B)
+    for name in ("x", "y", "z"):
+        setattr(out, name, np.asfortranarray(np.concatenate(
+            [getattr(p, name) for p in parts], axis=1)))
+    for name in ("primal_obj", "residuals", "gap", "iter"):
+        setattr(out, name, np.concatenate([getattr(p, name) for p in parts]))
+    out.status = [st for p in parts for st in p.status]
+    for name in ("time", "setup_time", "solve_time", "power_time"):
+        setattr(out, name, max(getattr(p, name) for p in parts))
+    return out
+
+
+def _solve_batched(A, C, AL, AU, l, u, obj_constants, params: Parameters,
+                   device: torch.device) -> BatchedResults:
+    """solve_batched on one device (a rank's members under a mesh)."""
     dtype = resolve_dtype(params, device)
-    log = print if params.verbose else (lambda *a, **k: None)
+    log = (print if params.verbose and distributed.rank() == 0
+           else (lambda *a, **k: None))
     solve_batched.probe = None
     solve_batched.capture_time = None
 
@@ -516,8 +568,9 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
     state = init_batched_state(lp)
 
     # The batched autotune between the SpMM kernel and a dense product, on
-    # the card only, as the JAX package probes on accelerators only.
-    if (params.spmv_backend == "auto" and dense_ok
+    # the card only and not under a mesh, as the JAX package probes on
+    # accelerators only and not under a mesh.
+    if (params.spmv_backend == "auto" and dense_ok and not params.mesh_shape
             and device.type == "cuda" and lp.A.nnz >= PROBE_MIN_NNZ):
         lp, solve_batched.probe = _probe_dense(
             lp, row_norm_d, col_norm_d, state, sigma_d, lam_d, log)

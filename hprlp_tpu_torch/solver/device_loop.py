@@ -28,9 +28,10 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .chunk import SolverState, run_chunk
-from .graph import StepGraph, commit
+from .graph import StepGraph, commit, warmup_stream
 
 METRIC_KEYS = ("dot_c_xbar", "dot_yobj_ybar", "dot_xbar_zbar", "nrm_Rd",
                "nrm_Rp", "gap_dot", "gap_dy2", "gap_dx2", "move_x",
@@ -347,10 +348,25 @@ def capture_superchunk(lp, scal, state, rd: RestartDev, sigma, lambda_max,
                        n_chunks: int = 128) -> StepGraph:
     """The solve's ChunkStep, warmed up on a copy of these values and
     captured in a CUDA graph (graph.StepGraph), for run_superchunk calls of
-    up to n_chunks chunks.  On the card only; a failed capture raises."""
+    up to n_chunks chunks.  On the card only; a failed capture raises.
+
+    On a mesh (lp's matrices sharded) the step's all-reduces are captured
+    with it.  NCCL sets a communicator up at its first collective, which a
+    capture cannot hold, so one collective runs on the warm-up stream
+    first, and the capture runs in the "thread_local" error mode."""
+    shard = lp.A.shard
+    if shard is not None:
+        side = warmup_stream(lp.c.device)
+        side.wait_stream(torch.cuda.current_stream(lp.c.device))
+        with torch.cuda.stream(side):
+            dist.all_reduce(torch.zeros(1, dtype=lp.c.dtype,
+                                        device=lp.c.device),
+                            group=shard.group)
+        torch.cuda.current_stream(lp.c.device).wait_stream(side)
     step = ChunkStep(lp, scal, state, rd, sigma, lambda_max, metrics,
                      obj_constant, stop_tol, check_iter, stall_patience)
-    return StepGraph(step, n_chunks)
+    return StepGraph(step, n_chunks, capture_error_mode=(
+        "global" if shard is None else "thread_local"))
 
 
 def run_superchunk(lp, scal, state, rd: RestartDev, sigma, lambda_max,

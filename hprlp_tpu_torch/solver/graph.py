@@ -23,6 +23,12 @@ leaves allocated is used after another capture of the pool replays.
 `time_probe` times a probe (the autotune's chunks) by device time: on the
 card, replays of a captured graph between CUDA events; on the CPU, where
 the host is the device, eager calls by the wall clock.
+
+A mesh solve's step holds the sharded SpMV's all-reduces
+(ops/sparse.py::all_reduce_sum): NCCL collectives, which a graph captures
+like kernels.  Its capture runs in the "thread_local" error mode, so that
+NCCL's watchdog thread, which queries its events while the step is being
+captured, does not invalidate the capture.
 """
 
 from __future__ import annotations
@@ -32,17 +38,20 @@ import time
 import numpy as np
 import torch
 
+from ..ops.sparse import all_reduce_sum
 from ..ops.spmm import csr_spmm, csr_spmm_rowwise, spmm_x_half, spmm_y_half
 from ..ops.spmv import (csr_spmv, csr_spmv_rowgroup, spmv_x_half,
                         spmv_y_half, tiled_spmv)
 
-# Every kernel wrapper on a solve path that counts its launches, and the
-# previous designs, which no solve path may launch.
+# Every kernel wrapper on a solve path that counts its launches, the
+# previous designs, which no solve path may launch, and the sharded SpMV's
+# all-reduce.
 COUNTED = {"tiled_spmv": tiled_spmv, "csr_spmv": csr_spmv,
            "spmv_x_half": spmv_x_half, "spmv_y_half": spmv_y_half,
            "csr_spmm": csr_spmm, "spmm_x_half": spmm_x_half,
            "spmm_y_half": spmm_y_half, "csr_spmm_rowwise": csr_spmm_rowwise,
-           "csr_spmv_rowgroup": csr_spmv_rowgroup}
+           "csr_spmv_rowgroup": csr_spmv_rowgroup,
+           "all_reduce_sum": all_reduce_sum}
 
 _WARMUP_STREAMS: dict[int, torch.cuda.Stream] = {}
 _GRAPH_POOLS: dict[int, tuple] = {}  # device -> (pool, the graph keeping it)
@@ -107,9 +116,11 @@ class CapturedStep:
     call returned: tensors that each replay rewrites.  The warm-up's and
     each replay's launches are counted in `counts` when it is given (a
     probe's, kept apart from a solve's), else in the wrappers' own
-    counters.  A failed capture raises."""
+    counters.  A failed capture raises.  capture_error_mode: torch.cuda.
+    graph's ("thread_local" for a step with NCCL collectives)."""
 
-    def __init__(self, fn, counts: dict | None = None):
+    def __init__(self, fn, counts: dict | None = None,
+                 capture_error_mode: str = "global"):
         self.counts = counts
         before = launch_counts()
         side = warmup_stream()
@@ -119,7 +130,8 @@ class CapturedStep:
         torch.cuda.current_stream().wait_stream(side)
         warm = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=graph_pool()):
+        with torch.cuda.graph(self.graph, pool=graph_pool(),
+                              capture_error_mode=capture_error_mode):
             self.out = fn()
         captured = launch_counts()
         # The capture ran nothing: the counters go back to what the
@@ -177,12 +189,14 @@ class StepGraph:
     stops the run (the step must leave its buffers as they were then).
     `capture_s`: the warm-up and capture's seconds; `replay_host_s` and
     `replays`: the host's time in `CUDAGraph.replay` calls, and their
-    number."""
+    number.  capture_error_mode: as CapturedStep's."""
 
-    def __init__(self, step, n_rows: int):
+    def __init__(self, step, n_rows: int,
+                 capture_error_mode: str = "global"):
         t0 = time.perf_counter()
         self.step = step
-        self.captured = CapturedStep(step.step)
+        self.captured = CapturedStep(step.step,
+                                     capture_error_mode=capture_error_mode)
         self.rows = torch.empty((n_rows, *step.row.shape),
                                 dtype=step.row.dtype, pin_memory=True)
         torch.cuda.synchronize(step.row.device)

@@ -11,6 +11,13 @@ check_iter iterations (restart + stopping).
 The layout, upload and scaling are one ingest (`build_ingest`); in the
 giant regime (`giant_regime`) it keeps only the SpMV tiles on the device,
 and model.py may build it beside presolve and pass it in.
+
+With Parameters(mesh_shape=N) the solve runs on N ranks, one process per
+card (parallel/distributed.py): inside a process group of N ranks every
+rank runs this solve on its own device with A and A^T column-sharded
+(parallel/sharded.py) and the vectors replicated, and returns the same
+Results; without a group, solve_problem launches the N ranks and returns
+rank 0's.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch
 from ..ops.device_problem import attach_blocks, host_csr, upload_problem
 from ..ops.sparse import spmv_backend
 from ..ops.tiles import build_tiles
+from ..parallel import distributed
+from ..parallel.sharded import shard_problem
 from ..params import Parameters
 from ..problem import LpProblem
 from ..results import Results
@@ -44,6 +53,9 @@ F64_BELOW_TOL = 1e-5
 # there on the tiled kernel is taken without a probe, so the CSR arrays
 # and the "gather" plan would be kept only to go unused.
 GIANT_LANE_FIRST_NNZ = AUTOTUNE_LANE_DIRECT_NNZ
+# Results fields on each rank's own clock, which a mesh solve agrees on.
+TIME_FIELDS = ("setup_time", "scaling_time", "autotune_time", "power_time",
+               "time", "time4", "time6", "time8")
 
 
 @dataclasses.dataclass
@@ -110,9 +122,28 @@ def resolve_dtype(params: Parameters, device: torch.device) -> torch.dtype:
 
 
 def _check_supported(params: Parameters) -> None:
-    if params.mesh_shape:
-        raise NotImplementedError("mesh_shape (multi-device solves) is not "
-                                  "ported yet (ROADMAP.md queue 1, multi-GPU)")
+    """Raise NotImplementedError for what a mesh solve does not run yet:
+    spmv_backend "gather" or "dense", and precision="mixed"."""
+    if not params.mesh_shape:
+        return
+    if params.spmv_backend in ("gather", "dense"):
+        raise NotImplementedError(
+            f"mesh_shape with spmv_backend={params.spmv_backend!r} is not "
+            f"ported yet (ROADMAP.md queue 1 item 2); a mesh runs the tiled "
+            f"kernel: spmv_backend 'auto' or 'lane'")
+    if params.precision == "mixed":
+        raise NotImplementedError(
+            "mesh_shape with precision='mixed' is not ported yet (ROADMAP.md "
+            "queue 1 item 3)")
+
+
+def mesh_rank_device(params: Parameters, device) -> torch.device:
+    """This rank's device in a process group running a mesh of
+    params.mesh_shape ranks (distributed.mesh_device), after checking the
+    group against the mesh (distributed.check_group)."""
+    device = distributed.mesh_device(device)
+    distributed.check_group(params.mesh_shape, device)
+    return device
 
 
 def _sync(device: torch.device) -> None:
@@ -142,6 +173,11 @@ def build_ingest(problem: LpProblem, params: Parameters, device=None):
          is built and each matrix keeps its tiles alone
          (CsrMatrix.tiles_only), A's CSR arrays released before A^T's
          tiles are built.
+    With params.mesh_shape, in a process group of that many ranks, each
+    rank runs stages 1-3 whole (replicated, so bitwise the same on every
+    rank) and its layout is the tiles of its column slices of A and A^T
+    alone (parallel/sharded.py::shard_problem), with no plan; the device
+    is the rank's (distributed.mesh_device).
     Returns (lp, maps, scal, seconds): seconds of the stages above, each
     ended by a device sync, and "wall".  Raises on any failure, and for
     precision="mixed"; no caller tries another route."""
@@ -151,7 +187,9 @@ def build_ingest(problem: LpProblem, params: Parameters, device=None):
     if params.precision == "mixed":
         raise ValueError("precision='mixed' solves in stages, each with its "
                          "own ingest: no single ingest")
-    device = resolve_device(params, device)
+    mesh = bool(params.mesh_shape)
+    device = (mesh_rank_device(params, device) if mesh
+              else resolve_device(params, device))
     giant = giant_regime(problem, params)
 
     def synced() -> float:
@@ -170,9 +208,11 @@ def build_ingest(problem: LpProblem, params: Parameters, device=None):
                              use_pc=params.use_Pock_Chambolle_scaling,
                              use_bc=params.use_bc_scaling)
     t3 = synced()
-    if params.spmv_backend in ("auto", "gather") and not giant:
+    if mesh:
+        lp = shard_problem(lp, distributed.rank(), params.mesh_shape)
+    elif params.spmv_backend in ("auto", "gather") and not giant:
         lp = attach_blocks(lp)
-    if params.spmv_backend in ("auto", "lane"):
+    if params.spmv_backend in ("auto", "lane") and not mesh:
         # Nothing retiles these tiles, so they keep no CSR order (perm).
         for name in ("A", "AT"):
             M = getattr(lp, name)
@@ -211,17 +251,31 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     presolve.  setup_time is the ingest's wall less its scaling, and
     scaling_time its scaling.  A failed ingest raises: no other route is
     tried.
+
+    mesh_shape=N ("auto" or "lane"): inside a process group of N ranks,
+    each rank solves on its device (distributed.mesh_device: `device`
+    "cpu" for gloo ranks, else cuda:{local rank}) with A and A^T
+    column-sharded; the decisions come from replicated values and the
+    time limit from the slowest rank's clock, so every rank returns the
+    same Results, whose times are the ranks' maxima.  Only rank 0 prints.
+    Without a group it launches N ranks (_launch_mesh) and returns rank
+    0's Results.
     """
     params = params or Parameters()
     params.validate()
     _check_supported(params)
-    device = resolve_device(params, device)
+    mesh = bool(params.mesh_shape)
+    if mesh and not distributed.in_group():
+        return _launch_mesh(problem, params, x0, y0, sigma0, device)
+    device = (mesh_rank_device(params, device) if mesh
+              else resolve_device(params, device))
     if params.precision == "mixed":
         from .refine import solve_refined
 
         return solve_refined(problem, params, x0=x0, y0=y0, device=device)
     dtype = resolve_dtype(params, device)
-    log = print if params.verbose else (lambda *a, **k: None)
+    log = (print if params.verbose and distributed.rank() == 0
+           else (lambda *a, **k: None))
 
     out = Results()
 
@@ -313,6 +367,12 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     def elapsed():
         return time.perf_counter() - t_alg
 
+    def over_time():
+        t = elapsed()
+        if mesh:  # every rank stops on the same chunk
+            t = distributed.all_ranks_max([t], device)[0]
+        return t > params.time_limit
+
     first = {1e-4: True, 1e-6: True, 1e-8: True}
     stall_events = 0
     it = 0
@@ -343,6 +403,10 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
             out.iter6, out.time6 = out.iter, out.time
         if out.time8 == 0.0 and first[1e-8]:
             out.iter8, out.time8 = out.iter, out.time
+        if mesh:
+            for name, t in zip(TIME_FIELDS, distributed.all_ranks_max(
+                    [getattr(out, k) for k in TIME_FIELDS], device)):
+                setattr(out, name, t)
         x_s, y_s, z_s = (v.cpu().numpy().astype(np.float64)
                          for v in unscale_solution(scal, state))
         out.x = x_s[maps.col_pos]
@@ -412,7 +476,7 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
             return finish("OPTIMAL", it, res, sigma, restarts)
         if it >= params.max_iter:
             return finish("ITER_LIMIT", it, res, sigma, restarts)
-        if elapsed() > params.time_limit:
+        if over_time():
             return finish("TIME_LIMIT", it, res, sigma, restarts)
         if params.stall_window is not None:
             if res.kkt < 0.9 * best_kkt:
@@ -422,3 +486,15 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
 
 
 solve_problem.capture_time = None
+
+
+def _launch_mesh(problem, params, x0, y0, sigma0, device) -> Results:
+    """solve_problem on params.mesh_shape launched ranks (distributed.
+    launch): gloo ranks on the CPU for device "cpu", else NCCL ranks on
+    cards 0..N-1.  Returns rank 0's Results."""
+    dev_type = distributed.check_launch(params.mesh_shape, device)
+    return distributed.launch(
+        solve_problem, (problem, params),
+        {"x0": x0, "y0": y0, "sigma0": sigma0, "device": dev_type},
+        world=params.mesh_shape, device_type=dev_type,
+        timeout=params.time_limit + distributed.LAUNCH_SLACK_S)[0]

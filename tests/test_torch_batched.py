@@ -396,12 +396,17 @@ def test_no_device_without_cuda_raises(monkeypatch):
         ht.solve_batched(*args, params=quiet())
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh_shape": 2}, "item 6")],
-                         ids=["kw1-item 6"])
-def test_options_not_ported_raise(kw, item):
+def test_mesh_batch_not_divisible_raises_as_jax():
+    """mesh_shape shards the batch axis: a batch of 4 on a mesh of 3 (JAX:
+    of 8 devices) raises ValueError in both packages, before any rank
+    starts."""
     args, _, _ = _demo()
-    with pytest.raises(NotImplementedError, match=item):
-        ht.solve_batched(*args, params=quiet(**kw), device="cpu")
+    assert args[1].shape[1] == 4
+    with pytest.raises(ValueError, match="not divisible"):
+        ht.solve_batched(*args, params=quiet(mesh_shape=3), device="cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        jax_solve_batched(*args, params=JaxParameters(verbose=False,
+                                                      mesh_shape=8))
 
 
 @pytest.mark.parametrize("backend", ["gather", "lane", "dense"])

@@ -136,10 +136,19 @@ def test_input_errors_exit_1_as_jax(tmp_path, case, libraries, capsys):
     assert len(err) == 2 and err[0] == err[1]
 
 
+def test_mesh_flag_parses_as_jax():
+    """--mesh N: the JAX CLI's flag and default (N ranks here; the CPU
+    run is tests/test_torch_parallel_ranks.py's)."""
+    for argv in (["-i", "f"], ["-i", "f", "--mesh", "4"]):
+        assert (cli.build_parser().parse_args(argv).mesh
+                == jcli.build_parser().parse_args(argv).mesh)
+    assert cli.params_from_args(cli.build_parser().parse_args(
+        ["-i", "f", "--mesh", "4"])).mesh_shape == 4
+
+
 @pytest.mark.parametrize("flags,name", [
-    (["--mesh", "2"], "--mesh"),
     (["--malloc-tune"], "--malloc-tune"),
-], ids=["mesh", "malloc_tune"])
+], ids=["malloc_tune"])
 def test_unported_flags_exit_1(flags, name, capsys):
     assert cli.main(["-i", MODEL, "--device", "cpu", *flags]) == 1
     captured = capsys.readouterr()
