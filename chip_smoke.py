@@ -165,7 +165,11 @@ and no other SpMV kernel (the probes' launches are counted apart), on
                  the tiled SpMV at the giant's A and A^T (the solve's
                  tiles) against its plain version, beside its bound and
                  cuSPARSE (torch.mv on the same matrix, built after the
-                 solve)
+                 solve); (d) the banded giant through Model.solve in a
+                 fresh process with HPRLP_MALLOC_TUNE=1 (the allocator
+                 tuned at import, the ingest preheated): tune_malloc's
+                 report, presolve and the wall beside (b)'s untuned ones,
+                 host peak RSS, the objective bitwise (b)'s
  15. mesh        (a) sparse_huge's A and A^T (f32) cut into 2 and 4
                  column slices (parallel/sharded.py::column_slices), each
                  slice tiled and timed by graph replay beside its bound,
@@ -182,7 +186,30 @@ and no other SpMV kernel (the probes' launches are counted apart), on
                  --mesh 1 --quiet` (a launched rank): rc 0, -26.4, the
                  rank's start seconds; (e) with two cards, a 2-rank
                  sparse_huge solve against the single-card one, else a
-                 line saying why it did not run
+                 line saying why it did not run; (f) (b)'s solves through
+                 the share ingest: 51 scaling exchanges each, its stages
+                 beside the one-card ingest's; (g) each rank's device peak
+                 and resident bytes through the share ingest (f32) of
+                 sparse_huge and the banded giant at N = 2 and 4, the
+                 ranks gloo ranks sharing the card (NCCL refuses two ranks
+                 on one card); (h) "mixed" at
+                 mesh_shape=1 on assignment64 (1e-8) bitwise the one-card
+                 "mixed" solve; (i) a server `solve` request of
+                 sparse_large with mesh_shape=1 (one launched rank)
+                 bitwise the in-process mesh solve; (j) the presolve
+                 overlap at mesh_shape=1 on random_lp(524288, 1048576,
+                 40, 7) (21.0M nnz; the giant threshold lowered for the
+                 part): one presolve, on rank 0, the wall below presolve
+                 + ingest, bitwise the one-card overlap, the seconds
+                 after presolve; (k) Model.solve's discard branch of the
+                 banded giant on 2 gloo ranks sharing the card
+                 (prof/share_ingest.py::discard_broadcast:
+                 model.REINGEST_SHARE below zero, so the reduced LP
+                 crosses; the reduced solve, whose all-reduce needs NCCL,
+                 replaced by a zero point): each broadcast's bytes and
+                 seconds, the device bytes held at its start and its
+                 peak, each rank's host RSS through it
+ 16. total       the smoke's seconds
 
 Any failure raises (exit code != 0).  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -210,9 +237,11 @@ import torch
 from hprlp_tpu_torch.prof.problems import (assignment_problem, make_problem,
                                            random_lp)
 from hprlp_tpu_torch.prof.timing import card as card_name
-from hprlp_tpu_torch.prof.timing import eager_ms, spmv_bound, time_ms
+from hprlp_tpu_torch.prof.timing import (PeakRss, eager_ms, spmv_bound,
+                                         time_ms)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 
 def phase(n, text):
@@ -2183,7 +2212,7 @@ def giant_phase(card, prob6):
     base = torch.cuda.memory_allocated()
     with recorded(calls, [(loop, "build_ingest"),
                           (presolve, "presolve_problem")]), \
-            ingest_memory(mem):
+            ingest_memory(mem), PeakRss() as sampled:
         t0 = time.perf_counter()
         res = hp.Model(problem).solve(hp.Parameters(stop_tol=1e-4,
                                                     verbose=False))
@@ -2226,8 +2255,12 @@ def giant_phase(card, prob6):
         "ingest_peak_b_per_nnz": (mem["ingest_peak"] - base) / problem.nnz,
         "resident_gib": (mem["resident"] - base) / GIB,
         "solve_peak_gib": solve_peak / GIB, "host_peak_rss_gib": rss,
-        "host_peak_rss_before_gib": rss0, "tiled_launches": l["tiled"],
+        "host_peak_rss_before_gib": rss0,
+        "solve_rss_start_gib": sampled.start_bytes / GIB,
+        "solve_rss_peak_gib": sampled.peak_bytes / GIB,
+        "tiled_launches": l["tiled"],
         "csr_launches": l["gather"], "status": res.status,
+        "primal_obj": res.primal_obj,
         "s_per_it": res.time / max(res.iter, 1)}
     phase(14, f"(b) Model.solve: status={res.status} iter={res.iter} "
               f"presolve {pre_status} -> "
@@ -2246,7 +2279,10 @@ def giant_phase(card, prob6):
               f" GiB ({record['ingest_peak_b_per_nnz']:.1f} B/nnz), "
               f"allocated after the ingest {record['resident_gib']:.3f} "
               f"GiB, peak in the solve {record['solve_peak_gib']:.3f} GiB; "
-              f"host peak RSS {rss:.2f} GiB ({rss0:.2f} before (b)); "
+              f"host peak RSS {rss:.2f} GiB ({rss0:.2f} before (b); "
+              f"through Model.solve, sampled: "
+              f"{record['solve_rss_start_gib']:.2f} at its start, peak "
+              f"{record['solve_rss_peak_gib']:.2f}); "
               f"launches {l}; host f64 KKT {kkt:.3e} ({kkt_s:.1f} s) "
               f"[{card}]")
     check(res.status == "OPTIMAL", f"phase 14: the giant's status "
@@ -2304,7 +2340,83 @@ def giant_phase(card, prob6):
                   f"{rec['plain_ms']:.5f}, cuSPARSE {rec['library_ms']:.5f}"
                   f"; max_abs_err={err:.3e} (<= 1e-5*{scale:.3e}) [{card}]")
     record["a"] = {k: v for k, v in routes.items() if k.endswith("record")}
-    return launches, row_sums, shapes, record
+    return launches, row_sums, shapes, record, problem
+
+
+# Phase 14 (d): the banded giant through Model.solve in a fresh process
+# with HPRLP_MALLOC_TUNE=1, which tunes the allocator at import
+# (hprlp_tpu_torch/_malloc.py); its giant ingest then preheats.
+TUNED_GIANT = r"""
+import json, sys, time
+import hprlp_tpu_torch as hp
+from hprlp_tpu_torch import _malloc
+from hprlp_tpu_torch.prof.problems import banded_lp
+from hprlp_tpu_torch.prof.timing import PeakRss
+t0 = time.perf_counter()
+with PeakRss() as gen_rss:
+    problem = banded_lp(*json.loads(sys.argv[1]))
+gen_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+with PeakRss() as solve_rss:
+    res = hp.Model(problem).solve(hp.Parameters(stop_tol=1e-4,
+                                                verbose=False))
+wall = time.perf_counter() - t0
+print(json.dumps({
+    "report": _malloc._done, "preheated_bytes": _malloc._preheated,
+    "generate_s": gen_s, "presolve_s": res.presolve_time,
+    "model_solve_wall_s": wall, "setup_s": res.setup_time,
+    "scaling_s": res.scaling_time, "status": res.status, "iter": res.iter,
+    "primal_obj": res.primal_obj,
+    "generate_rss_peak_gib": gen_rss.peak_bytes / 2**30,
+    "solve_rss_start_gib": solve_rss.start_bytes / 2**30,
+    "solve_rss_peak_gib": solve_rss.peak_bytes / 2**30}))
+"""
+
+
+def malloc_phase(card, untuned):
+    """Phase 14 (d): TUNED_GIANT in a subprocess, beside (b)'s untuned
+    record: tune_malloc's report, the bytes preheated, presolve and
+    Model.solve's wall, host peak RSS; the same objective bits."""
+    env = dict(os.environ, HPRLP_MALLOC_TUNE="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", TUNED_GIANT,
+                           json.dumps(GIANT_ARGS)], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"phase 14 (d): the tuned giant exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec["process_wall_s"] = wall
+    thp = [ln for ln in proc.stderr.splitlines()
+           if "transparent_hugepage" in ln]
+    rec["thp_line"] = thp[0] if thp else None
+
+    def rise(r):
+        return r["solve_rss_peak_gib"] - r["solve_rss_start_gib"]
+
+    phase(14, f"(d) HPRLP_MALLOC_TUNE=1, a fresh process: tune_malloc "
+              f"{rec['report']} ({rec['thp_line']}), preheated "
+              f"{rec['preheated_bytes'] / GIB:.2f} GiB; generated in "
+              f"{rec['generate_s']:.2f} s; presolve {rec['presolve_s']:.3f}"
+              f" s (untuned (b): {untuned['presolve_s']:.3f}), Model.solve "
+              f"wall {rec['model_solve_wall_s']:.3f} s (untuned "
+              f"{untuned['model_solve_wall_s']:.3f}), setup "
+              f"{rec['setup_s']:.3f} s (untuned {untuned['setup_s']:.3f}); "
+              f"host RSS through Model.solve, sampled: "
+              f"{rec['solve_rss_start_gib']:.2f} GiB at its start, peak "
+              f"{rec['solve_rss_peak_gib']:.2f} (+{rise(rec):.2f}; untuned "
+              f"(b): +{rise(untuned):.2f}, "
+              f"{untuned['solve_rss_start_gib']:.2f} to "
+              f"{untuned['solve_rss_peak_gib']:.2f}), generation's peak "
+              f"{rec['generate_rss_peak_gib']:.2f}; status={rec['status']} "
+              f"iter={rec['iter']}, the objective bitwise (b)'s: "
+              f"{rec['primal_obj'] == untuned['primal_obj']} [{card}]")
+    check(rec["status"] == "OPTIMAL" and rec["report"].get("mallopt"),
+          f"phase 14 (d): {rec}")
+    check(rec["primal_obj"] == untuned["primal_obj"], f"phase 14 (d): the "
+          f"tuned objective {rec['primal_obj']!r} is not (b)'s "
+          f"{untuned['primal_obj']!r}")
+    return rec
 
 
 def fused_spmv_phase(card, problem):
@@ -2482,21 +2594,32 @@ def mesh_slices(card, problem):
     return rec
 
 
-def mesh_phase(card, prob6, prob5):
+def mesh_phase(card, prob6, prob5, prob4, giant):
     """Phase 15: the mesh route on one card.  (a) mesh_slices; (b) a
     one-rank NCCL group in this process: sparse_huge f32 (1e-4) and
     assignment64 f64 (1e-8) with mesh_shape=1, captured, bitwise the
-    spmv_backend="lane" solve; (c) batched_large with mesh_shape=1 bitwise
-    the single-device batched solve; (d) `python -m hprlp_tpu_torch.cli
-    --mesh 1` on data/model.mps (its own group, in a launched rank); (e)
-    with two cards or more, a 2-rank sparse_huge solve against the
-    single-card one, else why not.  Returns ({"f32", "f64": tiled launches,
-    and each other counted wrapper's} of the mesh-route solves, record)."""
+    spmv_backend="lane" solve, (f) each through the share ingest, its
+    exchanges counted; (c) batched_large with mesh_shape=1 bitwise the
+    single-device batched solve; (h) "mixed" at mesh_shape=1 on
+    assignment64 (1e-8) bitwise the one-card "mixed" solve; (j) the
+    presolve overlap at mesh_shape=1 on a 21.0M-nnz random LP
+    (overlap_mesh): one presolve, bitwise the one-card overlap, the wall
+    below presolve + ingest; (i) a server `solve` request with mesh_shape=1
+    (sparse_large) bitwise the in-process mesh solve; (d) `python -m
+    hprlp_tpu_torch.cli --mesh 1` on data/model.mps (its own group, in a
+    launched rank); (e) with two cards or more, a 2-rank sparse_huge solve
+    against the single-card one, else why not; (g) each rank's device
+    peak through the share ingest for N = 2 and 4 (share_ingest_phase);
+    (k) the discard branch's broadcasts at the banded giant
+    (discard_phase).
+    Returns ({"f32", "f64": tiled launches, and each other counted
+    wrapper's} of the mesh-route solves, record)."""
     import torch.distributed as dist
 
     import hprlp_tpu_torch as hp
     from hprlp_tpu_torch.parallel import distributed
     from hprlp_tpu_torch.prof.problems import batched_lp
+    from hprlp_tpu_torch.solver import loop
 
     t_start = time.perf_counter()
     rec = {"slices": mesh_slices(card, prob6)}
@@ -2518,20 +2641,25 @@ def mesh_phase(card, prob6, prob5):
                            1, 0, "cuda")
     try:
         for name, (problem, tag, kw) in params.items():
-            mesh, counts = mesh_counts(lambda: hp.solve_problem(
-                problem, hp.Parameters(mesh_shape=1, **kw)))
+            calls = []
+            with recorded(calls, [(loop, "build_ingest")]):
+                mesh, counts = mesh_counts(lambda: hp.solve_problem(
+                    problem, hp.Parameters(mesh_shape=1, **kw)))
+                share = dict(loop.build_share_ingest.record)
+                lane = hp.solve_problem(problem, hp.Parameters(
+                    spmv_backend="lane", **kw))
             add(tag, counts)
-            lane = hp.solve_problem(problem, hp.Parameters(
-                spmv_backend="lane", **kw))
             singles[name] = lane
             same = same_point(mesh, lane)
             per_it = counts["all_reduce_sum"] / max(mesh.iter, 1)
+            mesh_s, lane_s = [out[3] for _, _, out in calls]
             rec[name] = {"iter": mesh.iter, "status": mesh.status,
                          "time_mesh": mesh.time, "time_lane": lane.time,
                          "setup_mesh": mesh.setup_time,
                          "setup_lane": lane.setup_time,
                          "launches": counts, "all_reduce_per_iter": per_it,
-                         "bitwise": same}
+                         "bitwise": same, "share": share,
+                         "ingest_mesh_s": mesh_s, "ingest_lane_s": lane_s}
             phase(15, f"(b) {name} {tag} mesh_shape=1 (one NCCL rank, "
                       f"all-reduces in the CUDA graph): status={mesh.status} "
                       f"iter={mesh.iter} Results.time={mesh.time:.4f}s "
@@ -2543,6 +2671,15 @@ def mesh_phase(card, prob6, prob5):
                       f"iteration), csr_spmv {counts['csr_spmv']}; bitwise "
                       f"the lane solve (iterations, objective, x): {same} "
                       f"[{card}]")
+            phase(15, f"(f) {name} {tag}: the share ingest (rows "
+                      f"{share['rows']}, columns {share['cols']}, "
+                      f"{share['entries']} entries = 2 x {problem.nnz} nnz) "
+                      f"ran {share['exchanges']} scaling exchanges; its "
+                      f"stages (s) " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in mesh_s.items())
+                  + "; the one-card ingest's " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in lane_s.items())
+                  + f" [{card}]")
             check(same, f"phase 15 (b): {name} with mesh_shape=1 is not "
                   f"bitwise the lane solve")
             check(mesh.status == "OPTIMAL" and mesh.spmv_backend == "tiled",
@@ -2550,6 +2687,8 @@ def mesh_phase(card, prob6, prob5):
             check(counts["tiled_spmv"] > 0 and counts["all_reduce_sum"] > 0
                   and counts["csr_spmv"] == 0, f"phase 15 (b): {name} "
                   f"launched {counts}")
+            check(share["exchanges"] == 51 and share["entries"]
+                  == 2 * problem.nnz, f"phase 15 (f): {name}: {share}")
         A, C, AL, AU, l, u = arrays
         bkw = dict(stop_tol=1e-4, verbose=False, time_limit=300)
         bmesh, counts = mesh_counts(lambda: hp.solve_batched(
@@ -2575,8 +2714,15 @@ def mesh_phase(card, prob6, prob5):
                   f"[{card}]")
         check(bsame, "phase 15 (c): batched_large with mesh_shape=1 is not "
               "bitwise the single-device batched solve")
+        rec["mixed"] = mixed_mesh(card, prob5, mesh_counts)
+        rec["overlap"], counts = overlap_mesh(card)
+        add("f32", counts)
+        server_ref = hp.solve_problem(prob4, hp.Parameters(
+            mesh_shape=1, **SERVER_MESH_PARAMS))
     finally:
         dist.destroy_process_group()
+
+    rec["server"] = server_mesh(card, prob4, server_ref)
 
     t0 = time.perf_counter()
     cli = subprocess.run([sys.executable, "-m", "hprlp_tpu_torch.cli", "-i",
@@ -2619,8 +2765,264 @@ def mesh_phase(card, prob6, prob5):
         rec["two_cards"] = None
         phase(15, f"(e) 2-card solve not run: this machine has {n_cards} "
                   f"card(s), and NCCL runs one rank per card [{card}]")
+    rec["share_ingest"] = share_ingest_phase(card, {"sparse_huge": prob6,
+                                                    "banded_giant": giant})
+    rec["discard"] = discard_phase(card, giant)
     phase(15, f"took {time.perf_counter() - t_start:.1f} s [{card}]")
     return launches, rec
+
+
+def mixed_mesh(card, prob5, counted):
+    """Phase 15 (h), in the group: precision="mixed" on assignment64 at
+    1e-8 with mesh_shape=1 (every f32 stage and the f64 tail a one-rank
+    mesh solve on its own share ingest) and without a mesh: bitwise
+    (iterations, objective, x)."""
+    import hprlp_tpu_torch as hp
+
+    kw = dict(stop_tol=1e-8, verbose=False, use_presolve=False,
+              precision="mixed", time_limit=300.0)
+    mesh, counts = counted(lambda: hp.solve_problem(
+        prob5, hp.Parameters(mesh_shape=1, **kw)))
+    one = hp.solve_problem(prob5, hp.Parameters(**kw))
+    same = same_point(mesh, one)
+    kkt = prob5.kkt_error(mesh.x, mesh.y, mesh.z)["kkt"]
+    rec = {"status": mesh.status, "iter": mesh.iter, "time_mesh": mesh.time,
+           "time_one": one.time, "kkt_f64": kkt, "bitwise": same,
+           "launches": counts}
+    phase(15, f"(h) assignment64 precision=\"mixed\" mesh_shape=1: "
+              f"status={mesh.status} iter={mesh.iter} Results.time="
+              f"{mesh.time:.4f}s (one card: {one.status}, iter {one.iter}, "
+              f"{one.time:.4f}s), host f64 KKT {kkt:.3e}; tiled_spmv "
+              f"launches {counts['tiled_spmv']}, all-reduces "
+              f"{counts['all_reduce_sum']}; bitwise the one-card \"mixed\" "
+              f"solve (iterations, objective, x): {same} [{card}]")
+    check(same and mesh.status == "OPTIMAL" and kkt < 1e-8,
+          f"phase 15 (h): {rec}")
+    return rec
+
+
+# Phase 15 (j)'s LP: random_lp at twice sparse_huge's size (21.0M nnz), so
+# that the ingest beside presolve outweighs the fixed costs that follow it.
+OVERLAP_ARGS = (524288, 1048576, 40, 7)
+
+
+def overlap_mesh(card):
+    """Phase 15 (j), in the group: Model.solve of random_lp(*OVERLAP_ARGS)
+    with mesh_shape=1 and loop.GIANT_LANE_FIRST_NNZ swapped to 1, so rank
+    0's presolve runs beside the share ingest: one presolve, its wall
+    below presolve + ingest, bitwise the one-card Model.solve's overlap
+    (the same threshold, run first); each run's seconds after presolve
+    (power method, capture, solve, broadcasts).  Returns (record,
+    launches of the mesh run)."""
+    import hprlp_tpu_torch as hp
+    from hprlp_tpu_torch import model, presolve
+    from hprlp_tpu_torch.solver import loop
+
+    problem = random_lp(*OVERLAP_ARGS)
+    kw = dict(stop_tol=1e-4, verbose=False, max_iter=50_000)
+    runs = {}
+    with swapped(loop, GIANT_LANE_FIRST_NNZ=1):
+        for name, extra in (("one", {}), ("mesh", {"mesh_shape": 1})):
+            calls = []
+            with recorded(calls, [(loop, "build_ingest"),
+                                  (presolve, "presolve_problem")]):
+                t0 = time.perf_counter()
+                res, counts = mesh_counts(lambda: hp.Model(problem).solve(
+                    hp.Parameters(**kw, **extra)))
+                wall = time.perf_counter() - t0
+            ingests = [c for c in calls if c[0] == "build_ingest"]
+            runs[name] = {"res": res, "wall": wall, "counts": counts,
+                          "presolves": sum(c[0] == "presolve_problem"
+                                           for c in calls),
+                          "ingests": len(ingests),
+                          "ingest_s": ingests[0][1],
+                          "capture_s": loop.solve_problem.capture_time,
+                          "record": dict(model.solve_with_presolve.record)}
+    mesh, one = runs["mesh"], runs["one"]
+    m, o = mesh["res"], one["res"]
+    same = same_point(m, o)
+    rec = {k: {"status": r["res"].status, "iter": r["res"].iter,
+               "presolve_s": r["res"].presolve_time, "ingest_s":
+               r["ingest_s"], "ingests": r["ingests"],
+               "presolves": r["presolves"], "wall_s": r["wall"],
+               "power_s": r["res"].power_time, "capture_s": r["capture_s"],
+               "solve_s": r["res"].time, "record": r["record"]}
+           for k, r in runs.items()}
+    rec["bitwise"] = same
+    rec["nnz"] = problem.nnz
+
+    def after(k):
+        r = rec[k]
+        return (f"power {r['power_s']:.3f}s, capture {r['capture_s']:.3f}s,"
+                f" solve {r['solve_s']:.3f}s")
+
+    phase(15, f"(j) random_lp{OVERLAP_ARGS} ({problem.nnz} nnz) "
+              f"Model.solve mesh_shape=1, giant threshold lowered: "
+              f"status={m.status} iter={m.iter}; presolve "
+              f"{m.presolve_time:.3f}s ({mesh['presolves']} call, on rank "
+              f"0) beside the share ingest {mesh['ingest_s']:.3f}s, "
+              f"{mesh['ingests']} ingest(s); wall {mesh['wall']:.3f}s "
+              f"against presolve + ingest "
+              f"{m.presolve_time + mesh['ingest_s']:.3f}s; after presolve "
+              f"{after('mesh')}, broadcasts "
+              f"{mesh['record']['broadcast_bytes']} B in "
+              f"{mesh['record']['broadcast_s']:.4f}s; one card: wall "
+              f"{one['wall']:.3f}s, presolve {o.presolve_time:.3f}s, "
+              f"ingest {one['ingest_s']:.3f}s, {after('one')}; bitwise the "
+              f"one-card overlap (iterations, objective, x): {same} "
+              f"[{card}]")
+    check(same and m.status == "OPTIMAL" and mesh["presolves"] == 1
+          and mesh["ingests"] == one["ingests"], f"phase 15 (j): {rec}")
+    check(mesh["wall"] < m.presolve_time + mesh["ingest_s"],
+          f"phase 15 (j): Model.solve took {mesh['wall']} s, no less than "
+          f"presolve + ingest: no overlap")
+    return rec, mesh["counts"]
+
+
+# Phase 15 (i)'s request: sparse_large with mesh_shape=1.
+SERVER_MESH_PARAMS = {"stop_tol": 1e-4, "verbose": False,
+                      "use_presolve": False, "max_iter": 100_000}
+
+
+def server_mesh(card, prob4, ref):
+    """Phase 15 (i): `python -m hprlp_tpu_torch.server` on the default
+    device answers a `solve` request of sparse_large with mesh_shape=1 by
+    launching one rank; the answer bitwise `ref`, the in-process mesh
+    solve (iterations, objective, x); the server's stderr line with the
+    rank's start seconds."""
+    req = solve_request(prob4, {"mesh_shape": 1, **SERVER_MESH_PARAMS})
+    with tempfile.TemporaryFile() as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m",
+                                 "hprlp_tpu_torch.server"], cwd=HERE,
+                                stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+        try:
+            proc.stdin.write(json.dumps(req) + "\n")
+            proc.stdin.flush()
+            resp = json.loads(proc.stdout.readline())
+            wall = time.perf_counter() - t0
+            proc.stdin.write(json.dumps({"op": "shutdown"}) + "\n")
+            proc.stdin.flush()
+            proc.stdout.readline()
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        stderr = err.read().decode(errors="replace")
+    check(resp.get("ok"), f"phase 15 (i): {resp}; stderr {stderr[-2000:]}")
+    got = resp["result"]
+    x = _dec(got["x"])
+    same = (got["iter"] == ref.iter and got["primal_obj"] == ref.primal_obj
+            and np.array_equal(x, ref.x))
+    line = [ln for ln in stderr.splitlines() if ln.startswith("mesh of ")]
+    rec = {"status": got["status"], "iter": got["iter"], "rc": rc,
+           "wall_s": wall, "bitwise": same, "line": line[0] if line
+           else None}
+    phase(15, f"(i) server `solve` request, sparse_large mesh_shape=1: "
+              f"status={got['status']} iter={got['iter']} time="
+              f"{got['time']:.4f}s; client wall {wall:.2f}s (server start, "
+              f"one launched rank, ingest, solve); {rec['line']}; bitwise "
+              f"the in-process mesh solve (iterations, objective, x): "
+              f"{same}; server exit {rc} [{card}]")
+    check(same and rc == 0 and line, f"phase 15 (i): {rec}")
+    return rec
+
+
+def share_ingest_phase(card, problems):
+    """Phase 15 (g): each rank's device peak and resident bytes through
+    the share ingest (f32) of each of `problems` at N = 2 and 4, as gloo
+    ranks sharing cuda:0 (prof/share_ingest.py::ingest_peak: NCCL refuses
+    two ranks on one card), beside the one-card ingest's peak (phase
+    14).  A failed launch fails the phase."""
+    from hprlp_tpu_torch.prof.share_ingest import ingest_peak
+
+    rec = {}
+    for name, problem in problems.items():
+        for N in MESH_SLICES:
+            t0 = time.perf_counter()
+            ranks = ingest_peak(problem, N, {"precision": "f32"})
+            wall = time.perf_counter() - t0
+            rec[f"{name}_N{N}"] = {"ranks": ranks, "wall_s": wall}
+            phase(15, f"(g) {name} ({problem.nnz} nnz) share ingest on {N} "
+                      f"gloo ranks sharing the card, f32: " + "; ".join(
+                          f"rank {r['rank']} ({r['entries']} entries): peak "
+                          f"{r['peak_bytes'] / GIB:.3f} GiB "
+                          f"({r['peak_bytes'] / problem.nnz:.1f} B per nnz "
+                          f"of the LP), resident "
+                          f"{r['resident_bytes'] / GIB:.3f} GiB, "
+                          f"{r['exchanges']} exchanges, stages (s) "
+                          + ", ".join(f"{k} {v:.2f}"
+                                      for k, v in r["seconds"].items())
+                          + f", host RSS (sampled) "
+                            f"{r['rss_start_bytes'] / GIB:.2f} GiB at its "
+                            f"start, peak {r['rss_peak_bytes'] / GIB:.2f}"
+                          for r in ranks)
+                  + f"; launch wall {wall:.1f}s [{card}]")
+            check(all(r["exchanges"] == 51 for r in ranks),
+                  f"phase 15 (g): {name} N={N} exchanges")
+    return rec
+
+
+# Phase 15 (k)'s ranks and the broadcasts' names, in the order they cross.
+DISCARD_RANKS = 2
+DISCARD_BROADCASTS = ("decision", "reduced LP", "postsolved point")
+
+
+def discard_phase(card, giant):
+    """Phase 15 (k): Model.solve's discard branch of the banded giant on
+    DISCARD_RANKS gloo ranks sharing cuda:0 (prof/share_ingest.py::
+    discard_broadcast): rank 0 presolves beside every rank's share
+    ingest, the ingest is dropped, then the reduced LP crosses (the
+    giant's presolve removes no nnz, so model.REINGEST_SHARE is set below
+    zero for the part), then the postsolved point of a zero reduced
+    solution.  Each broadcast's bytes and seconds, the device bytes held
+    at its start and its peak above them, each rank's host RSS through
+    it (sampled)."""
+    from hprlp_tpu_torch.prof.share_ingest import discard_broadcast
+
+    t0 = time.perf_counter()
+    ranks = discard_broadcast(giant, DISCARD_RANKS,
+                              {"precision": "f32", "stop_tol": 1e-4,
+                               "verbose": False})
+    wall = time.perf_counter() - t0
+    rec = {"ranks": ranks, "wall_s": wall}
+    for r in ranks:
+        phase(15, f"(k) banded_giant discard branch, rank {r['rank']} of "
+                  f"{r['world']} (gloo, sharing the card; presolved: "
+                  f"{r['presolved']}, presolve {r['presolve_s']:.3f}s): "
+                  + "; ".join(
+                      f"{what} {b['bytes']} B in {b['seconds']:.3f}s, "
+                      f"device {b['held_bytes'] / GIB:.3f} GiB held at its "
+                      f"start, peak {b['peak_bytes'] / GIB:.3f} GiB above "
+                      f"it, host RSS (sampled) "
+                      f"{b['rss_start_bytes'] / GIB:.2f} -> "
+                      f"{b['rss_peak_bytes'] / GIB:.2f} GiB"
+                      for what, b in zip(DISCARD_BROADCASTS,
+                                         r["broadcasts"]))
+                  + f"; entering the reduced solve "
+                    f"({r['reduced_solve']['nnz']} nnz): device "
+                    f"{r['reduced_solve']['held_bytes'] / GIB:.3f} GiB "
+                    f"held, host RSS "
+                    f"{r['reduced_solve']['rss_bytes'] / GIB:.2f} GiB; "
+                    f"{r['wall_s']:.1f}s in Model.solve [{card}]")
+    phase(15, f"(k) launch wall {wall:.1f}s [{card}]")
+    sizes = [[b["bytes"] for b in r["broadcasts"]] for r in ranks]
+    check([r["presolved"] for r in ranks] == [True] + [False] * (
+        DISCARD_RANKS - 1) and all(s == sizes[0] for s in sizes)
+          and len(sizes[0]) == len(DISCARD_BROADCASTS)
+          and 0 < ranks[0]["reduced_solve"]["nnz"] <= giant.nnz
+          and sizes[0][1] >= 12 * ranks[0]["reduced_solve"]["nnz"]
+          and all(r["reduced_solve"] | {"held_bytes": 0, "rss_bytes": 0}
+                  == ranks[0]["reduced_solve"] | {"held_bytes": 0,
+                                                  "rss_bytes": 0}
+                  for r in ranks),
+          f"phase 15 (k): {[dict(r, broadcasts=None) for r in ranks]}, "
+          f"broadcast bytes {sizes}")
+    return rec
 
 
 def main():
@@ -2719,9 +3121,11 @@ def main():
     phase(13, f"phases 12 and 13 took {time.perf_counter() - t_service:.1f}"
               f" s [{card}]")
     t_giant = time.perf_counter()
-    l14, s14, giant_shapes, giant_rec = giant_phase(card, prob6)
+    l14, s14, giant_shapes, giant_rec, giant = giant_phase(card, prob6)
+    giant_rec["tuned"] = malloc_phase(card, giant_rec)
     phase(14, f"took {time.perf_counter() - t_giant:.1f} s [{card}]")
-    l15, mesh_rec = mesh_phase(card, prob6, prob5)
+    l15, mesh_rec = mesh_phase(card, prob6, prob5, prob4, giant)
+    del giant
     # Phase 12's workers by the precision they solved in: the server and
     # the ctypes consumer f32 (1e-4), the C examples f64 (f64 or 1e-6).
     w32 = [l12a, l12b["ctypes"]]
@@ -2922,6 +3326,8 @@ def main():
     kernels[-1]["chunks"] = {t: {k: v for k, v in r.items()
                                  if k not in ("x", "y")}
                              for t, r in fused_rec.items()}
+    phase(16, f"the smoke took {time.perf_counter() - T_START:.1f} s "
+              f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,17 @@ Standard form (reference: include/HPRLP.h:57-62):
     minimize    c'x        s.t.   AL <= A x <= AU,   l <= x <= u
 """
 
+import os as _os
+
+# Allocator tuning is OPT-IN (host-global THP policy + process mallopt;
+# see _malloc.py), as in the JAX package: importing the library never
+# touches /sys or malloc state unless HPRLP_MALLOC_TUNE=1 asks for it;
+# the CLI's --malloc-tune calls tune_malloc() itself.
+if _os.environ.get("HPRLP_MALLOC_TUNE") == "1":
+    from ._malloc import tune_malloc as _tune_malloc
+
+    _tune_malloc()
+
 from .params import Parameters
 from .problem import LpProblem
 from .results import BatchedResults, Results

@@ -7,9 +7,10 @@ fails unless ``--device cpu`` is given.  --cusparse-spmv true forces the
 CSR SpMV backend ("gather"), as the JAX CLI does.  --precision mixed
 solves by f32 stages refined in host f64 (solver/refine.py).  --mesh N
 solves on N ranks, one process per card (cards 0..N-1), or N gloo ranks
-on the CPU with --device cpu (Parameters.mesh_shape, parallel/).  A flag
-whose feature the port does not have yet exits 1 with a message that
-names it: --malloc-tune.
+on the CPU with --device cpu (Parameters.mesh_shape, parallel/).
+--malloc-tune tunes the host allocator (_malloc.tune_malloc(thp=True):
+mallopt and the host-global transparent-hugepage policy, restored at
+exit), as the JAX CLI does; launched ranks tune their own.
 """
 
 from __future__ import annotations
@@ -89,8 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "spaces)")
     p.add_argument("--quiet", action="store_true", help="Suppress progress")
     p.add_argument("--malloc-tune", action="store_true",
-                   help="Tune the host allocator for giant ingest (not "
-                        "ported: exits 1)")
+                   help="Tune the host allocator for giant ingest (brk-heap "
+                        "mallopt + transparent hugepages; THP is a "
+                        "host-global kernel policy, restored at exit)")
     p.add_argument("--solution-out", metavar="FILE", default=None,
                    help="Write status/objective/x/y/z to FILE in a plain "
                         "text format (consumed by the Julia/MATLAB "
@@ -119,24 +121,20 @@ def write_solution(path: str, res) -> None:
                 f.write(f"{float(val)!r}\n")
 
 
-def unported_flags(args) -> list[str]:
-    """The flags given whose feature the port does not have yet."""
-    out = []
-    if args.malloc_tune:
-        out.append("--malloc-tune (host allocator tuning)")
-    return out
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    missing = unported_flags(args)
-    if missing:
-        print("Not ported to hprlp_tpu_torch yet: " + ", ".join(missing),
-              file=sys.stderr)
-        return 1
     if not os.path.exists(args.input):
         print(f"Input file not found: {args.input}", file=sys.stderr)
         return 1
+
+    if args.malloc_tune:
+        from ._malloc import tune_malloc
+
+        tune_malloc(thp=True)
+        # Ranks that --mesh launches inherit the environment: they tune
+        # their own allocators at import.
+        os.environ.setdefault("HPRLP_MALLOC_TUNE", "1")
+
     import torch
 
     if args.device != "cpu" and not torch.cuda.is_available():

@@ -1,8 +1,9 @@
-"""ctypes bindings to the host library: the presolver and the MPS reader.
+"""ctypes bindings to the host library: the presolver, the MPS reader and
+the parallel page touch of _malloc.preheat.
 
 Port of hprlp_tpu/native.py.  The C++ sources are the JAX package's own
 (native/src/hpres.cpp, mps_reader.cpp, and lane_fill.cpp for the
-`hprlp_parallel_touch` the reader calls); this module compiles them with
+`hprlp_parallel_touch` the reader and _malloc.preheat call); this module compiles them with
 the flags of native/Makefile into `_build/libhprlp_host.so` next to this
 package on first use, and never writes into native/.  The lane-layout and
 scaling entry points of the JAX package's library are TPU layout and are
@@ -116,7 +117,8 @@ def build(timeout: float = BUILD_TIMEOUT_S) -> str:
 
 
 def _configure(lib):
-    """The hpres_* and hpmps_* signatures of hprlp_tpu/native.py."""
+    """The hpres_* and hpmps_* signatures of hprlp_tpu/native.py, and its
+    hprlp_parallel_touch (100-101)."""
     h = ct.c_void_p
     lib.hpres_presolve.restype = h
     lib.hpres_presolve.argtypes = [
@@ -170,6 +172,11 @@ def _configure(lib):
                               _f64p, _f64p]
     lib.hpmps_free.restype = None
     lib.hpmps_free.argtypes = [h]
+
+    # _malloc.preheat's parallel page touch (native/src/lane_fill.cpp).
+    _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.hprlp_parallel_touch.restype = None
+    lib.hprlp_parallel_touch.argtypes = [_u8p, ct.c_int64]
 
 
 def get_lib():

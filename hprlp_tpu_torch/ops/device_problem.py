@@ -168,17 +168,24 @@ def _host_maps(problem: LpProblem, row_pos, col_pos) -> HostMaps:
                     objective_sense=problem.objective_sense)
 
 
-def host_csr(problem: LpProblem) -> tuple[sp.csr_matrix, sp.csr_matrix]:
-    """A's canonical CSR (tocsr, sum_duplicates) and A^T's, by one
-    transpose: the host's whole share of the default layout."""
+def canonical_csr(problem: LpProblem) -> sp.csr_matrix:
+    """A's canonical CSR (tocsr, sum_duplicates: sorted columns, no
+    duplicates), in place where problem.A is CSR already."""
     A = problem.A.tocsr()
     A.sum_duplicates()
+    return A
+
+
+def host_csr(problem: LpProblem) -> tuple[sp.csr_matrix, sp.csr_matrix]:
+    """A's canonical CSR and A^T's, by one transpose: the host's whole
+    share of the default layout."""
+    A = canonical_csr(problem)
     AT = A.T.tocsr()
     AT.sum_duplicates()
     return A, AT
 
 
-def _padded_csr(M: sp.csr_matrix, nrows: int, ncols: int, dtype, device
+def padded_csr(M: sp.csr_matrix, nrows: int, ncols: int, dtype, device
                 ) -> CsrMatrix:
     """Upload canonical CSR M as the (nrows, ncols) matrix whose first rows
     and columns are M's: M's own arrays, indptr extended over the padding
@@ -199,8 +206,17 @@ def upload_problem(problem: LpProblem, A: sp.csr_matrix, AT: sp.csr_matrix,
     padded CSR is the matrix's own arrays with indptr extended."""
     m, n = A.shape
     m_pad, n_pad = padded_size(m), padded_size(n)
-    lp = LpDevice(A=_padded_csr(A, m_pad, n_pad, dtype, device),
-                  AT=_padded_csr(AT, n_pad, m_pad, dtype, device),
-                  **_vectors(problem, np.arange(m), np.arange(n), m_pad,
-                             n_pad, dtype, device))
-    return lp, _host_maps(problem, np.arange(m), np.arange(n))
+    vectors, maps = default_vectors(problem, dtype, device)
+    lp = LpDevice(A=padded_csr(A, m_pad, n_pad, dtype, device),
+                  AT=padded_csr(AT, n_pad, m_pad, dtype, device), **vectors)
+    return lp, maps
+
+
+def default_vectors(problem: LpProblem, dtype=torch.float32, device="cpu"
+                    ) -> tuple[dict, HostMaps]:
+    """The default layout's padded vectors on `device` (AL, AU, c, l, u,
+    as LpDevice's fields) and its host maps: the original order."""
+    m, n = problem.m, problem.n
+    return (_vectors(problem, np.arange(m), np.arange(n), padded_size(m),
+                     padded_size(n), dtype, device),
+            _host_maps(problem, np.arange(m), np.arange(n)))

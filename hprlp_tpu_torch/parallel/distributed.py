@@ -42,7 +42,9 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -191,6 +193,47 @@ def all_ranks_max(values, device: torch.device) -> list[float]:
                      device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return t.tolist()
+
+
+def broadcast_object(obj, device: torch.device, src: int = 0):
+    """Rank `src`'s `obj` on every rank of the default group: pickled on
+    `src`, its bytes broadcast as one uint8 tensor on `device` (through
+    the card under NCCL, as broadcast_object_list stages them), unpickled
+    on the others; `src` keeps its own object.  The pickled bytes are
+    held once on the host of `src` (the tensor reads them in place) and
+    dropped once on `device`; a receiver drops the device tensor before it
+    unpickles its host copy.  After the call broadcast_object.record holds
+    {"bytes", "seconds"}."""
+    t0 = time.perf_counter()
+    mine = rank() == src
+    size = torch.zeros(1, dtype=torch.int64, device=device)
+    if mine:
+        data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        size[0] = len(data)
+        with warnings.catch_warnings():
+            # Read-only: the tensor is only read (copied, or sent).
+            warnings.simplefilter("ignore", UserWarning)
+            buf = torch.from_numpy(np.frombuffer(data, dtype=np.uint8))
+        buf = buf.to(device)
+        del data
+    dist.broadcast(size, src)
+    nbytes = int(size.item())
+    if not mine:
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    dist.broadcast(buf, src)
+    if not mine:
+        host = buf.cpu()
+        del buf
+        obj = pickle.loads(memoryview(host.numpy()))
+        del host
+    else:
+        del buf
+    broadcast_object.record = {"bytes": nbytes,
+                               "seconds": time.perf_counter() - t0}
+    return obj
+
+
+broadcast_object.record = None
 
 
 def _free_port() -> int:

@@ -6,12 +6,15 @@ the least time one y = A x, or one Y = A X over B columns, can take on an
 H100 SXM, and `half_bytes`/`half_bound` that of one fused batched
 half-update (the SpMM and its row write, csrc/spmm.cu): the larger of its
 bytes over the HBM rate and its operations over the vector-unit peak
-(NVIDIA's data sheet; both assume the 700 W power limit).
+(NVIDIA's data sheet; both assume the 700 W power limit).  `PeakRss`
+samples the host's resident set while a block runs.
 """
 
 from __future__ import annotations
 
+import os
 import subprocess
+import threading
 
 import torch
 
@@ -113,3 +116,39 @@ def card() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+class PeakRss:
+    """The peak resident set of this process while the `with` block runs,
+    in bytes (`peak_bytes`, and `start_bytes` at entry), read by a thread
+    from /proc/self/statm every `every` seconds.  Sampled, because not
+    every kernel keeps a per-process high-water mark that starts anew at
+    exec (VmHWM; gVisor has none), and ru_maxrss carries a launched
+    process's parent's peak across fork and exec."""
+
+    def __init__(self, every: float = 0.02):
+        self.every = every
+        self.start_bytes = self.peak_bytes = 0
+        self._stop = threading.Event()
+        self._thread = None
+
+    @staticmethod
+    def rss_bytes() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _sample(self):
+        while not self._stop.wait(self.every):
+            self.peak_bytes = max(self.peak_bytes, self.rss_bytes())
+
+    def __enter__(self) -> "PeakRss":
+        self.start_bytes = self.peak_bytes = self.rss_bytes()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_bytes = max(self.peak_bytes, self.rss_bytes())
+        return False

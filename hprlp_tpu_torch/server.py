@@ -24,7 +24,10 @@ non-finite scalars travel as +-DBL_MAX (_fin).
 
 --device takes a CUDA device index or "cpu", as the CLI's does.  Without
 it each solve runs on cuda:{params.device_number}; without CUDA a solve
-request answers an error and never runs on the CPU unasked.  At start the
+request answers an error and never runs on the CPU unasked.  A request
+whose params set mesh_shape=N launches N ranks for its solve, as
+Model.solve does without a process group (cards 0..N-1, or gloo ranks
+with --device cpu), and writes their start seconds to stderr.  At start the
 server writes one line to stderr naming its device, and at exit one line
 with its kernels' launch counts.  Between requests it hands the CUDA
 caching allocator's free blocks back to CUDA, so a warm worker holds no
@@ -63,10 +66,6 @@ def _params(d: dict):
         if not hasattr(p, k):
             raise ValueError(f"unknown parameter {k!r}")
         setattr(p, k, v)
-    if p.mesh_shape:
-        raise NotImplementedError("mesh_shape in a server or C-ABI request "
-                                  "is not ported yet (ROADMAP.md queue 1 "
-                                  "item 6)")
     return p
 
 
@@ -158,7 +157,7 @@ def _handle(req: dict, device) -> dict:
 
         model = Model.from_mps(req["path"],
                                mps_format=req.get("mps_format", "free"))
-        res = model.solve(params, device=dev)
+        res = _mesh_noted(params, lambda: model.solve(params, device=dev))
         return {"ok": True, "result": _pack_results(res)}
 
     if op == "solve":
@@ -168,7 +167,7 @@ def _handle(req: dict, device) -> dict:
             _csr(req), _dec_f64(req["AL"]), _dec_f64(req["AU"]),
             _dec_f64(req["l"]), _dec_f64(req["u"]), _dec_f64(req["c"]),
             obj_constant=float(req.get("obj_constant", 0.0)))
-        res = model.solve(params, device=dev)
+        res = _mesh_noted(params, lambda: model.solve(params, device=dev))
         return {"ok": True, "result": _pack_results(res)}
 
     from .solver.batched import solve_batched
@@ -191,9 +190,9 @@ def _handle(req: dict, device) -> dict:
 
     oc = (_dec_f64(req["obj_constants"])
           if req.get("obj_constants") else None)
-    res = solve_batched(A, mat("C", n), mat("AL", m), mat("AU", m),
-                        mat("l", n), mat("u", n), obj_constants=oc,
-                        params=params, device=dev)
+    res = _mesh_noted(params, lambda: solve_batched(
+        A, mat("C", n), mat("AL", m), mat("AU", m), mat("l", n),
+        mat("u", n), obj_constants=oc, params=params, device=dev))
     out = {
         "m": res.m, "n": res.n, "batch": res.batch_size,
         "status": list(res.status),
@@ -209,6 +208,22 @@ def _handle(req: dict, device) -> dict:
         "power_time": float(res.power_time),
     }
     return {"ok": True, "result": out}
+
+
+def _mesh_noted(params, solve):
+    """solve(); with params.mesh_shape, which launches that many ranks
+    (parallel/distributed.py::launch), one stderr line with the ranks'
+    seconds from their start to their group being up."""
+    out = solve()
+    if params.mesh_shape:
+        from .parallel import distributed
+
+        rec = distributed.launch.record
+        print(f"mesh of {rec['world']} ranks: groups up in "
+              + ", ".join(f"{s:.3f}" for s in rec["start_s"])
+              + f" s, launch wall {rec['wall_s']:.3f} s",
+              file=sys.stderr, flush=True)
+    return out
 
 
 def release_device_memory() -> None:

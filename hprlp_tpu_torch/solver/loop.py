@@ -16,8 +16,9 @@ With Parameters(mesh_shape=N) the solve runs on N ranks, one process per
 card (parallel/distributed.py): inside a process group of N ranks every
 rank runs this solve on its own device with A and A^T column-sharded
 (parallel/sharded.py) and the vectors replicated, and returns the same
-Results; without a group, solve_problem launches the N ranks and returns
-rank 0's.
+Results; each rank ingests only its share of the matrix
+(build_share_ingest).  Without a group, solve_problem launches the N
+ranks and returns rank 0's.
 """
 
 from __future__ import annotations
@@ -29,11 +30,15 @@ import time
 import numpy as np
 import torch
 
-from ..ops.device_problem import attach_blocks, host_csr, upload_problem
+from .._malloc import preheat
+from ..ops.device_problem import (LpDevice, attach_blocks, canonical_csr,
+                                  default_vectors, host_csr, padded_size,
+                                  upload_problem)
 from ..ops.sparse import spmv_backend
 from ..ops.tiles import build_tiles
 from ..parallel import distributed
-from ..parallel.sharded import shard_problem
+from ..parallel.sharded import (ScalingShare, host_share, shard_from_share,
+                                share_cuts, upload_rows)
 from ..params import Parameters
 from ..problem import LpProblem
 from ..results import Results
@@ -53,6 +58,11 @@ F64_BELOW_TOL = 1e-5
 # there on the tiled kernel is taken without a probe, so the CSR arrays
 # and the "gather" plan would be kept only to go unused.
 GIANT_LANE_FIRST_NNZ = AUTOTUNE_LANE_DIRECT_NNZ
+# The giant regime's preheat of the host allocator, as the JAX package's
+# giant ingest sizes it (hprlp_tpu/ops/device_problem.py:473-480): ~120
+# B/nnz covers the host's CSR, transpose and temporaries, up to 24 GiB.
+PREHEAT_B_PER_NNZ = 120
+PREHEAT_MAX = 24 << 30
 # Results fields on each rank's own clock, which a mesh solve agrees on.
 TIME_FIELDS = ("setup_time", "scaling_time", "autotune_time", "power_time",
                "time", "time4", "time6", "time8")
@@ -121,20 +131,14 @@ def resolve_dtype(params: Parameters, device: torch.device) -> torch.dtype:
     return torch.float32
 
 
-def _check_supported(params: Parameters) -> None:
+def check_mesh_supported(params: Parameters) -> None:
     """Raise NotImplementedError for what a mesh solve does not run yet:
-    spmv_backend "gather" or "dense", and precision="mixed"."""
-    if not params.mesh_shape:
-        return
-    if params.spmv_backend in ("gather", "dense"):
+    spmv_backend "gather" or "dense"."""
+    if params.mesh_shape and params.spmv_backend in ("gather", "dense"):
         raise NotImplementedError(
             f"mesh_shape with spmv_backend={params.spmv_backend!r} is not "
-            f"ported yet (ROADMAP.md queue 1 item 2); a mesh runs the tiled "
+            f"ported yet (ROADMAP.md queue 1 item 1); a mesh runs the tiled "
             f"kernel: spmv_backend 'auto' or 'lane'")
-    if params.precision == "mixed":
-        raise NotImplementedError(
-            "mesh_shape with precision='mixed' is not ported yet (ROADMAP.md "
-            "queue 1 item 3)")
 
 
 def mesh_rank_device(params: Parameters, device) -> torch.device:
@@ -174,23 +178,27 @@ def build_ingest(problem: LpProblem, params: Parameters, device=None):
          (CsrMatrix.tiles_only), A's CSR arrays released before A^T's
          tiles are built.
     With params.mesh_shape, in a process group of that many ranks, each
-    rank runs stages 1-3 whole (replicated, so bitwise the same on every
-    rank) and its layout is the tiles of its column slices of A and A^T
-    alone (parallel/sharded.py::shard_problem), with no plan; the device
-    is the rank's (distributed.mesh_device).
+    rank runs the share ingest (build_share_ingest) on its device
+    (distributed.mesh_device).  In the giant regime the host allocator is
+    preheated first (_malloc.preheat, a no-op unless tune_malloc ran).
     Returns (lp, maps, scal, seconds): seconds of the stages above, each
     ended by a device sync, and "wall".  Raises on any failure, and for
     precision="mixed"; no caller tries another route."""
     t0 = time.perf_counter()
     params.validate()
-    _check_supported(params)
+    check_mesh_supported(params)
     if params.precision == "mixed":
         raise ValueError("precision='mixed' solves in stages, each with its "
                          "own ingest: no single ingest")
-    mesh = bool(params.mesh_shape)
-    device = (mesh_rank_device(params, device) if mesh
-              else resolve_device(params, device))
+    if params.mesh_shape:
+        device = mesh_rank_device(params, device)
+        return build_share_ingest(problem, params, device,
+                                  distributed.rank(), params.mesh_shape,
+                                  t0=t0)
+    device = resolve_device(params, device)
     giant = giant_regime(problem, params)
+    if giant:
+        preheat(min(problem.nnz * PREHEAT_B_PER_NNZ, PREHEAT_MAX))
 
     def synced() -> float:
         _sync(device)
@@ -208,11 +216,9 @@ def build_ingest(problem: LpProblem, params: Parameters, device=None):
                              use_pc=params.use_Pock_Chambolle_scaling,
                              use_bc=params.use_bc_scaling)
     t3 = synced()
-    if mesh:
-        lp = shard_problem(lp, distributed.rank(), params.mesh_shape)
-    elif params.spmv_backend in ("auto", "gather") and not giant:
+    if params.spmv_backend in ("auto", "gather") and not giant:
         lp = attach_blocks(lp)
-    if params.spmv_backend in ("auto", "lane") and not mesh:
+    if params.spmv_backend in ("auto", "lane"):
         # Nothing retiles these tiles, so they keep no CSR order (perm).
         for name in ("A", "AT"):
             M = getattr(lp, name)
@@ -224,6 +230,75 @@ def build_ingest(problem: LpProblem, params: Parameters, device=None):
     return lp, maps, scal, {"host": t1 - t0, "upload": t2 - t1,
                             "scaling": t3 - t2, "layout": t4 - t3,
                             "wall": t4 - t0}
+
+
+def build_share_ingest(problem: LpProblem, params: Parameters, device,
+                       rank: int, world: int, group=None, t0=None):
+    """build_ingest for rank `rank` of a mesh of `world` ranks in `group`
+    (None: the default group) on `device`, which holds only the rank's
+    share (parallel/sharded.py):
+      1. "host": A's canonical CSR, the cuts R and C, and the share's four
+         forms (host_share), with no whole transpose;
+      2. "upload": the row forms A[R, :] and A^T[C, :] and the replicated
+         vectors;
+      3. "scaling": scale_problem on the row forms, the ranks' per-row
+         results exchanged (ScalingShare: 51 exchanges with every pass
+         on);
+      4. "layout": the row forms released, the column forms uploaded,
+         scaled by the recorded factors and laid out as the tiles of
+         A[:, C] and A^T[:, R] (shard_from_share).
+    The scaled vectors, factors and tiles are bitwise those of the
+    one-card ingest followed by shard_problem.  In the giant regime the
+    host allocator is preheated for the share.  After the call
+    build_share_ingest.record holds {"rows", "cols", "entries",
+    "exchanges"}.  Returns as build_ingest; raises
+    on any failure."""
+    t0 = time.perf_counter() if t0 is None else t0
+    build_share_ingest.record = None
+    dtype = resolve_dtype(params, device)
+
+    def synced() -> float:
+        _sync(device)
+        return time.perf_counter()
+
+    A = canonical_csr(problem)
+    m_pad, n_pad = padded_size(problem.m), padded_size(problem.n)
+    rows, cols, entries = share_cuts(A, m_pad, n_pad, rank, world)
+    if giant_regime(problem, params):
+        # The share holds each of its entries in two forms, as the one-card
+        # ingest holds A and A^T.
+        preheat(min(entries * PREHEAT_B_PER_NNZ // 2, PREHEAT_MAX))
+    share = host_share(A, m_pad, n_pad, rows, cols)
+    del A
+    t1 = time.perf_counter()
+    vectors, maps = default_vectors(problem, dtype, device)
+    A_rows, AT_rows = upload_rows(share, dtype, device)
+    lp = LpDevice(A=A_rows, AT=AT_rows, **vectors)
+    del A_rows, AT_rows, vectors
+    share.a_rows = share.at_rows = None
+    t2 = synced()
+    scaling = ScalingShare(a0=share.rows[0], at0=share.cols[0], m=m_pad,
+                           n=n_pad, group=group)
+    lp, scal = scale_problem(lp, use_cr=params.use_CR_scaling,
+                             use_ruiz=params.use_Ruiz_scaling,
+                             use_pc=params.use_Pock_Chambolle_scaling,
+                             use_bc=params.use_bc_scaling, share=scaling)
+    t3 = synced()
+    lp = dataclasses.replace(lp, A=None, AT=None)
+    A_sh, AT_sh = shard_from_share(share, scaling.passes, dtype, device,
+                                   group)
+    lp = dataclasses.replace(lp, A=A_sh, AT=AT_sh)
+    del A_sh, AT_sh, scaling.passes[:]
+    t4 = synced()
+    build_share_ingest.record = {
+        "rows": share.rows, "cols": share.cols,
+        "entries": entries, "exchanges": scaling.exchanges}
+    return lp, maps, scal, {"host": t1 - t0, "upload": t2 - t1,
+                            "scaling": t3 - t2, "layout": t4 - t3,
+                            "wall": t4 - t0}
+
+
+build_share_ingest.record = None
 
 
 def solve_problem(problem: LpProblem, params: Parameters | None = None,
@@ -263,7 +338,7 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     """
     params = params or Parameters()
     params.validate()
-    _check_supported(params)
+    check_mesh_supported(params)
     mesh = bool(params.mesh_shape)
     if mesh and not distributed.in_group():
         return _launch_mesh(problem, params, x0, y0, sigma0, device)
@@ -274,7 +349,7 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
 
         return solve_refined(problem, params, x0=x0, y0=y0, device=device)
     dtype = resolve_dtype(params, device)
-    log = (print if params.verbose and distributed.rank() == 0
+    log = (print if params.verbose and (not mesh or distributed.rank() == 0)
            else (lambda *a, **k: None))
 
     out = Results()
@@ -291,6 +366,11 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
                  ("b_scale", "c_scale", "norm_b", "norm_c",
                   "norm_b_org", "norm_c_org")}
     log(f"Scaling time = {out.scaling_time:.2f} seconds")
+    if mesh:
+        rec = build_share_ingest.record
+        log(f"Share ingest: rows {rec['rows']}, columns {rec['cols']}, "
+            f"{rec['entries']} entries, {rec['exchanges']} scaling "
+            f"exchanges")
 
     if sigma0 is not None:
         sigma = float(sigma0)

@@ -22,6 +22,13 @@ tail its double build (csrc/spmv_tiled.cu).  refine_stage_precision="f64"
 runs native f64 stages: the port has no double-f32 pairs.  Each stage is
 a whole solve_problem call (upload, scaling, graph capture included), as
 in the JAX package.
+
+Under a mesh (Parameters.mesh_shape, inside the group) every stage and
+the tail are mesh solves, each with its own share ingest.  Every host
+decision reads replicated values: the stages' Results, which every rank
+returns bitwise alike, host f64 arithmetic on them, and the wall clock,
+which is the slowest rank's (`wall`), so every rank takes the same time
+budget and the same branch.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import time
 
 import numpy as np
 
+from ..parallel import distributed
 from ..params import Parameters
 from ..problem import LpProblem
 from ..results import Results
@@ -75,8 +83,20 @@ def solve_refined(problem: LpProblem, params: Parameters,
 
     target = params.stop_tol
     t_start = time.perf_counter()
-    # HPRLP_REFINE_LOG=1: stage lines even on quiet solves (stderr).
-    if params.verbose:
+
+    def wall() -> float:
+        """Seconds since the start; under a mesh the slowest rank's, so
+        that every rank takes the same budget and the same branch."""
+        t = time.perf_counter() - t_start
+        if params.mesh_shape:
+            t = distributed.all_ranks_max([t], device)[0]
+        return t
+
+    # HPRLP_REFINE_LOG=1: stage lines even on quiet solves (stderr).  Under
+    # a mesh only rank 0 prints.
+    if params.mesh_shape and distributed.rank() != 0:
+        log = lambda *a, **k: None
+    elif params.verbose:
         log = print
     elif _os.environ.get("HPRLP_REFINE_LOG"):
         log = lambda *a, **k: print(*a, file=_sys.stderr, flush=True, **k)
@@ -132,7 +152,7 @@ def solve_refined(problem: LpProblem, params: Parameters,
                 first[tol] = False
 
     for stage in range(max(1, params.refine_max_stages)):
-        budget = params.time_limit - (time.perf_counter() - t_start)
+        budget = params.time_limit - wall()
         if budget <= 0:
             break
         stage_params.time_limit = budget
@@ -245,7 +265,7 @@ def solve_refined(problem: LpProblem, params: Parameters,
         """Status when the TARGET tolerance was not met: a stage's own
         OPTIMAL (it only certifies the stage tolerance) must not leak to
         the caller as OPTIMAL-at-target."""
-        if time.perf_counter() - t_start >= params.time_limit:
+        if wall() >= params.time_limit:
             return "TIME_LIMIT"
         if last_status in ("OPTIMAL", "STALLED"):
             return "STALLED"
@@ -271,7 +291,7 @@ def solve_refined(problem: LpProblem, params: Parameters,
         if stage_params.spmv_backend != "auto":
             tail_params.spmv_backend = stage_params.spmv_backend
         for attempt, (xw, yw) in enumerate(((x, y), (None, None))):
-            budget = params.time_limit - (time.perf_counter() - t_start)
+            budget = params.time_limit - wall()
             if budget <= 0:
                 break
             tail_params.time_limit = budget

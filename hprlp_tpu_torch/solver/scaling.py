@@ -56,14 +56,39 @@ def _sqrt_clamped(norms: torch.Tensor) -> torch.Tensor:
 
 
 def scale_matrix(A, AT, use_cr: bool = True, use_ruiz: bool = True,
-                 use_pc: bool = True):
+                 use_pc: bool = True, share=None):
     """Matrix-only scaling passes (CR -> Ruiz -> PC).
 
     Returns (A_scaled, AT_scaled, row_norm, col_norm) with
-    A_scaled = diag(1/row_norm) A diag(1/col_norm)."""
+    A_scaled = diag(1/row_norm) A diag(1/col_norm).
+
+    With `share` (parallel/sharded.py::ScalingShare) A and AT are one
+    mesh rank's rows of them, A's from share.a0 and A^T's from share.at0:
+    each per-row reduction runs on these rows, in the one-card order,
+    and share.gather exchanges the ranks' results into the whole
+    factors (CR: two exchanges a sweep; Ruiz, PC: one a pass, both norms
+    taken before the pass scales); every pass's factors are recorded in
+    share.passes.  The factors are then bitwise the one-card ones."""
     dtype, device = A.dtype, A.device
-    row_norm = torch.ones(A.nrows, dtype=dtype, device=device)
-    col_norm = torch.ones(A.ncols, dtype=dtype, device=device)
+    if share is None:
+        m, n, a0, at0 = A.nrows, AT.nrows, 0, 0
+    else:
+        m, n, a0, at0 = share.m, share.n, share.a0, share.at0
+    row_norm = torch.ones(m, dtype=dtype, device=device)
+    col_norm = torch.ones(n, dtype=dtype, device=device)
+
+    def whole(a=None, at=None):
+        """The whole per-row vectors of A and A^T from this process's."""
+        return (a, at) if share is None else share.gather(a, at)
+
+    def scale(r, c):
+        """One pass: A's entry (i, j) times r[i], then c[j]; A^T's copy of
+        it times c[j], then r[i]."""
+        nonlocal A, AT
+        A = scale_cols(scale_rows(A, r[a0:a0 + A.nrows]), c)
+        AT = scale_cols(scale_rows(AT, c[at0:at0 + AT.nrows]), r)
+        if share is not None:
+            share.passes.append((r, c))
 
     if use_cr:
         # 20 alternating log-least-squares sweeps on the original values.
@@ -72,37 +97,35 @@ def scale_matrix(A, AT, use_cr: bool = True, use_ruiz: bool = True,
         log_at = -torch.log(torch.clamp(AT.vals.abs(), min=1e-300))
         cols_a = A.indices.to(torch.int64)
         cols_at = AT.indices.to(torch.int64)
-        t1 = torch.zeros(A.nrows, dtype=dtype, device=device)
-        t2 = torch.zeros(A.ncols, dtype=dtype, device=device)
+        t1 = torch.zeros(m, dtype=dtype, device=device)
+        t2 = torch.zeros(n, dtype=dtype, device=device)
         for _ in range(CURTIS_REID_ITERS):
-            t1 = row_masked_mean(A, log_a - t2[cols_a])
-            t2 = row_masked_mean(AT, log_at - t1[cols_at])
+            t1, _ = whole(a=row_masked_mean(A, log_a - t2[cols_a]))
+            _, t2 = whole(at=row_masked_mean(AT, log_at - t1[cols_at]))
+        del log_a, log_at, cols_a, cols_at
         t1 = torch.clamp(torch.exp(t1), 1e-30, 1e30)
         t2 = torch.clamp(torch.exp(t2), 1e-30, 1e30)
         # CR multiplies A by the factors, so the accumulated divisors shrink.
         row_norm = row_norm / t1
         col_norm = col_norm / t2
-        A = scale_cols(scale_rows(A, t1), t2)
-        AT = scale_cols(scale_rows(AT, t2), t1)
+        scale(t1, t2)
 
     if use_ruiz:
         for _ in range(RUIZ_ITERS):
-            t1 = _sqrt_clamped(row_inf_norms(A))
-            row_norm = row_norm * t1
             # Column norms measured before the row scaling is applied
             # (reference ordering, src/scaling.cu:127-144).
-            t2 = _sqrt_clamped(row_inf_norms(AT))
+            t1, t2 = whole(row_inf_norms(A), row_inf_norms(AT))
+            t1, t2 = _sqrt_clamped(t1), _sqrt_clamped(t2)
+            row_norm = row_norm * t1
             col_norm = col_norm * t2
-            A = scale_cols(scale_rows(A, 1.0 / t1), 1.0 / t2)
-            AT = scale_cols(scale_rows(AT, 1.0 / t2), 1.0 / t1)
+            scale(1.0 / t1, 1.0 / t2)
 
     if use_pc:
-        t1 = _sqrt_clamped(row_one_norms(A))
+        t1, t2 = whole(row_one_norms(A), row_one_norms(AT))
+        t1, t2 = _sqrt_clamped(t1), _sqrt_clamped(t2)
         row_norm = row_norm * t1
-        t2 = _sqrt_clamped(row_one_norms(AT))
         col_norm = col_norm * t2
-        A = scale_cols(scale_rows(A, 1.0 / t1), 1.0 / t2)
-        AT = scale_cols(scale_rows(AT, 1.0 / t2), 1.0 / t1)
+        scale(1.0 / t1, 1.0 / t2)
 
     return A, AT, row_norm, col_norm
 
@@ -144,18 +167,21 @@ def _scale_vectors(lp: LpDevice, A, AT, row_norm, col_norm, use_bc: bool
 
 
 def scale_problem(lp: LpDevice, use_cr: bool = True, use_ruiz: bool = True,
-                  use_pc: bool = True, use_bc: bool = True
+                  use_pc: bool = True, use_bc: bool = True, share=None
                   ) -> tuple[LpDevice, ScalingInfo]:
-    """Full scaling pipeline, one stage per enabled matrix pass."""
+    """Full scaling pipeline, one stage per enabled matrix pass.  With
+    `share`, lp's A and A^T are a mesh rank's row forms (scale_matrix)
+    and its vectors whole; the vectors' scaling reads the whole factors."""
     A, AT = lp.A, lp.AT
-    row_norm = torch.ones(A.nrows, dtype=A.dtype, device=A.device)
-    col_norm = torch.ones(A.ncols, dtype=A.dtype, device=A.device)
+    m, n = (lp.AL.numel(), lp.c.numel())
+    row_norm = torch.ones(m, dtype=A.dtype, device=A.device)
+    col_norm = torch.ones(n, dtype=A.dtype, device=A.device)
     for enabled, flags in ((use_cr, (True, False, False)),
                            (use_ruiz, (False, True, False)),
                            (use_pc, (False, False, True))):
         if not enabled:
             continue
-        A, AT, rn, cn = scale_matrix(A, AT, *flags)
+        A, AT, rn, cn = scale_matrix(A, AT, *flags, share=share)
         row_norm = row_norm * rn
         col_norm = col_norm * cn
     return _scale_vectors(lp, A, AT, row_norm, col_norm, use_bc)

@@ -146,16 +146,6 @@ def test_mesh_flag_parses_as_jax():
         ["-i", "f", "--mesh", "4"])).mesh_shape == 4
 
 
-@pytest.mark.parametrize("flags,name", [
-    (["--malloc-tune"], "--malloc-tune"),
-], ids=["malloc_tune"])
-def test_unported_flags_exit_1(flags, name, capsys):
-    assert cli.main(["-i", MODEL, "--device", "cpu", *flags]) == 1
-    captured = capsys.readouterr()
-    assert "Not ported to hprlp_tpu_torch yet" in captured.err
-    assert name in captured.err and captured.out == ""
-
-
 def test_no_cuda_without_device_cpu_exits_1(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["-i", MODEL, "--quiet"]) == 1

@@ -206,7 +206,8 @@ def _body_without_docstring(path, drop=()):
     ("io/mps.py", "hprlp_tpu/io/mps.py", ()),
     # The port's ModelBuilder.solve takes a torch device.
     ("modeling.py", "hprlp_tpu/modeling.py", ("ModelBuilder.solve",)),
-], ids=["io.mps", "modeling"])
+    ("_malloc.py", "hprlp_tpu/_malloc.py", ()),
+], ids=["io.mps", "modeling", "_malloc"])
 def test_module_copies_match(copy, original, drop):
     assert _body_without_docstring(os.path.join(PORT, copy), drop) == \
         _body_without_docstring(os.path.join(ROOT, original), drop)
@@ -254,7 +255,8 @@ class _Recorder:
 
 def test_native_signatures_match():
     """native.py binds hprlp_tpu/native.py's hpres_* presolve and hpmps_*
-    reader signatures (52-82, 132-153), and none of its lane/scaling
+    reader signatures (52-82, 132-153) and its hprlp_parallel_touch
+    (100-101, which _malloc.preheat calls), and none of its lane/scaling
     entry points."""
     import hprlp_tpu.native as jnative
     import hprlp_tpu_torch.native as tnative
@@ -265,7 +267,7 @@ def test_native_signatures_match():
     lane = ("hpres_lane_schedule", "hpres_lane_pack_thin",
             "hpres_balance_cells")
     want = {k for k in jax.fns if k.startswith(("hpres_", "hpmps_"))
-            and k not in lane}
+            and k not in lane} | {"hprlp_parallel_touch"}
     assert set(port.fns) == want
     for name in want:
         for attr in ("argtypes", "restype"):
@@ -288,7 +290,8 @@ def test_import_leaves_out_jax_triton_and_the_jax_package():
             "hprlp_tpu_torch.ops.spmm, hprlp_tpu_torch.solver.batched, "
             "hprlp_tpu_torch.solver.batched_device_loop, "
             "hprlp_tpu_torch.prof.prof_loop, hprlp_tpu_torch.server, "
-            "hprlp_tpu_torch.capi, hprlp_tpu_torch.solver.refine; "
+            "hprlp_tpu_torch.capi, hprlp_tpu_torch.solver.refine, "
+            "hprlp_tpu_torch._malloc, hprlp_tpu_torch.prof.share_ingest; "
             "bad = [m for m in ('jax', 'triton', 'hprlp_tpu') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -1,6 +1,7 @@
 """The mesh route on the card: the tiled kernel on column slices against
-the whole matrix, and mesh_shape=1 in a one-rank NCCL group, its
-all-reduces captured in the solve's CUDA graph, bitwise the lane solve.
+the whole matrix, mesh_shape=1 in a one-rank NCCL group, its
+all-reduces captured in the solve's CUDA graph, bitwise the lane solve,
+and two ranks' share ingest on the card bitwise the one-card ingest.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package:
@@ -90,6 +91,26 @@ def test_mesh_of_one_nccl_rank_is_the_lane_solve(precision, stop_tol,
         setattr(want, name, 0.0)
     same_results(got, want)
     assert got.status == "OPTIMAL"
+
+
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+def test_share_ingest_on_the_card_is_the_one_card_ingest_sliced(precision,
+                                                                cuda):
+    """Two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card;
+    gloo all-reduces the card's tensors): each rank's share ingest on the
+    card, its row sums on the SpMM kernel over its row slices, bitwise
+    the one-card ingest on the card then shard_problem (factors,
+    scalars, vectors, tiles); 51 exchanges."""
+    import test_torch_parallel_ranks as ranks
+
+    problem = random_lp(4096, 8192, 20, seed=12)
+    case = ("share", "share", (problem, precision, "cuda:0"), {})
+    per_rank = distributed.launch(ranks.run_cases, ([case],), world=2,
+                                  device_type="cpu", timeout=300)
+    for r, out in enumerate(per_rank):
+        got = out["share"]
+        assert not [k for k, ok in got["same"].items() if not ok], r
+        assert got["record"]["exchanges"] == 51
 
 
 def test_batched_mesh_of_one_nccl_rank_is_the_batched_solve(nccl_group):

@@ -47,7 +47,11 @@ def run_cases(cases):
     on the CPU; returns {name: result}.  kind: "facts" (rank_facts),
     "solve" (solve_problem),
     "giant" (solve_problem with loop.GIANT_LANE_FIRST_NNZ lowered to GIANT
-    for the call), "batched" (solve_batched), "model" (Model.solve)."""
+    for the call), "batched" (solve_batched), "model" (Model.solve),
+    "giant_model" (overlapped: counted_model_solve with GIANT),
+    "presolve_once" (presolve_once), "own_model" (own_model_solve),
+    "share" (share_against_one_card),
+    "share_solve" (share_solve_against_one_card)."""
     out = {}
     for name, kind, args, kwargs in cases:
         if kind == "facts":
@@ -57,6 +61,16 @@ def run_cases(cases):
         elif kind == "model":
             problem, params = args
             out[name] = ht.Model(problem).solve(params, device="cpu")
+        elif kind == "giant_model":
+            out[name] = counted_model_solve(*args, giant=GIANT)
+        elif kind == "presolve_once":
+            out[name] = presolve_once(*args)
+        elif kind == "own_model":
+            out[name] = own_model_solve(*args)
+        elif kind == "share":
+            out[name] = share_against_one_card(*args)
+        elif kind == "share_solve":
+            out[name] = share_solve_against_one_card(*args)
         else:
             saved = loop.GIANT_LANE_FIRST_NNZ
             if kind == "giant":
@@ -66,6 +80,150 @@ def run_cases(cases):
             finally:
                 loop.GIANT_LANE_FIRST_NNZ = saved
     return out
+
+
+def counted_model_solve(problem, params, giant=None):
+    """(Model.solve's Results on the CPU, this rank's presolve calls, its
+    ingests, solve_with_presolve.record), loop.GIANT_LANE_FIRST_NNZ
+    lowered to `giant` for the call when given."""
+    import hprlp_tpu_torch.presolve as tps
+
+    calls = {"presolve": 0, "ingest": 0}
+    real_pre, real_ingest = tps.presolve_problem, loop.build_ingest
+    saved = loop.GIANT_LANE_FIRST_NNZ
+
+    def presolve(*a, **k):
+        calls["presolve"] += 1
+        return real_pre(*a, **k)
+
+    def ingest(*a, **k):
+        calls["ingest"] += 1
+        return real_ingest(*a, **k)
+
+    tps.presolve_problem, loop.build_ingest = presolve, ingest
+    if giant is not None:
+        loop.GIANT_LANE_FIRST_NNZ = giant
+    try:
+        res = ht.Model(problem).solve(params, device="cpu")
+    finally:
+        tps.presolve_problem, loop.build_ingest = real_pre, real_ingest
+        loop.GIANT_LANE_FIRST_NNZ = saved
+    return res, calls["presolve"], calls["ingest"], \
+        ht.model.solve_with_presolve.record
+
+
+def presolve_once(problem, params):
+    """counted_model_solve, with rank 1's presolve made to report a
+    failure, so that a rank that presolved for itself would solve the
+    original LP while rank 0 solves the reduced one."""
+    import hprlp_tpu_torch.presolve as tps
+
+    real = tps.presolve_problem
+
+    def differs(*a, **k):
+        if distributed.rank() == 1:
+            return "UNAVAILABLE", None, None
+        return real(*a, **k)
+
+    tps.presolve_problem = differs
+    try:
+        return counted_model_solve(problem, params)
+    finally:
+        tps.presolve_problem = real
+
+
+def own_model_problem(rank: int) -> LpProblem:
+    """The LP that rank `rank` solves on its own (own_model_solve)."""
+    return random_problem(60 + rank, m=30, n=45, density=0.3)
+
+
+def own_model_solve(params):
+    """Model.solve without mesh_shape inside the group: this rank's own
+    LP (own_model_problem), presolved and solved by this rank alone, its
+    log kept.  Returns (Results, solve_with_presolve.record, stdout)."""
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        res = ht.Model(own_model_problem(distributed.rank())).solve(
+            params, device="cpu")
+    return res, ht.model.solve_with_presolve.record, printed.getvalue()
+
+
+def one_card_then_shard(problem, params, rank, world, device="cpu"):
+    """The reference of the share ingest: the one-card ingest (host_csr,
+    upload_problem, scale_problem) on `device`, then shard_problem, as
+    build_ingest's (lp, maps, scal, seconds)."""
+    from hprlp_tpu_torch.parallel.sharded import shard_problem
+    from hprlp_tpu_torch.solver.scaling import scale_problem
+
+    device = torch.device(device)
+    A, AT = host_csr(problem)
+    lp, maps = upload_problem(problem, A, AT, dtype=loop.resolve_dtype(
+        params, device), device=device)
+    lp, scal = scale_problem(lp)
+    lp = shard_problem(lp, rank, world)
+    return lp, maps, scal, {"wall": 0.0, "scaling": 0.0}
+
+
+def share_against_one_card(problem, precision, device="cpu"):
+    """This rank's share ingest (loop.build_share_ingest) on `device`
+    (its gloo group's all-reduces run on the card's tensors too) against
+    one_card_then_shard on it: {what: bitwise equal?} for the scaling's
+    factors and scalars, the scaled vectors, each matrix's slice and
+    tiles; the upload of every host array, by its size; the ingest's
+    record; the sizes (m_pad, n_pad, nnz) and the entries of A[R, :] and
+    A[:, C]."""
+    world, rank = distributed.world_size(), distributed.rank()
+    params = quiet(mesh_shape=world, precision=precision)
+    uploads = []
+    as_tensor = torch.as_tensor
+
+    def recorded(data, *a, **k):
+        if isinstance(data, np.ndarray):
+            uploads.append(int(data.size))
+        return as_tensor(data, *a, **k)
+
+    torch.as_tensor = recorded
+    try:
+        lp, _, scal, _ = loop.build_share_ingest(
+            problem, params, torch.device(device), rank, world)
+    finally:
+        torch.as_tensor = as_tensor
+    rec = loop.build_share_ingest.record
+    ref, _, rscal, _ = one_card_then_shard(problem, params, rank, world,
+                                           device)
+    same = {k: torch.equal(getattr(scal, k), getattr(rscal, k)) for k in (
+        "row_norm", "col_norm", "b_scale", "c_scale", "norm_b", "norm_c",
+        "norm_b_org", "norm_c_org")}
+    same.update({k: torch.equal(getattr(lp, k), getattr(ref, k))
+                 for k in ("AL", "AU", "c", "l", "u")})
+    for name in ("A", "AT"):
+        a, b = getattr(lp, name), getattr(ref, name)
+        same[name + ".shard"] = (a.shard.c0, a.shard.c1, a.nrows,
+                                 a.ncols) == (b.shard.c0, b.shard.c1,
+                                              b.nrows, b.ncols)
+        same[name + ".csr_released"] = a.vals is None and a.indptr is None
+        for f in ("vals", "keys", "runs", "row_start"):
+            same[f"{name}.tiles.{f}"] = torch.equal(
+                getattr(a.tiles, f), getattr(b.tiles, f))
+    (r0, r1), (c0, c1) = rec["rows"], rec["cols"]
+    A = problem.A.tocsr()
+    return {"same": same, "uploads": uploads, "record": rec,
+            "sizes": (lp.A.nrows, lp.A.ncols, problem.nnz),
+            "forms": (int(A[r0:r1].nnz), int(A[:, c0:c1].nnz))}
+
+
+def share_solve_against_one_card(problem, params):
+    """(the mesh solve through the share ingest, the mesh solve on
+    one_card_then_shard's ingest), both on the CPU."""
+    world, rank = distributed.world_size(), distributed.rank()
+    got = ht.solve_problem(problem, params, device="cpu")
+    want = ht.solve_problem(problem, params, device="cpu",
+                            _ingest=one_card_then_shard(problem, params,
+                                                        rank, world))
+    return got, want
 
 
 def fail_on_rank(bad: int) -> int:
@@ -272,6 +430,46 @@ def test_mesh_of_one_rank_is_the_lane_solve(precision, one_rank_group):
     assert got.status == "OPTIMAL" and got.spmv_backend == "tiled"
 
 
+def test_mixed_mesh_of_one_rank_is_the_one_card_mixed(one_rank_group):
+    """precision="mixed" (f32 stages, the f64 tail) with mesh_shape=1 in a
+    one-rank gloo group: every stage and the tail a mesh solve on its own
+    share ingest; every field of the Results, times aside, bitwise the
+    one-card "mixed" solve's (tests/conftest.py's random_lp(5, 30, 40,
+    0.3), ~42,000 iterations)."""
+    problem = random_problem(5, m=30, n=40, density=0.3)
+    kw = {"stop_tol": 1e-8, "precision": "mixed"}
+    before = all_reduce_sum.launches
+    got = ht.solve_problem(problem, quiet(mesh_shape=1, **kw), device="cpu")
+    assert all_reduce_sum.launches > before
+    want = ht.solve_problem(problem, quiet(**kw), device="cpu")
+    for name in loop.TIME_FIELDS:
+        setattr(got, name, 0.0)
+        setattr(want, name, 0.0)
+    same_results(got, want)
+    assert got.status == "OPTIMAL"
+    assert problem.kkt_error(got.x, got.y, got.z)["kkt"] < 1e-8
+
+
+@pytest.mark.parametrize("mesh", [None, 1], ids=["one_card", "mesh1"])
+def test_giant_ingest_preheats_for_its_share(mesh, monkeypatch, request):
+    """In the giant regime build_ingest preheats the host allocator with
+    min(nnz * 120, 24 GiB), as the JAX package's giant ingest does; under
+    a mesh with the share's entries (each in two forms) * 120 / 2, which
+    at one rank is the same; outside the giant regime it does not."""
+    if mesh:
+        request.getfixturevalue("one_rank_group")
+    problem = random_problem(8)
+    asked = []
+    monkeypatch.setattr(loop, "preheat", asked.append)
+    params = quiet(mesh_shape=mesh)
+    loop.build_ingest(problem, params, "cpu")
+    assert asked == []
+    monkeypatch.setattr(loop, "GIANT_LANE_FIRST_NNZ", 1)
+    loop.build_ingest(problem, params, "cpu")
+    assert asked == [problem.nnz * loop.PREHEAT_B_PER_NNZ]
+    assert loop.PREHEAT_B_PER_NNZ == 120 and loop.PREHEAT_MAX == 24 << 30
+
+
 def test_batched_mesh_of_one_rank_is_the_batched_solve(one_rank_group):
     """solve_batched with mesh_shape=1 in a one-rank group: every member
     bitwise the single-device batched solve's."""
@@ -317,9 +515,8 @@ def batched_args(B, seed=9):
 
 
 @pytest.mark.parametrize("kw", [{"spmv_backend": "gather"},
-                                {"spmv_backend": "dense"},
-                                {"precision": "mixed"}],
-                         ids=["gather", "dense", "mixed"])
+                                {"spmv_backend": "dense"}],
+                         ids=["gather", "dense"])
 def test_what_a_mesh_does_not_run_raises(kw):
     problem = random_problem(3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -348,13 +545,40 @@ def test_more_ranks_than_cards_raises(solve, monkeypatch):
             ht.solve_batched(*batched_args(4), params=quiet(mesh_shape=2))
 
 
-def test_a_server_request_with_a_mesh_answers_an_error():
+def test_a_server_request_with_a_mesh_answers_the_mesh_solve(capfd):
+    """A `solve` request with mesh_shape=2 to the server on --device cpu
+    launches 2 gloo ranks, as Model.solve does without a group: its
+    answer is the in-process mesh Model.solve's (status, iterations,
+    objective, x bitwise), and stderr names the ranks' start seconds."""
+    import base64
+
     from hprlp_tpu_torch import server
 
-    reply = server.handle({"op": "solve_mps", "path": MODEL,
-                           "params": {"mesh_shape": 2}}, device="cpu")
-    assert not reply["ok"] and "NotImplementedError" in reply["error"]
-    assert "item 6" in reply["error"]
+    problem = random_problem(21, m=60, n=80, density=0.2)
+    A = problem.A.tocsr()
+
+    def enc(a, dtype):
+        return base64.b64encode(np.ascontiguousarray(
+            a, dtype=dtype).tobytes()).decode("ascii")
+
+    req = {"op": "solve", "m": problem.m, "n": problem.n,
+           "Ap": enc(A.indptr, "<i8"), "Ai": enc(A.indices, "<i8"),
+           "Ax": enc(A.data, "<f8"), "AL": enc(problem.AL, "<f8"),
+           "AU": enc(problem.AU, "<f8"), "l": enc(problem.l, "<f8"),
+           "u": enc(problem.u, "<f8"), "c": enc(problem.c, "<f8"),
+           "params": {"mesh_shape": 2, "stop_tol": 1e-6}}
+    reply = server.handle(req, device="cpu")
+    assert reply["ok"], reply
+    err = capfd.readouterr().err
+    assert "mesh of 2 ranks: groups up in" in err
+    assert err.count("group up in") == 2
+    want = ht.Model(problem).solve(ht.Parameters(
+        verbose=False, stop_tol=1e-6, mesh_shape=2), device="cpu")
+    got = reply["result"]
+    assert got["status"] == want.status == "OPTIMAL"
+    assert got["iter"] == want.iter and got["primal_obj"] == want.primal_obj
+    np.testing.assert_array_equal(
+        np.frombuffer(base64.b64decode(got["x"]), "<f8"), want.x)
 
 
 # --- launches -------------------------------------------------------------------

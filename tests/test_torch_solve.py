@@ -1,7 +1,7 @@
 """Whole solves of the port against JAX solve_problem (CPU, f64), and the
 port's entry points: statuses, warm starts, devices, precision routing and
 the options it does not take yet (a mesh with the "gather" or "dense"
-backend or precision="mixed")."""
+backend)."""
 
 import numpy as np
 import pytest
@@ -133,11 +133,12 @@ def test_no_device_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("kw", [
     {"mesh_shape": 2, "spmv_backend": "gather"},
     {"mesh_shape": 2, "spmv_backend": "dense"},
-    {"mesh_shape": 2, "precision": "mixed"},
+    {"mesh_shape": 2, "precision": "mixed", "spmv_backend": "gather"},
 ], ids=["kw1", "kw2", "kw3"])
 def test_options_not_ported_raise(kw):
-    """A mesh runs the tiled kernel ("auto", "lane") in one precision; what
-    it does not run yet raises, naming ROADMAP, before any rank starts."""
+    """A mesh runs the tiled kernel ("auto", "lane"), precision="mixed"
+    included; what it does not run yet raises, naming ROADMAP, before any
+    rank starts, a "mixed" solve too."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ht.solve_problem(LpProblem.from_arrays(*CASES["demo"]()),
                          ht.Parameters(verbose=False, **kw), device="cpu")
