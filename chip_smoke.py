@@ -176,11 +176,13 @@ and no other SpMV kernel (the probes' launches are counted apart), on
                  the slices' partial y's summed against the tiled kernel
                  on the whole matrix and its plain version; (b) a one-rank
                  NCCL group in this process: sparse_huge f32 (1e-4) and
-                 assignment64 f64 (1e-8) with mesh_shape=1 (the slice,
-                 the all-reduces captured in the CUDA graph), bitwise the
-                 spmv_backend="lane" solve (iterations, objective, x),
-                 both Results.time, the tiled launches and the all-reduces
-                 per iteration; (c) batched_large with mesh_shape=1,
+                 assignment64 f64 (1e-8) with mesh_shape=1 ("auto": the
+                 autotune probes sparse_huge on both forms; on the tiles
+                 the slice, the all-reduces captured in the CUDA graph),
+                 bitwise the one-card solve on the backend it chose
+                 (iterations, objective, x), both Results.time, the
+                 launches and the collectives per iteration; (c)
+                 batched_large with mesh_shape=1,
                  every member bitwise the single-device batched solve;
                  (d) `python -m hprlp_tpu_torch.cli -i data/model.mps
                  --mesh 1 --quiet` (a launched rank): rc 0, -26.4, the
@@ -208,7 +210,23 @@ and no other SpMV kernel (the probes' launches are counted apart), on
                  crosses; the reduced solve, whose all-reduce needs NCCL,
                  replaced by a zero point): each broadcast's bytes and
                  seconds, the device bytes held at its start and its
-                 peak, each rank's host RSS through it
+                 peak, each rank's host RSS through it; (l)
+                 sparse_large's A and A^T (f32, f64) cut by share_cuts'
+                 R and C into 2 and 4 row slices: the CSR kernel and its
+                 fused halves on each slice timed by graph replay beside
+                 their bounds, the slices' outputs concatenated against
+                 the kernel on the whole matrix and the plain version
+                 (bitwise, or the largest difference in ulps); (m) in
+                 the NCCL group, the row shards: sparse_large f32 (1e-4)
+                 and f64 (1e-6) with mesh_shape=1 on "gather", dense_lp
+                 on "dense", sparse_large on "auto", each bitwise the
+                 one-card solve with that backend ("auto": the same
+                 choice), the all-gathers per iteration captured in the
+                 graph, the launches (no tiled launch outside the
+                 probes), Results.time beside the one-card solve's; the
+                 share ingest's wall on "gather" (row forms only) beside
+                 the tiles' share ingest and the one-card ingest, at
+                 sparse_large and sparse_huge
  16. total       the smoke's seconds
 
 Any failure raises (exit code != 0).  The line before the last is the
@@ -2594,12 +2612,255 @@ def mesh_slices(card, problem):
     return rec
 
 
+def ulps(a, b) -> int:
+    """The largest distance between a and b (one float dtype) in units in
+    the last place: 0 where they are bitwise equal."""
+    itype = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return int((a.view(itype).long() - b.view(itype).long()).abs().max())
+
+
+def row_slice(M, r0, r1):
+    """Rows [r0, r1) of CSR matrix M (on the card, no tiles) as a matrix of
+    their own, its arrays copied (16-byte aligned, as a rank's upload
+    is), with its row-block plan."""
+    from hprlp_tpu_torch.ops.spmv import row_blocks
+
+    e0, e1 = int(M.indptr[r0]), int(M.indptr[r1])
+    S = dataclasses.replace(
+        M, indptr=(M.indptr[r0:r1 + 1] - e0).contiguous(),
+        indices=M.indices[e0:e1].clone(), vals=M.vals[e0:e1].clone(),
+        nrows=r1 - r0, blocks=None, tiles=None, dense=None)
+    return dataclasses.replace(S, blocks=row_blocks(S))
+
+
+def row_slices(card, problem):
+    """Phase 15 (l): `problem`'s (sparse_large's) A and A^T, f32 and f64,
+    cut into N row slices (MESH_SLICES) at share_cuts' R (A's rows) and C
+    (A^T's rows), each a CSR matrix of its own with its row-block plan,
+    as a rank of a row-sharded mesh holds it: the CSR kernel and its
+    fused half (the y-half over A's rows, the x-half over A^T's) on each
+    slice timed by graph replay beside their bounds; the slices' outputs
+    concatenated against the kernel on the whole matrix and against the
+    plain versions (csr_spmv_plain; the half's plain ops), bitwise or the
+    largest difference in ulps.  Returns the record."""
+    from hprlp_tpu_torch.ops.device_problem import (build_device_problem,
+                                                    canonical_csr)
+    from hprlp_tpu_torch.ops.spmv import (csr_spmv, csr_spmv_plain,
+                                          spmv_x_half, spmv_y_half)
+    from hprlp_tpu_torch.parallel.sharded import share_cuts
+    from hprlp_tpu_torch.prof.timing import half_bound
+    from hprlp_tpu_torch.solver import chunk
+
+    A_host = canonical_csr(problem)
+    rec = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        lp, _ = build_device_problem(problem, dtype=dtype, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(15)
+
+        def rand(k):
+            return torch.randn(k, generator=gen, device="cuda", dtype=dtype)
+
+        inner = torch.tensor(4, dtype=torch.int32, device="cuda")
+        scal = torch.tensor(0.9, dtype=dtype, device="cuda")
+        for name, M, half in (("A", lp.A, "y"), ("AT", lp.AT, "x")):
+            M = row_slice(M, 0, M.nrows)
+            v = rand(M.ncols)
+            r = [rand(M.nrows) for _ in range(5)]
+            r[3], r[4] = -r[3].abs(), r[4].abs()  # the bounds
+
+            def half_on(S, a, b):
+                k = slice(a, b)
+                if half == "x":  # x, last_x, c, l, u
+                    return spmv_x_half(S, v, r[0][k], r[1][k], r[2][k],
+                                       r[3][k], r[4][k], scal, inner, 2)
+                return (spmv_y_half(S, v, r[0][k], r[1][k], r[3][k],
+                                    r[4][k], scal, inner, 2),)
+
+            h = chunk.Halpern(inner, 2, dtype)
+            if half == "x":
+                plain_half = chunk.x_half_plain(dataclasses.replace(
+                    lp, AT=M, c=r[2], l=r[3], u=r[4]), r[0], v, r[1], scal,
+                    h)
+            else:
+                plain_half = (chunk.y_half_plain(dataclasses.replace(
+                    lp, A=M, AL=r[3], AU=r[4]), r[0], v, r[1], scal, h),)
+            whole, plain = csr_spmv(M, v), csr_spmv_plain(M, v)
+            whole_half = half_on(M, 0, M.nrows)
+            whole_ms = time_ms(lambda: csr_spmv(M, v))
+            whole_half_ms = time_ms(lambda: half_on(M, 0, M.nrows))
+            for N in MESH_SLICES:
+                row_cuts, col_cuts, _ = share_cuts(A_host, lp.m, lp.n, 0, N)
+                cuts = row_cuts if name == "A" else col_cuts
+                parts, halves, slices = [], [], []
+                for a, b in zip(cuts, cuts[1:]):
+                    S = row_slice(M, a, b)
+                    parts.append(csr_spmv(S, v))
+                    halves.append(half_on(S, a, b))
+                    bound, by = spmv_bound(S, dtype)
+                    hbound, hby = half_bound(S, dtype, 1, half)
+                    slices.append({
+                        "r0": a, "r1": b, "nnz": S.nnz,
+                        "ms": time_ms(lambda: csr_spmv(S, v)),
+                        "bound_ms": bound, "bound_by": by,
+                        "half_ms": time_ms(lambda: half_on(S, a, b)),
+                        "half_bound_ms": hbound, "half_bound_by": hby})
+                    del S
+                got = torch.cat(parts)
+                got_half = [torch.cat([hv[i] for hv in halves])
+                            for i in range(len(whole_half))]
+                r_ = {"slices": slices, "whole_ms": whole_ms,
+                      "whole_half_ms": whole_half_ms,
+                      "ulps_whole": ulps(got, whole),
+                      "ulps_plain": ulps(got, plain),
+                      "half_ulps_whole": max(ulps(g, w) for g, w in zip(
+                          got_half, whole_half)),
+                      "half_ulps_plain": max(ulps(g, w) for g, w in zip(
+                          got_half, plain_half)),
+                      "max_abs_err": float((got - plain).abs().max())}
+                rec[f"{name}_{tag}_N{N}"] = r_
+                scale = float(plain.abs().max())
+                phase(15, f"(l) sparse_large {name} {tag} ({M.nnz} nnz) in "
+                          f"{N} row slices: " + "; ".join(
+                              f"[{q['r0']}, {q['r1']}) {q['nnz']} nnz csr_spmv "
+                              f"{q['ms']:.5f} ms (bound {q['bound_ms']:.5f}, "
+                              f"{q['bound_by']}), {half}-half "
+                              f"{q['half_ms']:.5f} ms (bound "
+                              f"{q['half_bound_ms']:.5f})" for q in slices)
+                      + f"; the whole matrix {whole_ms:.5f} ms, its "
+                        f"{half}-half {whole_half_ms:.5f} ms; concatenated "
+                        f"against the whole kernel "
+                        f"{r_['ulps_whole']} ulps, the plain version "
+                        f"{r_['ulps_plain']} ulps; the {half}-half against "
+                        f"the whole's {r_['half_ulps_whole']} ulps, its "
+                        f"plain ops {r_['half_ulps_plain']} ulps [{card}]")
+                check(r_["max_abs_err"] <= MESH_TOL * scale,
+                      f"phase 15 (l): {name} {tag} N={N}: the slices are "
+                      f"{r_['max_abs_err']} from the plain version")
+            del M, whole, plain, whole_half, plain_half
+        del lp
+    return rec
+
+
+# Phase 15 (m)'s solves: (cell, problem key, precision, spmv_backend,
+# stop_tol); dense_lp is phase 11's LP.  sparse_large in f64 at 1e-6:
+# at 1e-8 both the mesh and the one card stop at 100,000 iterations
+# (ITER_LIMIT, bitwise alike, 4.3-5.7 s each).
+ROW_MESH_CELLS = (("sparse_large", "prob4", "f32", "gather", 1e-4),
+                  ("sparse_large", "prob4", "f64", "gather", 1e-6),
+                  ("dense_lp", "dense_lp", "f32", "dense", 1e-4),
+                  ("sparse_large", "prob4", "f32", "auto", 1e-4))
+
+
+def row_mesh(card, prob4, prob6, add):
+    """Phase 15 (m), in the one-rank NCCL group: each of ROW_MESH_CELLS
+    with mesh_shape=1 (the row shards from the share's row forms, an
+    all-gather per SpMV and per fused half, captured in the CUDA graph)
+    and without a mesh: bitwise (iterations, objective, x) on the same
+    backend, for "auto" the same choice; each mesh solve's launches
+    (added to phase 15's by precision through `add`), its all-gathers per
+    iteration and no tiled launch outside the probes.  Then the share
+    ingest's wall for "gather" (the row forms alone) beside the tiles'
+    share ingest and the one-card ingest, at sparse_large and
+    sparse_huge.  Returns the record."""
+    import hprlp_tpu_torch as hp
+    from hprlp_tpu_torch.solver import loop
+    from hprlp_tpu_torch.solver.autotune import autotune_backends
+
+    t0 = time.perf_counter()
+    problems = {"prob4": prob4,
+                "dense_lp": random_lp(4096, 8192, 128, seed=5)}
+    rec = {}
+    for cell, key, tag, backend, tol in ROW_MESH_CELLS:
+        problem = problems[key]
+        kw = dict(stop_tol=tol, verbose=False, use_presolve=False,
+                  precision=tag, spmv_backend=backend, max_iter=100_000)
+        calls = []
+        with recorded(calls, [(loop, "build_ingest")]):
+            mesh, counts = mesh_counts(lambda: hp.solve_problem(
+                problem, hp.Parameters(mesh_shape=1, **kw)))
+            forms = loop.build_share_ingest.record["forms"]
+            mesh_tune = autotune_backends.record
+            one = hp.solve_problem(problem, hp.Parameters(**kw))
+            one_tune = autotune_backends.record
+        add(tag, counts)
+        same = same_point(mesh, one) and mesh.spmv_backend == one.spmv_backend
+        per_it = counts["all_gather_rows"] / max(mesh.iter, 1)
+        mesh_s, one_s = [out[3] for _, _, out in calls]
+        name = f"{cell}_{tag}_{backend}"
+        rec[name] = {"status": mesh.status, "iter": mesh.iter,
+                     "spmv_backend": mesh.spmv_backend, "forms": forms,
+                     "time_mesh": mesh.time, "time_one": one.time,
+                     "launches": counts, "all_gathers_per_iter": per_it,
+                     "bitwise": same, "autotune_mesh": mesh_tune,
+                     "autotune_one": one_tune, "ingest_mesh_s": mesh_s,
+                     "ingest_one_s": one_s}
+        phase(15, f"(m) {cell} {tag} spmv_backend={backend!r} mesh_shape=1 "
+                  f"(row shards, all-gathers in the CUDA graph): status="
+                  f"{mesh.status} iter={mesh.iter} backend "
+                  f"{mesh.spmv_backend} (one card {one.spmv_backend}; "
+                  f"autotune: mesh {probe_text(mesh_tune)}, one card "
+                  f"{probe_text(one_tune)}), forms kept {forms}; "
+                  f"Results.time {mesh.time:.4f}s (one card {one.time:.4f}s, "
+                  f"iter {one.iter}); all-gathers {counts['all_gather_rows']}"
+                  f" ({per_it:.3f} per iteration); launches csr_spmv "
+                  f"{counts['csr_spmv']}, spmv_x_half "
+                  f"{counts['spmv_x_half']}, spmv_y_half "
+                  f"{counts['spmv_y_half']}, tiled_spmv "
+                  f"{counts['tiled_spmv']}, all_reduce_sum "
+                  f"{counts['all_reduce_sum']}; ingest wall (s) mesh "
+                  f"{mesh_s['wall']:.3f} one card {one_s['wall']:.3f}; "
+                  f"bitwise the one-card solve (iterations, objective, x, "
+                  f"backend): {same} [{card}]")
+        check(same and mesh.status == "OPTIMAL", f"phase 15 (m): {name}: "
+              f"{rec[name]}")
+        check(mesh.spmv_backend != "tiled" or backend == "auto",
+              f"phase 15 (m): {name} ran the tiles")
+        if mesh.spmv_backend != "tiled":
+            check(counts["tiled_spmv"] == 0 and counts["all_reduce_sum"] == 0
+                  and counts["all_gather_rows"] > 0
+                  and (mesh.spmv_backend == "dense"
+                       or min(counts["csr_spmv"], counts["spmv_x_half"],
+                              counts["spmv_y_half"]) > 0),
+                  f"phase 15 (m): {name} launched {counts}")
+        check(backend != "auto" or (
+            mesh_tune and one_tune
+            and mesh_tune["choice"] == one_tune["choice"]),
+              f"phase 15 (m): {name}: the mesh chose "
+              f"{mesh_tune and mesh_tune['choice']}, one card "
+              f"{one_tune and one_tune['choice']}")
+        del mesh, one
+    walls = {}
+    for cell, problem in (("sparse_large", prob4), ("sparse_huge", prob6)):
+        base = dict(stop_tol=1e-4, verbose=False, use_presolve=False,
+                    precision="f32")
+        for route, extra in (("share_gather", dict(mesh_shape=1,
+                                                   spmv_backend="gather")),
+                             ("share_lane", dict(mesh_shape=1,
+                                                 spmv_backend="lane")),
+                             ("one_card_gather", dict(spmv_backend="gather")),
+                             ("one_card_lane", dict(spmv_backend="lane"))):
+            lp, _, _, seconds = loop.build_ingest(
+                problem, hp.Parameters(**base, **extra))
+            del lp
+            torch.cuda.synchronize()
+            walls[f"{cell}_{route}"] = seconds
+        w = {k[len(cell) + 1:]: v for k, v in walls.items()
+             if k.startswith(cell)}
+        phase(15, f"(m) {cell} f32 ingest wall (s) and stages: " + "; ".join(
+            f"{route} {v['wall']:.3f} (" + ", ".join(
+                f"{k} {x:.3f}" for k, x in v.items() if k != "wall") + ")"
+            for route, v in w.items()) + f" [{card}]")
+    rec["ingest"] = walls
+    phase(15, f"(m) took {time.perf_counter() - t0:.1f} s [{card}]")
+    return rec
+
+
 def mesh_phase(card, prob6, prob5, prob4, giant):
     """Phase 15: the mesh route on one card.  (a) mesh_slices; (b) a
     one-rank NCCL group in this process: sparse_huge f32 (1e-4) and
     assignment64 f64 (1e-8) with mesh_shape=1, captured, bitwise the
-    spmv_backend="lane" solve, (f) each through the share ingest, its
-    exchanges counted; (c) batched_large with mesh_shape=1 bitwise the
+    one-card solve on the backend the autotune chose, (f) each through
+    the share ingest, its exchanges counted; (c) batched_large with mesh_shape=1 bitwise the
     single-device batched solve; (h) "mixed" at mesh_shape=1 on
     assignment64 (1e-8) bitwise the one-card "mixed" solve; (j) the
     presolve overlap at mesh_shape=1 on a 21.0M-nnz random LP
@@ -2611,7 +2872,8 @@ def mesh_phase(card, prob6, prob5, prob4, giant):
     against the single-card one, else why not; (g) each rank's device
     peak through the share ingest for N = 2 and 4 (share_ingest_phase);
     (k) the discard branch's broadcasts at the banded giant
-    (discard_phase).
+    (discard_phase); (l) row slices of sparse_large (row_slices); (m)
+    the row shards in the group (row_mesh).
     Returns ({"f32", "f64": tiled launches, and each other counted
     wrapper's} of the mesh-route solves, record)."""
     import torch.distributed as dist
@@ -2620,9 +2882,13 @@ def mesh_phase(card, prob6, prob5, prob4, giant):
     from hprlp_tpu_torch.parallel import distributed
     from hprlp_tpu_torch.prof.problems import batched_lp
     from hprlp_tpu_torch.solver import loop
+    from hprlp_tpu_torch.solver.autotune import autotune_backends
 
     t_start = time.perf_counter()
     rec = {"slices": mesh_slices(card, prob6)}
+    t_l = time.perf_counter()
+    rec["row_slices"] = row_slices(card, prob4)
+    phase(15, f"(l) took {time.perf_counter() - t_l:.1f} s [{card}]")
     launches = {"f32": {}, "f64": {}}
 
     def add(tag, counts):
@@ -2637,8 +2903,8 @@ def mesh_phase(card, prob6, prob5, prob4, giant):
             max_iter=100_000))}
     singles = {}
     arrays = batched_lp(65536, 131072, 64, seed=3)
-    distributed.initialize(f"tcp://127.0.0.1:{distributed._free_port()}",
-                           1, 0, "cuda")
+    distributed.initialize(world_size=1, rank=0, device_type="cuda",
+                           store=distributed.host_store())
     try:
         for name, (problem, tag, kw) in params.items():
             calls = []
@@ -2646,31 +2912,38 @@ def mesh_phase(card, prob6, prob5, prob4, giant):
                 mesh, counts = mesh_counts(lambda: hp.solve_problem(
                     problem, hp.Parameters(mesh_shape=1, **kw)))
                 share = dict(loop.build_share_ingest.record)
+                tune = autotune_backends.record
+                ran = mesh.spmv_backend
                 lane = hp.solve_problem(problem, hp.Parameters(
-                    spmv_backend="lane", **kw))
+                    spmv_backend="lane" if ran == "tiled" else ran, **kw))
             add(tag, counts)
             singles[name] = lane
             same = same_point(mesh, lane)
-            per_it = counts["all_reduce_sum"] / max(mesh.iter, 1)
+            tiles = ran == "tiled"
+            coll = "all_reduce_sum" if tiles else "all_gather_rows"
+            per_it = counts[coll] / max(mesh.iter, 1)
             mesh_s, lane_s = [out[3] for _, _, out in calls]
             rec[name] = {"iter": mesh.iter, "status": mesh.status,
+                         "spmv_backend": ran, "autotune": tune,
                          "time_mesh": mesh.time, "time_lane": lane.time,
                          "setup_mesh": mesh.setup_time,
                          "setup_lane": lane.setup_time,
-                         "launches": counts, "all_reduce_per_iter": per_it,
+                         "launches": counts, "collectives_per_iter": per_it,
                          "bitwise": same, "share": share,
                          "ingest_mesh_s": mesh_s, "ingest_lane_s": lane_s}
             phase(15, f"(b) {name} {tag} mesh_shape=1 (one NCCL rank, "
-                      f"all-reduces in the CUDA graph): status={mesh.status} "
-                      f"iter={mesh.iter} Results.time={mesh.time:.4f}s "
-                      f"(lane, no mesh: {lane.time:.4f}s, iter={lane.iter}) "
-                      f"setup={mesh.setup_time:.3f}s (lane "
+                      f"collectives in the CUDA graph): status="
+                      f"{mesh.status} iter={mesh.iter} backend {ran} "
+                      f"(forms kept {share['forms']}; autotune "
+                      f"{probe_text(tune)}) "
+                      f"Results.time={mesh.time:.4f}s (one card on {ran}: "
+                      f"{lane.time:.4f}s, iter={lane.iter}) "
+                      f"setup={mesh.setup_time:.3f}s (one card "
                       f"{lane.setup_time:.3f}s) tiled_spmv launches "
-                      f"{counts['tiled_spmv']}, all-reduces "
-                      f"{counts['all_reduce_sum']} ({per_it:.3f} per "
-                      f"iteration), csr_spmv {counts['csr_spmv']}; bitwise "
-                      f"the lane solve (iterations, objective, x): {same} "
-                      f"[{card}]")
+                      f"{counts['tiled_spmv']}, csr_spmv "
+                      f"{counts['csr_spmv']}, {coll} {counts[coll]} "
+                      f"({per_it:.3f} per iteration); bitwise the one-card "
+                      f"solve (iterations, objective, x): {same} [{card}]")
             phase(15, f"(f) {name} {tag}: the share ingest (rows "
                       f"{share['rows']}, columns {share['cols']}, "
                       f"{share['entries']} entries = 2 x {problem.nnz} nnz) "
@@ -2681,12 +2954,12 @@ def mesh_phase(card, prob6, prob5, prob4, giant):
                       f"{k} {v:.3f}" for k, v in lane_s.items())
                   + f" [{card}]")
             check(same, f"phase 15 (b): {name} with mesh_shape=1 is not "
-                  f"bitwise the lane solve")
-            check(mesh.status == "OPTIMAL" and mesh.spmv_backend == "tiled",
-                  f"phase 15 (b): {name} {mesh.status} {mesh.spmv_backend}")
-            check(counts["tiled_spmv"] > 0 and counts["all_reduce_sum"] > 0
-                  and counts["csr_spmv"] == 0, f"phase 15 (b): {name} "
-                  f"launched {counts}")
+                  f"bitwise the one-card solve on {ran}")
+            check(mesh.status == "OPTIMAL", f"phase 15 (b): {name} "
+                  f"{mesh.status} {ran}")
+            check((counts["tiled_spmv"] > 0) == tiles and counts[coll] > 0
+                  and (counts["csr_spmv"] == 0) == tiles,
+                  f"phase 15 (b): {name} on {ran} launched {counts}")
             check(share["exchanges"] == 51 and share["entries"]
                   == 2 * problem.nnz, f"phase 15 (f): {name}: {share}")
         A, C, AL, AU, l, u = arrays
@@ -2714,6 +2987,7 @@ def mesh_phase(card, prob6, prob5, prob4, giant):
                   f"[{card}]")
         check(bsame, "phase 15 (c): batched_large with mesh_shape=1 is not "
               "bitwise the single-device batched solve")
+        rec["rows"] = row_mesh(card, prob4, prob6, add)
         rec["mixed"] = mixed_mesh(card, prob5, mesh_counts)
         rec["overlap"], counts = overlap_mesh(card)
         add("f32", counts)
@@ -3170,13 +3444,15 @@ def main():
                                    "stages"))})
     # The CSR kernel's launches by phase and dtype: phases 4-6 and 8 where
     # the autotune chose it, 11's solves and CLI run, 12's workers, 13's
-    # stages; its fused halves' likewise.
+    # stages, 15's mesh solves on the row shards; its fused halves'
+    # likewise.
     def gather_by_phase(tag, key, worker_key):
         out = {k: v[key] for k, v in by_phase.items()
                if (k == "5") == (tag == "f64")}
         out["11"] = csr11[tag][key]
         out["12"] = worker_sum(w32 if tag == "f32" else w64, worker_key)
         out["13"] = l13[tag][key]
+        out["15"] = l15[tag].get(worker_key, 0)
         return out
 
     for tag, replaces, also in (

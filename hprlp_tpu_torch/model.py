@@ -149,7 +149,6 @@ def solve_with_presolve(problem: LpProblem,
     log = (print if params.verbose and lead else (lambda *a, **k: None))
     if mesh:
         params.validate()
-        loop.check_mesh_supported(params)
         mesh_dev = loop.mesh_rank_device(params, device)
 
     def from_lead(obj):
@@ -293,7 +292,6 @@ def _launch_mesh(problem, params, x0, y0, device) -> Results:
     (distributed.launch), as solver/loop.py launches solve_problem's.
     Returns rank 0's Results."""
     params.validate()
-    loop.check_mesh_supported(params)
     dev_type = distributed.check_launch(params.mesh_shape, device)
     return distributed.launch(
         solve_with_presolve, (problem, params),

@@ -12,16 +12,24 @@ runs on the tiles, on the CSR arrays with their row-block plan (the
 "gather" backend, ops/spmv.py::row_blocks) or on a dense copy, as
 `with_spmv_backend` sets it up.
 
-Under a mesh (parallel/sharded.py) each rank's matrix is a `Shard` of
-the whole: its tiles hold the rank's column slice A[:, c0:c1], and `spmv`
-runs the tiled kernel on x[c0:c1], which gives a partial y over all rows,
-then sums the ranks' partials with one all-reduce (`all_reduce_sum`), the
-JAX package's psum.
+Under a mesh (parallel/sharded.py) each rank holds a part of the whole
+matrix, in one of two forms (or both, while the autotune decides):
+  * a `Shard` (columns): its tiles hold the rank's column slice
+    A[:, c0:c1], and `spmv` runs the tiled kernel on x[c0:c1], which gives
+    a partial y over all rows, then sums the ranks' partials with one
+    all-reduce (`all_reduce_sum`), the JAX package's psum;
+  * a `RowShard` (rows): its CSR arrays, with their row-block plan or a
+    dense copy, hold the rank's rows A[r0:r1, :], and `spmv` runs the CSR
+    kernel (or the dense product) on the whole x, which gives y[r0:r1],
+    then puts the ranks' rows together with one all-gather
+    (`all_gather_rows`), as XLA's all-gathers complete the JAX package's
+    row-sharded buckets.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -49,11 +57,39 @@ class Shard:
 
 
 @dataclasses.dataclass(frozen=True)
+class RowShard:
+    """This rank's part of a matrix row-sharded over a process group: rows
+    [r0, r1) = [cuts[rank], cuts[rank + 1]), whose CSR arrays the rank
+    holds.  cuts: every rank's first row, then the row count (world + 1
+    ascending bounds), which place each rank's rows in the gathered y.
+    group: as Shard's."""
+
+    cuts: tuple
+    rank: int
+    group: object = None
+
+    @property
+    def r0(self) -> int:
+        return self.cuts[self.rank]
+
+    @property
+    def r1(self) -> int:
+        return self.cuts[self.rank + 1]
+
+    @property
+    def width(self) -> int:
+        """The most rows any rank holds: each rank's slot in a gather."""
+        return max(b - a for a, b in zip(self.cuts, self.cuts[1:]))
+
+
+@dataclasses.dataclass(frozen=True)
 class CsrMatrix:
     """A matrix on a device.  Its CSR arrays are None once `tiles_only`
-    released them, or on a shard; the tiles then hold the matrix (on a
-    shard, its columns [shard.c0, shard.c1) only, while nrows and ncols
-    stay the whole matrix's)."""
+    released them, or on a column shard; the tiles then hold the matrix
+    (on a shard, its columns [shard.c0, shard.c1) only).  On a row shard
+    the CSR arrays, the plan and a dense copy hold its rows [row_shard.r0,
+    row_shard.r1) only (`rows_local`).  Sharded, nrows and ncols stay the
+    whole matrix's."""
 
     indptr: torch.Tensor | None   # (nrows + 1,) int32
     indices: torch.Tensor | None  # (nnz,) int32 column positions
@@ -64,10 +100,12 @@ class CsrMatrix:
     dense: torch.Tensor | None = None  # the same matrix, (nrows, ncols)
     blocks: RowBlocks | None = None  # the CSR kernel's row-block plan
     shard: Shard | None = None  # this rank's columns under a mesh
+    row_shard: RowShard | None = None  # this rank's rows under a mesh
 
     @property
     def nnz(self) -> int:
-        """Stored entries; on a shard, those of this rank's columns."""
+        """Stored entries; sharded, those of this rank's rows (where it
+        holds its CSR arrays) or else of its columns."""
         if self.indices is None:
             return self.tiles.nnz
         return int(self.indices.shape[0])
@@ -91,17 +129,33 @@ class CsrMatrix:
             raise ValueError("the tiles are of another matrix")
         return dataclasses.replace(self, tiles=tiles)
 
+    @property
+    def sharding(self) -> Shard | RowShard | None:
+        """The shard this rank's matrix is under a mesh, else None."""
+        return self.shard or self.row_shard
+
     def tiles_only(self) -> "CsrMatrix":
         """The matrix on its tiles alone: the CSR arrays, the row-block
-        plan, a dense copy and the tiles' CSR order (`perm`) released, so
-        the device keeps only what the tiled SpMV reads.  Nothing that
-        reads the CSR arrays (the scaling, the "gather" backend, the
-        batched SpMM, retile) runs on the result."""
+        plan, a dense copy, a row shard and the tiles' CSR order (`perm`)
+        released, so the device keeps only what the tiled SpMV reads.
+        Nothing that reads the CSR arrays (the scaling, the "gather"
+        backend, the batched SpMM, retile) runs on the result."""
         if self.tiles is None:
             raise ValueError("tiles_only needs the matrix's tiles")
         return dataclasses.replace(self, indptr=None, indices=None,
                                    vals=None, dense=None, blocks=None,
+                                   row_shard=None,
                                    tiles=self.tiles.without_perm())
+
+    def rows_local(self) -> "CsrMatrix":
+        """On a row shard, this rank's rows as a matrix of their own
+        (r1 - r0 rows, no shard): what the kernels and plain versions
+        take."""
+        rs = self.row_shard
+        if rs is None:
+            raise ValueError("rows_local needs a row shard")
+        return dataclasses.replace(self, nrows=rs.r1 - rs.r0, tiles=None,
+                                   shard=None, row_shard=None)
 
 
 def csr_from_numpy(indptr, indices, vals, nrows: int, ncols: int,
@@ -139,19 +193,56 @@ def all_reduce_sum(y: torch.Tensor, group=None) -> torch.Tensor:
 all_reduce_sum.launches = 0
 
 
+def all_gather_rows(parts, shard: RowShard) -> list[torch.Tensor]:
+    """The whole vectors whose rows [r0, r1) of `shard` are this rank's
+    `parts` (each of r1 - r0 values, one dtype and device), by one
+    all-gather over the ranks of shard.group (NCCL on the card, gloo on
+    the CPU): the parts are packed into this rank's slot of shard.width
+    values each, and every rank's rows are copied out of the gathered
+    slots, so every rank gets the same bits, a -0.0 kept.  (An all-reduce
+    of zeros, as ScalingShare.gather moves rows, would move twice the
+    bytes and turn a -0.0 iterate into +0.0.)  dist.all_gather_into_tensor
+    is the call both the card's torch and later ones have; later ones warn
+    that it is deprecated, which is kept quiet here.  Counts its calls in
+    `all_gather_rows.launches`.  Raises on a failed or timed-out
+    collective."""
+    cuts, width = shard.cuts, shard.width
+    world = len(cuts) - 1
+    p0 = parts[0]
+    send = torch.empty((len(parts), width), dtype=p0.dtype, device=p0.device)
+    for i, p in enumerate(parts):
+        send[i, :p.numel()] = p
+    recv = torch.empty((world, len(parts), width), dtype=p0.dtype,
+                       device=p0.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(recv.view(-1), send.view(-1),
+                                    group=shard.group)
+    all_gather_rows.launches += 1
+    return [torch.cat([recv[r, i, :cuts[r + 1] - cuts[r]]
+                       for r in range(world)]) for i in range(len(parts))]
+
+
+all_gather_rows.launches = 0
+
+
 def spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x.  A dense copy, where attached, goes to the dense product.
     Else a CUDA tensor goes to a hand-written kernel (which raises on
     failure): the tiled kernel when A carries tiles, else the CSR kernel
     (on A's row-block plan, which it must carry).
-    A CPU tensor goes to the matching plain version.  On a shard, the tiled
-    kernel (or its plain version) on x[c0:c1] gives this rank's partial y,
-    and all_reduce_sum adds the ranks' partials."""
-    if A.shard is not None:
+    A CPU tensor goes to the matching plain version.  On a column shard
+    (with its tiles), the tiled kernel (or its plain version) on x[c0:c1]
+    gives this rank's partial y, and all_reduce_sum adds the ranks'
+    partials; on a row shard, spmv of this rank's rows (rows_local) gives
+    y[r0:r1], and all_gather_rows puts the ranks' rows together."""
+    if A.shard is not None and A.tiles is not None:
         xs = x[A.shard.c0:A.shard.c1]
         part = (tiled_spmv(A.tiles, xs) if x.device.type == "cuda"
                 else tiled_spmv_reference(A.tiles, xs))
         return all_reduce_sum(part, A.shard.group)
+    if A.row_shard is not None:
+        return all_gather_rows([spmv(A.rows_local(), x)], A.row_shard)[0]
     if A.dense is not None:
         return _dense_matmul(A.dense, x)
     if x.device.type == "cuda":
@@ -191,21 +282,27 @@ def spmv_backend(A: CsrMatrix) -> str:
 
 def with_spmv_backend(A: CsrMatrix, backend: str) -> CsrMatrix:
     """A configured for a single LP's SpMV: "tiled" keeps A's tiles (which
-    it must carry) and drops a dense copy, "gather" drops both, "dense"
-    attaches a dense copy (built on A's device) and drops the tiles.
-    "gather" also attaches the CSR kernel's row-block plan where A has
-    none.  Unlike with_backend, for the batched SpMM, "gather" here leaves
-    no tiles."""
+    it must carry: on a mesh, a column shard's) and drops a dense copy,
+    "gather" drops both, "dense" attaches a dense copy (built on A's
+    device) and drops the tiles.  "gather" also attaches the CSR kernel's
+    row-block plan where A has none.  Unlike with_backend, for the batched
+    SpMM, "gather" here leaves no tiles.  On a row shard the plan and the
+    dense copy are of this rank's rows (rows_local), and "gather" and
+    "dense" drop the column shard with the tiles."""
     if backend == "tiled":
         if A.tiles is None:
-            raise ValueError("the tiled backend needs A's tiles")
+            raise ValueError("the tiled backend needs A's tiles (on a mesh, "
+                             "a column shard's: a row shard has none)")
         return dataclasses.replace(A, dense=None)
+    rows = A.rows_local() if A.row_shard is not None else A
     if backend == "gather":
         return dataclasses.replace(
-            A, tiles=None, dense=None,
-            blocks=A.blocks if A.blocks is not None else row_blocks(A))
+            A, tiles=None, shard=None, dense=None,
+            blocks=A.blocks if A.blocks is not None else row_blocks(rows))
     if backend == "dense":
-        return dataclasses.replace(with_backend(A, "dense"), tiles=None)
+        return dataclasses.replace(
+            A, tiles=None, shard=None,
+            dense=A.dense if A.dense is not None else densify(rows))
     raise ValueError(f"unknown SpMV backend {backend!r}")
 
 

@@ -34,10 +34,10 @@ the solve with an error rather than hanging it.
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import pickle
-import socket
 import subprocess
 import sys
 import tempfile
@@ -71,23 +71,62 @@ def backend_for(device_type: str) -> str:
 
 def initialize(init_method: str | None = None,
                world_size: int | None = None, rank: int | None = None,
-               device_type: str = "cuda") -> None:
+               device_type: str = "cuda", store=None) -> None:
     """Join this process to the default group (idempotent: nothing
     happens if it is initialized already).  With no arguments the
     rendezvous, world size and rank come from torchrun's environment
     (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK); else pass them, e.g.
-    init_method="tcp://host:port".  device_type "cuda" takes NCCL and
-    sets this process's card to cuda:{local_rank()}; "cpu" takes gloo."""
+    init_method="tcp://host:port", or a `store` (a torch.distributed
+    Store, such as host_store's) with world_size and rank.  device_type
+    "cuda" takes NCCL and sets this process's card to
+    cuda:{local_rank()}; "cpu" takes gloo.
+
+    The group it makes is destroyed at the interpreter's exit (an atexit
+    handler), unless the caller destroyed it before: a process that exits
+    with its group alive can be aborted in teardown by a thread of the
+    group's backend that is still joinable ("terminate called without an
+    active exception", SIGABRT), after its work is done."""
     if dist.is_initialized():
         return
     backend = backend_for(device_type)
     if device_type == "cuda":
         torch.cuda.set_device(local_rank())
-    dist.init_process_group(
-        backend, init_method=init_method or "env://",
-        world_size=-1 if world_size is None else int(world_size),
-        rank=-1 if rank is None else int(rank),
-        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    timeout = datetime.timedelta(seconds=PG_TIMEOUT_S)
+    if store is not None:
+        dist.init_process_group(backend, store=store,
+                                world_size=int(world_size), rank=int(rank),
+                                timeout=timeout)
+    else:
+        dist.init_process_group(
+            backend, init_method=init_method or "env://",
+            world_size=-1 if world_size is None else int(world_size),
+            rank=-1 if rank is None else int(rank), timeout=timeout)
+    atexit.unregister(_destroy_at_exit)  # once, however many groups
+    atexit.register(_destroy_at_exit)
+
+
+def _destroy_at_exit() -> None:
+    """Destroy the default group if it is still up (initialize's atexit
+    handler)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def host_store() -> dist.TCPStore:
+    """A rendezvous store served by this process on a port of 127.0.0.1
+    that the system picks and that stays bound while the store lives, as
+    torchrun's agent serves its ranks' store: `.port` names it to the
+    ranks.  A port found free and closed again, to be bound later by a
+    rank, can be taken meanwhile by any other process's socket."""
+    return dist.TCPStore("127.0.0.1", 0, is_master=True,
+                         wait_for_workers=False,
+                         timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+
+
+def client_store(port: int, world: int) -> dist.TCPStore:
+    """A client of the store that host_store serves at `port`."""
+    return dist.TCPStore("127.0.0.1", int(port), int(world), is_master=False,
+                         timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
 
 
 def in_group() -> bool:
@@ -236,12 +275,6 @@ def broadcast_object(obj, device: torch.device, src: int = 0):
 broadcast_object.record = None
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _import_root(fn) -> str | None:
     """The sys.path entry from which fn's module imports, when that is not
     where this package imports from."""
@@ -266,8 +299,9 @@ def launch(fn, args=(), kwargs=None, world: int = 1,
            device_type: str = "cuda", timeout: float | None = None) -> list:
     """Run fn(*args, **kwargs) on `world` ranks, each a fresh interpreter
     (python -m hprlp_tpu_torch.parallel.worker) in a group of `world`
-    ranks that rendezvous on a TCP store at a free port of 127.0.0.1:
-    NCCL with rank r on cuda:r for device_type "cuda", gloo for "cpu".
+    ranks that rendezvous on a TCP store this process serves (host_store)
+    until they end: NCCL with rank r on cuda:r for device_type "cuda",
+    gloo for "cpu".
     fn must be importable by name (a module-level function); each rank
     gets its rank, world size and rendezvous on its command line and the
     call, pickled, in a file.  Returns every rank's return value, by rank.
@@ -294,7 +328,7 @@ def launch(fn, args=(), kwargs=None, world: int = 1,
         task = os.path.join(tmp, "task.pkl")
         with open(task, "wb") as f:
             pickle.dump((fn, tuple(args), dict(kwargs or {})), f)
-        init = f"tcp://127.0.0.1:{_free_port()}"
+        store = host_store()
         t0 = time.time()
         procs, errs, outs = [], [], []
         try:
@@ -310,8 +344,8 @@ def launch(fn, args=(), kwargs=None, world: int = 1,
                 with open(errs[-1], "wb") as err:
                     procs.append(subprocess.Popen(
                         [sys.executable, "-m", WORKER, task, outs[-1],
-                         str(r), str(world), init, device_type, repr(t0),
-                         str(threads)], stderr=err, env=env))
+                         str(r), str(world), str(store.port), device_type,
+                         repr(t0), str(threads)], stderr=err, env=env))
             failed = _wait(procs, None if timeout is None else t0 + timeout)
         finally:
             for p in procs:
@@ -319,6 +353,7 @@ def launch(fn, args=(), kwargs=None, world: int = 1,
                     p.kill()
             for p in procs:
                 p.wait()
+            del store
         if failed:
             raise RuntimeError("\n".join(
                 f"mesh rank {r} of {world} {why}; its stderr ends:\n"

@@ -1,4 +1,5 @@
-"""Column sharding of a single LP's matrices over the ranks of a mesh.
+"""Column and row sharding of a single LP's matrices over the ranks of a
+mesh.
 
 Counterpart of hprlp_tpu/parallel/sharded.py and of the lane route of
 hprlp_tpu/ops/sparse.py (`_group_windows`, `_build_sharded_lane`): the
@@ -26,8 +27,18 @@ factors replayed in each form's order, so they are bitwise
 `shard_matrix`'s tiles of the one-card ingest, which stays as the
 tests' reference.
 
-The JAX package's row-sharded buckets (its "gather" backend under a mesh)
-have no counterpart yet (ROADMAP.md queue 1).
+Row sharding is the counterpart of the JAX package's row-sharded ELL
+buckets (its "gather" and "dense" backends under a mesh,
+hprlp_tpu/parallel/sharded.py:44-84, where XLA inserts the all-gathers):
+a rank holds the scaled row forms themselves, A[R, :] and A^T[C, :], each
+with a `RowShard` and the row-block plan of the CSR kernel or a dense
+copy (`rows_from_share`).  y[R] = A[R, :] x and (A^T y)[C] = A^T[C, :] y
+run on the whole replicated operand, and one all-gather per SpMV (per
+fused half) puts the ranks' rows together (ops/sparse.py::spmv,
+solver/chunk.py::x_half/y_half): (m + n) values per iteration, as the
+columns' all-reduces move.  The row forms are the ones the scaling
+scaled in place, so they are bitwise the one-card ingest's A[R, :] and
+A^T[C, :], and with them no column form is uploaded and no tile built.
 """
 
 from __future__ import annotations
@@ -40,7 +51,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops.device_problem import LpDevice, padded_csr
-from ..ops.sparse import CsrMatrix, Shard, scale_cols, scale_rows
+from ..ops.sparse import (CsrMatrix, RowShard, Shard, scale_cols, scale_rows,
+                          with_spmv_backend)
 from ..ops.spmv import row_of_entry
 from ..ops.tiles import build_tiles
 
@@ -117,20 +129,24 @@ def shard_problem(lp: LpDevice, rank: int, world: int, group=None
 
 
 def share_cuts(A: sp.csr_matrix, m_pad: int, n_pad: int, rank: int,
-               world: int) -> tuple[tuple[int, int], tuple[int, int], int]:
-    """(R, C, entries) of rank `rank` of `world` for canonical CSR A padded
-    to (m_pad, n_pad): its rows of A, cut by column_slices over A's row
-    counts (A^T's column counts), and its columns of A, cut over A's
-    column counts -- the ranges shard_matrix cuts from the padded A^T and
-    A -- and its share's entries, those of A[R, :] and of A[:, C]."""
+               world: int) -> tuple[tuple, tuple, int]:
+    """(row cuts, column cuts, entries) of rank `rank` of `world` for
+    canonical CSR A padded to (m_pad, n_pad).  Every rank's rows of A, cut
+    by column_slices over A's row counts (A^T's column counts), and
+    columns of A, cut over A's column counts -- the ranges shard_matrix
+    cuts from the padded A^T and A -- as world + 1 bounds each: rank r's
+    R is [row_cuts[r], row_cuts[r + 1]) and its C likewise.  entries:
+    rank `rank`'s share's, those of A[R, :] and of A[:, C]."""
     m = A.shape[0]
     row_nnz = np.zeros(m_pad, np.int64)
     row_nnz[:m] = np.diff(A.indptr)
     col_nnz = np.bincount(A.indices, minlength=n_pad)
-    (r0, r1), (c0, c1) = (column_slices(row_nnz, world)[rank],
-                          column_slices(col_nnz, world)[rank])
+    rows, cols = (column_slices(row_nnz, world),
+                  column_slices(col_nnz, world))
+    (r0, r1), (c0, c1) = rows[rank], cols[rank]
     entries = int(row_nnz[r0:r1].sum() + col_nnz[c0:c1].sum())
-    return (r0, r1), (c0, c1), entries
+    return (tuple(a for a, _ in rows) + (m_pad,),
+            tuple(a for a, _ in cols) + (n_pad,), entries)
 
 
 @dataclasses.dataclass
@@ -140,7 +156,8 @@ class HostShare:
     a_rows = A[R, :] and at_rows = A^T[C, :].  The column forms, which the
     tiles hold: a_cols = A[:, C] and at_cols = A^T[:, R].  Each is cut to
     A's real rows and columns: the padding adds empty rows and columns
-    only (padded_csr)."""
+    only (padded_csr).  A share for the row shards alone has no column
+    forms (None)."""
 
     rows: tuple[int, int]
     cols: tuple[int, int]
@@ -153,18 +170,21 @@ class HostShare:
 
 
 def host_share(A: sp.csr_matrix, m_pad: int, n_pad: int,
-               rows: tuple[int, int], cols: tuple[int, int]) -> HostShare:
+               rows: tuple[int, int], cols: tuple[int, int],
+               col_forms: bool = True) -> HostShare:
     """The share of rows R = `rows` and columns C = `cols` (share_cuts) of
     canonical CSR A (m x n) padded to (m_pad, n_pad): a row slice and a
     column slice of A, each transposed once, so no rank transposes the
-    whole matrix."""
+    whole matrix.  Without `col_forms` the column forms are left out, and
+    A[R, :] is not transposed."""
     m, n = A.shape
     (r0, r1), (c0, c1) = rows, cols
     a_rows = A[min(r0, m):min(r1, m), :]
     a_cols = A[:, min(c0, n):min(c1, n)].tocsr()
     return HostShare(rows=rows, cols=cols, m_pad=m_pad, n_pad=n_pad,
-                     a_rows=a_rows, at_rows=a_cols.T.tocsr(), a_cols=a_cols,
-                     at_cols=a_rows.T.tocsr())
+                     a_rows=a_rows, at_rows=a_cols.T.tocsr(),
+                     a_cols=a_cols if col_forms else None,
+                     at_cols=a_rows.T.tocsr() if col_forms else None)
 
 
 def upload_rows(share: HostShare, dtype, device) -> tuple[CsrMatrix,
@@ -245,4 +265,22 @@ def shard_from_share(share: HostShare, passes, dtype, device, group=None
                              nrows=nrows, ncols=share.n_pad if not transposed
                              else share.m_pad, tiles=tiles,
                              shard=Shard(c0=k0, c1=k1, group=group)))
+    return out[0], out[1]
+
+
+def rows_from_share(A_rows: CsrMatrix, AT_rows: CsrMatrix, row_cuts,
+                    col_cuts, rank: int, backend: str, group=None
+                    ) -> tuple[CsrMatrix, CsrMatrix]:
+    """(A, A^T) row-sharded as rank `rank` holds them, from its scaled row
+    forms A[R, :] ((|R|, n_pad), R = row_cuts[rank:rank + 2]) and A^T[C, :]
+    ((|C|, m_pad), C from col_cuts; share_cuts' bounds): each with a
+    RowShard, its nrows the whole matrix's, laid out for `backend` by
+    with_spmv_backend on its rows: "gather" the CSR kernel's row-block
+    plan, "dense" a dense copy of its rows."""
+    out = []
+    for M, cuts in ((A_rows, row_cuts), (AT_rows, col_cuts)):
+        M = dataclasses.replace(M, nrows=cuts[-1],
+                                row_shard=RowShard(cuts=tuple(cuts),
+                                                   rank=rank, group=group))
+        out.append(with_spmv_backend(M, backend))
     return out[0], out[1]

@@ -1,10 +1,11 @@
 """One rank of a mesh started by parallel/distributed.py::launch.
 
-    python -m hprlp_tpu_torch.parallel.worker TASK OUT RANK WORLD INIT \\
+    python -m hprlp_tpu_torch.parallel.worker TASK OUT RANK WORLD PORT \\
         DEVICE_TYPE T0 THREADS
 
-Joins the group (INIT: the rendezvous, e.g. tcp://127.0.0.1:PORT;
-DEVICE_TYPE: "cuda" for NCCL on cuda:RANK, "cpu" for gloo), runs the call
+Joins the group (PORT: the rendezvous store's on 127.0.0.1, which the
+launching process serves; DEVICE_TYPE: "cuda" for NCCL on cuda:RANK,
+"cpu" for gloo), runs the call
 pickled in TASK ((fn, args, kwargs)), and pickles (its return value, the
 seconds from T0, the launch's time.time(), to the group being up) to OUT.
 A rank must not import JAX: it fails if anything did.  Any failure exits
@@ -25,14 +26,16 @@ def _no_jax(when: str) -> None:
 
 
 def main(argv) -> int:
-    task, out, rank, world, init, device_type, t0, threads = argv
+    task, out, rank, world, port, device_type, t0, threads = argv
     import torch
     import torch.distributed as dist
 
     from . import distributed
 
     torch.set_num_threads(int(threads))
-    distributed.initialize(init, int(world), int(rank), device_type)
+    distributed.initialize(world_size=int(world), rank=int(rank),
+                           device_type=device_type,
+                           store=distributed.client_store(port, world))
     start_s = time.time() - float(t0)
     dev = ("cpu" if device_type == "cpu"
            else f"cuda:{torch.cuda.current_device()} "

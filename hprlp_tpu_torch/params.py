@@ -12,8 +12,8 @@ solver/refine.py; refine_stage_precision="f64" runs native f64 stages).
 spmv_backend "auto" and "lane" run the tiled SpMV kernel, the port of the
 lane kernels.  mesh_shape=N runs the solve on N ranks, one process per
 card (gloo ranks with device="cpu"), with the tiled kernel on each rank's
-column slice of A (parallel/); it takes spmv_backend "auto" or "lane" and
-not precision="mixed" (NotImplementedError otherwise).
+column slice of A, or with "gather" and "dense" on its rows (parallel/);
+it takes every spmv_backend and precision.
 """
 
 from __future__ import annotations

@@ -19,9 +19,22 @@ counterpart: the H100's f64 is native.  On the CPU no probe runs: the probe
 ranks kernels, and no kernel runs there.  Nor does one from
 AUTOTUNE_LANE_DIRECT_NNZ on, where the solve's ingest keeps the tiles alone
 (solver/loop.py::giant_regime, CsrMatrix.tiles_only) and the other
-candidates would need the CSR arrays it released, nor on a mesh, where each
-rank keeps the tiles of its column slice alone (parallel/sharded.py): one
-condition, the CSR arrays released, covers both.
+candidates would need the CSR arrays it released.  `probe_runs` is the
+rule.
+
+On a mesh (the default process group) the share ingest
+(solver/loop.py::build_share_ingest) keeps both
+forms where the rule says a probe runs: the column shards' tiles (the
+baseline) and the row shards' CSR arrays with their plan (the candidates),
+and the tiles alone elsewhere.  Every rank probes its own slices, each
+candidate's seconds are all-reduced with MAX over the group before any
+comparison (a rank's time depends on its slice), the merit check reads
+replicated metrics, so it agrees on every rank (asserted), and every rank
+takes the same choice and releases the losers' forms.  "dense" is offered
+by the whole matrix's bytes and density, so what is offered does not
+depend on the number of ranks.  A probe that fails under a mesh raises:
+a rank that kept its baseline alone would leave the others in their
+collectives.
 """
 
 from __future__ import annotations
@@ -30,10 +43,12 @@ import dataclasses
 import sys
 
 import torch
+import torch.distributed as dist
 
 from ..constants import DENSE_BYTES_LIMIT_SINGLE as DENSE_BYTES_LIMIT
 from ..ops.device_problem import LpDevice
 from ..ops.sparse import spmv_backend, with_spmv_backend
+from ..parallel import distributed
 from .chunk import run_chunk
 from .graph import time_probe
 
@@ -55,12 +70,23 @@ def _lane_ok(lp: LpDevice) -> bool:
     return lp.c.device.type == "cuda"
 
 
+def probe_runs(nnz: int, device: torch.device) -> bool:
+    """Whether the autotune probes an LP of `nnz` stored entries on
+    `device`: on the card, from AUTOTUNE_MIN_NNZ up to below
+    AUTOTUNE_LANE_DIRECT_NNZ."""
+    return (device.type == "cuda"
+            and AUTOTUNE_MIN_NNZ <= nnz < AUTOTUNE_LANE_DIRECT_NNZ)
+
+
 def _time_chunk(lp: LpDevice, probe_args, counts: dict
                 ) -> tuple[float, dict]:
     """(seconds, metrics as floats) of one probe chunk run_chunk(lp,
-    *probe_args), by graph.time_probe; its launches go to `counts`."""
+    *probe_args), by graph.time_probe; its launches go to `counts`.  On a
+    mesh its collectives are captured in the "thread_local" error mode."""
+    mode = "global" if lp.A.sharding is None else "thread_local"
     secs, (_, metrics) = time_probe(lambda: run_chunk(lp, *probe_args),
-                                    lp.c.device, counts=counts)
+                                    lp.c.device, counts=counts,
+                                    capture_error_mode=mode)
     return secs, {k: float(v) for k, v in metrics.items()}
 
 
@@ -85,45 +111,77 @@ def autotune_backends(lp: LpDevice, probe_args,
     (the baseline); probe_args: the rest of run_chunk's arguments (scal,
     state, sigma, lambda, restart flag, iterations).  Returns lp
     reconfigured with the winner.  After the call, autotune_backends.record
-    holds {backend: probe seconds}, the choice, the candidates whose merit
-    missed, and the probes' kernel launches (which the wrappers' own
+    holds {backend: probe seconds} (on a mesh the ranks' maximum, beside
+    this rank's own in "rank_seconds"), the choice, the candidates whose
+    merit missed, and the probes' kernel launches (which the wrappers' own
     counters do not see), or None when no probe ran."""
     log = print if verbose else (lambda *a, **k: None)
     autotune_backends.record = None
-    if not _lane_ok(lp) or lp.A.nnz < AUTOTUNE_MIN_NNZ:
+    if not _lane_ok(lp):
         return lp
-    if lp.A.nnz >= AUTOTUNE_LANE_DIRECT_NNZ or lp.A.vals is None:
-        log(f"[autotune] nnz={lp.A.nnz} >= {AUTOTUNE_LANE_DIRECT_NNZ} (or "
-            f"the tiles kept alone: the giant regime or a mesh): tiled "
-            f"selected without probing")
-        return lp
+    mesh = lp.A.sharding
+    if mesh is not None:
+        if lp.A.tiles is None or lp.A.row_shard is None:
+            return lp  # the share ingest kept one form: nothing to probe
+        nnz = torch.tensor(lp.A.nnz, dtype=torch.int64, device=lp.c.device)
+        dist.all_reduce(nnz)
+        nnz = int(nnz)
+    else:
+        nnz = lp.A.nnz
+        if nnz < AUTOTUNE_MIN_NNZ:
+            return lp
+        if nnz >= AUTOTUNE_LANE_DIRECT_NNZ or lp.A.vals is None:
+            log(f"[autotune] nnz={nnz} >= {AUTOTUNE_LANE_DIRECT_NNZ} (or "
+                f"the tiles kept alone: the giant regime): tiled selected "
+                f"without probing")
+            return lp
     itemsize = torch.empty((), dtype=lp.c.dtype).element_size()
-    density = lp.A.nnz / max(1, lp.A.nrows * lp.A.ncols)
+    density = nnz / max(1, lp.A.nrows * lp.A.ncols)
     dense_ok = (lp.A.nrows * lp.A.ncols * itemsize <= DENSE_BYTES_LIMIT
                 and density > DENSE_MIN_DENSITY)
     candidates = ["gather"] + (["dense"] if dense_ok else [])
 
+    def agreed(secs: float) -> float:
+        """The ranks' slowest probe time (this rank's without a mesh)."""
+        return (secs if mesh is None
+                else distributed.all_ranks_max([secs], lp.c.device)[0])
+
     counts = {}
     record = {"seconds": {}, "merit_rejected": [], "failed": [],
               "choice": spmv_backend(lp.A), "probe_launches": counts}
+    if mesh is not None:
+        record["rank_seconds"] = {}
     base = spmv_backend(lp.A)
-    base_time, base_metrics = _time_chunk(lp, probe_args, counts)
+    base_own, base_metrics = _time_chunk(lp, probe_args, counts)
+    base_time = agreed(base_own)
     record["seconds"][base] = base_time
+    if mesh is not None:
+        record["rank_seconds"][base] = base_own
     log(f"[autotune] {base}: {base_time * 1e3:.3f} ms")
     best, best_time = lp, base_time
     for name in candidates:
         # A probe that fails to build or run keeps the baseline, as the
         # JAX package does: the autotune only ever switches away from a
-        # working backend.
+        # working backend.  Not on a mesh: the other ranks would wait in
+        # the failed probe's collectives.
         try:
             cand = set_spmv_backend(lp, name)
-            t, m = _time_chunk(cand, probe_args, counts)
+            own, m = _time_chunk(cand, probe_args, counts)
         except Exception as e:
+            if mesh is not None:
+                raise
             print(f"[autotune] {name}: probe failed ({type(e).__name__}: "
                   f"{e}); keeping the baseline", file=sys.stderr)
             record["failed"].append(name)
             continue
+        t = agreed(own)
         ok = _merit_close(m, base_metrics)
+        if mesh is not None:
+            record["rank_seconds"][name] = own
+            flags = [float(ok), -float(ok)]  # the ranks' max and min
+            if distributed.all_ranks_max(flags, lp.c.device) != flags:
+                raise RuntimeError(f"the ranks' merit checks of {name} "
+                                   f"disagree: their metrics differ")
         record["seconds"][name] = t
         if not ok:
             record["merit_rejected"].append(name)
@@ -131,6 +189,10 @@ def autotune_backends(lp: LpDevice, probe_args,
             f"{'' if ok else '  (merit mismatch, rejected)'}")
         if ok and t * SPEEDUP_MIN < best_time:
             best, best_time = cand, t
+    if mesh is not None and best is lp:
+        # The tiles won: every rank drops its row shards.
+        best = dataclasses.replace(lp, A=lp.A.tiles_only(),
+                                   AT=lp.AT.tiles_only())
     record["choice"] = spmv_backend(best.A)
     autotune_backends.record = record
     if best is not lp:

@@ -24,7 +24,12 @@ card, with A on the "gather" backend, each is one launch of the CSR
 kernel with the half fused into its row write (ops/spmv.py::spmv_x_half,
 spmv_y_half), bitwise equal to its plain ops; elsewhere (tiles, a dense
 copy, the CPU) the plain ops (`x_half_plain`, `y_half_plain`).  The first
-and last iterations of a chunk stay plain.
+and last iterations of a chunk stay plain.  On a mesh's row shards the
+fused half runs on this rank's rows (A^T[C, :] with x[C], last_x[C], c[C],
+l[C], u[C]; A[R, :] with y[R], last_y[R], AL[R], AU[R]) against the whole
+operand, and one all-gather puts the ranks' rows together (x_new and x_hat
+packed into one): every vector is replicated again, so the rest of the
+chunk runs as on one card.
 
 The TPU package's double-f32 chunk (_df64_chunk_iters) has no counterpart:
 the GPU has native f64.
@@ -38,7 +43,7 @@ import functools
 import torch
 
 from ..ops.device_problem import LpDevice
-from ..ops.sparse import spmv, spmv_backend
+from ..ops.sparse import all_gather_rows, spmv, spmv_backend
 from ..ops.spmv import spmv_x_half, spmv_y_half
 from .scaling import ScalingInfo
 
@@ -127,19 +132,34 @@ def _fused(M, v: torch.Tensor) -> bool:
 
 
 def x_half(lp, x, y, last_x, sigma, h: Halpern):
-    """x_half_plain, fused into A^T y's row write where _fused holds."""
-    if _fused(lp.AT, y):
+    """x_half_plain, fused into A^T y's row write where _fused holds; on a
+    row shard, over this rank's rows, then gathered."""
+    if not _fused(lp.AT, y):
+        return x_half_plain(lp, x, y, last_x, sigma, h)
+    rs = lp.AT.row_shard
+    if rs is None:
         return spmv_x_half(lp.AT, y, x, last_x, lp.c, lp.l, lp.u, sigma,
                            h.inner, h.t)
-    return x_half_plain(lp, x, y, last_x, sigma, h)
+    k = slice(rs.r0, rs.r1)
+    parts = spmv_x_half(lp.AT.rows_local(), y, x[k], last_x[k], lp.c[k],
+                        lp.l[k], lp.u[k], sigma, h.inner, h.t)
+    x_new, x_hat = all_gather_rows(parts, rs)
+    return x_new, x_hat
 
 
 def y_half(lp, y, x_hat, last_y, lam_sigma, h: Halpern):
-    """y_half_plain, fused into A x_hat's row write where _fused holds."""
-    if _fused(lp.A, x_hat):
+    """y_half_plain, fused into A x_hat's row write where _fused holds; on
+    a row shard, over this rank's rows, then gathered."""
+    if not _fused(lp.A, x_hat):
+        return y_half_plain(lp, y, x_hat, last_y, lam_sigma, h)
+    rs = lp.A.row_shard
+    if rs is None:
         return spmv_y_half(lp.A, x_hat, y, last_y, lp.AL, lp.AU, lam_sigma,
                            h.inner, h.t)
-    return y_half_plain(lp, y, x_hat, last_y, lam_sigma, h)
+    k = slice(rs.r0, rs.r1)
+    part = spmv_y_half(lp.A.rows_local(), x_hat, y[k], last_y[k], lp.AL[k],
+                       lp.AU[k], lam_sigma, h.inner, h.t)
+    return all_gather_rows([part], rs)[0]
 
 
 def _fixed_point_gap_parts(lp, dx, dy):

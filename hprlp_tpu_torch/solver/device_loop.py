@@ -350,11 +350,12 @@ def capture_superchunk(lp, scal, state, rd: RestartDev, sigma, lambda_max,
     captured in a CUDA graph (graph.StepGraph), for run_superchunk calls of
     up to n_chunks chunks.  On the card only; a failed capture raises.
 
-    On a mesh (lp's matrices sharded) the step's all-reduces are captured
-    with it.  NCCL sets a communicator up at its first collective, which a
-    capture cannot hold, so one collective runs on the warm-up stream
-    first, and the capture runs in the "thread_local" error mode."""
-    shard = lp.A.shard
+    On a mesh (lp's matrices sharded) the step's all-reduces or
+    all-gathers are captured with it.  NCCL sets a communicator up at its
+    first collective, which a capture cannot hold, so one collective runs
+    on the warm-up stream first, and the capture runs in the
+    "thread_local" error mode."""
+    shard = lp.A.sharding
     if shard is not None:
         side = warmup_stream(lp.c.device)
         side.wait_stream(torch.cuda.current_stream(lp.c.device))

@@ -25,8 +25,8 @@ card, replays of a captured graph between CUDA events; on the CPU, where
 the host is the device, eager calls by the wall clock.
 
 A mesh solve's step holds the sharded SpMV's all-reduces
-(ops/sparse.py::all_reduce_sum): NCCL collectives, which a graph captures
-like kernels.  Its capture runs in the "thread_local" error mode, so that
+(ops/sparse.py::all_reduce_sum) or all-gathers (all_gather_rows): NCCL
+collectives, which a graph captures like kernels.  Its capture runs in the "thread_local" error mode, so that
 NCCL's watchdog thread, which queries its events while the step is being
 captured, does not invalidate the capture.
 """
@@ -38,20 +38,21 @@ import time
 import numpy as np
 import torch
 
-from ..ops.sparse import all_reduce_sum
+from ..ops.sparse import all_gather_rows, all_reduce_sum
 from ..ops.spmm import csr_spmm, csr_spmm_rowwise, spmm_x_half, spmm_y_half
 from ..ops.spmv import (csr_spmv, csr_spmv_rowgroup, spmv_x_half,
                         spmv_y_half, tiled_spmv)
 
 # Every kernel wrapper on a solve path that counts its launches, the
 # previous designs, which no solve path may launch, and the sharded SpMV's
-# all-reduce.
+# collectives: the column shards' all-reduce, the row shards' all-gather.
 COUNTED = {"tiled_spmv": tiled_spmv, "csr_spmv": csr_spmv,
            "spmv_x_half": spmv_x_half, "spmv_y_half": spmv_y_half,
            "csr_spmm": csr_spmm, "spmm_x_half": spmm_x_half,
            "spmm_y_half": spmm_y_half, "csr_spmm_rowwise": csr_spmm_rowwise,
            "csr_spmv_rowgroup": csr_spmv_rowgroup,
-           "all_reduce_sum": all_reduce_sum}
+           "all_reduce_sum": all_reduce_sum,
+           "all_gather_rows": all_gather_rows}
 
 _WARMUP_STREAMS: dict[int, torch.cuda.Stream] = {}
 _GRAPH_POOLS: dict[int, tuple] = {}  # device -> (pool, the graph keeping it)
@@ -149,14 +150,17 @@ class CapturedStep:
 
 
 def time_probe(fn, device: torch.device, reps: int = 3,
-               counts: dict | None = None):
+               counts: dict | None = None,
+               capture_error_mode: str = "global"):
     """(seconds, output) of one fn() call.  On the card: fn captured in a
-    CUDA graph (CapturedStep, launches counted in `counts`), replayed once
-    to warm up, then the least device time of `reps` replays between CUDA
-    events; `output` is the last replay's.  On the CPU: the least wall
-    time of `reps` eager calls after one to warm up."""
+    CUDA graph (CapturedStep, launches counted in `counts`, in
+    `capture_error_mode`), replayed once to warm up, then the least device
+    time of `reps` replays between CUDA events; `output` is the last
+    replay's.  On the CPU: the least wall time of `reps` eager calls after
+    one to warm up."""
     if device.type == "cuda":
-        step = CapturedStep(fn, counts=counts)
+        step = CapturedStep(fn, counts=counts,
+                            capture_error_mode=capture_error_mode)
         step.replay()
         best = float("inf")
         for _ in range(reps):

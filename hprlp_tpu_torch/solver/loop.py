@@ -14,11 +14,13 @@ and model.py may build it beside presolve and pass it in.
 
 With Parameters(mesh_shape=N) the solve runs on N ranks, one process per
 card (parallel/distributed.py): inside a process group of N ranks every
-rank runs this solve on its own device with A and A^T column-sharded
+rank runs this solve on its own device with A and A^T sharded
 (parallel/sharded.py) and the vectors replicated, and returns the same
 Results; each rank ingests only its share of the matrix
-(build_share_ingest).  Without a group, solve_problem launches the N
-ranks and returns rank 0's.
+(build_share_ingest).  The tiles ("lane") are column-sharded; "gather"
+and "dense" are row-sharded; "auto" probes both where one card would
+probe, and every rank takes the same choice (autotune.py).  Without a
+group, solve_problem launches the N ranks and returns rank 0's.
 """
 
 from __future__ import annotations
@@ -37,14 +39,14 @@ from ..ops.device_problem import (LpDevice, attach_blocks, canonical_csr,
 from ..ops.sparse import spmv_backend
 from ..ops.tiles import build_tiles
 from ..parallel import distributed
-from ..parallel.sharded import (ScalingShare, host_share, shard_from_share,
-                                share_cuts, upload_rows)
+from ..parallel.sharded import (ScalingShare, host_share, rows_from_share,
+                                shard_from_share, share_cuts, upload_rows)
 from ..params import Parameters
 from ..problem import LpProblem
 from ..results import Results
 from .chunk import init_state, initial_metrics, unscale_solution
 from .autotune import (AUTOTUNE_LANE_DIRECT_NNZ, autotune_backends,
-                       set_spmv_backend)
+                       probe_runs, set_spmv_backend)
 from .device_loop import capture_superchunk, init_restart_dev, run_superchunk
 from .power_iteration import power_method
 from .scaling import scale_problem
@@ -131,16 +133,6 @@ def resolve_dtype(params: Parameters, device: torch.device) -> torch.dtype:
     return torch.float32
 
 
-def check_mesh_supported(params: Parameters) -> None:
-    """Raise NotImplementedError for what a mesh solve does not run yet:
-    spmv_backend "gather" or "dense"."""
-    if params.mesh_shape and params.spmv_backend in ("gather", "dense"):
-        raise NotImplementedError(
-            f"mesh_shape with spmv_backend={params.spmv_backend!r} is not "
-            f"ported yet (ROADMAP.md queue 1 item 1); a mesh runs the tiled "
-            f"kernel: spmv_backend 'auto' or 'lane'")
-
-
 def mesh_rank_device(params: Parameters, device) -> torch.device:
     """This rank's device in a process group running a mesh of
     params.mesh_shape ranks (distributed.mesh_device), after checking the
@@ -186,7 +178,6 @@ def build_ingest(problem: LpProblem, params: Parameters, device=None):
     precision="mixed"; no caller tries another route."""
     t0 = time.perf_counter()
     params.validate()
-    check_mesh_supported(params)
     if params.precision == "mixed":
         raise ValueError("precision='mixed' solves in stages, each with its "
                          "own ingest: no single ingest")
@@ -232,27 +223,46 @@ def build_ingest(problem: LpProblem, params: Parameters, device=None):
                             "wall": t4 - t0}
 
 
+def share_forms(nnz: int, problem: LpProblem, params: Parameters,
+                device: torch.device) -> tuple[str, ...]:
+    """The forms a mesh rank keeps of its share of an LP of `nnz` stored
+    entries: ("rows",) for "gather" and "dense" (row shards), ("cols",)
+    for "lane", in the giant regime and for an "auto" that takes the tiles
+    without a probe (column shards: the tiles alone), and ("rows", "cols")
+    for an "auto" whose autotune will probe (autotune.probe_runs), which
+    then releases the losers' forms."""
+    if params.spmv_backend in ("gather", "dense"):
+        return ("rows",)
+    if (params.spmv_backend == "auto" and not giant_regime(problem, params)
+            and probe_runs(nnz, device)):
+        return ("rows", "cols")
+    return ("cols",)
+
+
 def build_share_ingest(problem: LpProblem, params: Parameters, device,
                        rank: int, world: int, group=None, t0=None):
     """build_ingest for rank `rank` of a mesh of `world` ranks in `group`
     (None: the default group) on `device`, which holds only the rank's
-    share (parallel/sharded.py):
-      1. "host": A's canonical CSR, the cuts R and C, and the share's four
-         forms (host_share), with no whole transpose;
+    share (parallel/sharded.py) in the forms share_forms names:
+      1. "host": A's canonical CSR, the cuts R and C, and the share's
+         forms (host_share: the column forms only where they are kept),
+         with no whole transpose;
       2. "upload": the row forms A[R, :] and A^T[C, :] and the replicated
          vectors;
       3. "scaling": scale_problem on the row forms, the ranks' per-row
          results exchanged (ScalingShare: 51 exchanges with every pass
          on);
-      4. "layout": the row forms released, the column forms uploaded,
-         scaled by the recorded factors and laid out as the tiles of
-         A[:, C] and A^T[:, R] (shard_from_share).
-    The scaled vectors, factors and tiles are bitwise those of the
-    one-card ingest followed by shard_problem.  In the giant regime the
-    host allocator is preheated for the share.  After the call
-    build_share_ingest.record holds {"rows", "cols", "entries",
-    "exchanges"}.  Returns as build_ingest; raises
-    on any failure."""
+      4. "layout": the scaled row forms kept as row shards with the
+         backend's plan or dense rows (rows_from_share; "auto" the plan),
+         or released; the column forms, where kept, uploaded, scaled by
+         the recorded factors and laid out as the tiles of A[:, C] and
+         A^T[:, R] (shard_from_share).
+    The scaled vectors, factors, tiles and row forms are bitwise those of
+    the one-card ingest followed by shard_problem (the tiles) or cut to
+    the rank's rows.  In the giant regime the host allocator is preheated
+    for the share.  After the call build_share_ingest.record holds
+    {"rows", "cols", "entries", "exchanges", "forms"}.  Returns as
+    build_ingest; raises on any failure."""
     t0 = time.perf_counter() if t0 is None else t0
     build_share_ingest.record = None
     dtype = resolve_dtype(params, device)
@@ -263,12 +273,15 @@ def build_share_ingest(problem: LpProblem, params: Parameters, device,
 
     A = canonical_csr(problem)
     m_pad, n_pad = padded_size(problem.m), padded_size(problem.n)
-    rows, cols, entries = share_cuts(A, m_pad, n_pad, rank, world)
+    row_cuts, col_cuts, entries = share_cuts(A, m_pad, n_pad, rank, world)
+    rows, cols = row_cuts[rank:rank + 2], col_cuts[rank:rank + 2]
+    forms = share_forms(A.nnz, problem, params, device)
     if giant_regime(problem, params):
         # The share holds each of its entries in two forms, as the one-card
         # ingest holds A and A^T.
         preheat(min(entries * PREHEAT_B_PER_NNZ // 2, PREHEAT_MAX))
-    share = host_share(A, m_pad, n_pad, rows, cols)
+    share = host_share(A, m_pad, n_pad, rows, cols,
+                       col_forms="cols" in forms)
     del A
     t1 = time.perf_counter()
     vectors, maps = default_vectors(problem, dtype, device)
@@ -284,19 +297,33 @@ def build_share_ingest(problem: LpProblem, params: Parameters, device,
                              use_pc=params.use_Pock_Chambolle_scaling,
                              use_bc=params.use_bc_scaling, share=scaling)
     t3 = synced()
+    A_sh = AT_sh = None
+    if "rows" in forms:
+        A_sh, AT_sh = rows_from_share(
+            lp.A, lp.AT, row_cuts, col_cuts, rank,
+            "gather" if params.spmv_backend == "auto"
+            else params.spmv_backend, group)
     lp = dataclasses.replace(lp, A=None, AT=None)
-    A_sh, AT_sh = shard_from_share(share, scaling.passes, dtype, device,
-                                   group)
+    if "cols" in forms:
+        A_col, AT_col = shard_from_share(share, scaling.passes, dtype,
+                                         device, group)
+        if A_sh is None:
+            A_sh, AT_sh = A_col, AT_col
+        else:  # both forms: the autotune keeps one
+            A_sh = dataclasses.replace(A_sh, tiles=A_col.tiles,
+                                       shard=A_col.shard)
+            AT_sh = dataclasses.replace(AT_sh, tiles=AT_col.tiles,
+                                        shard=AT_col.shard)
+        del A_col, AT_col
     lp = dataclasses.replace(lp, A=A_sh, AT=AT_sh)
     del A_sh, AT_sh, scaling.passes[:]
     t4 = synced()
     build_share_ingest.record = {
-        "rows": share.rows, "cols": share.cols,
-        "entries": entries, "exchanges": scaling.exchanges}
+        "rows": share.rows, "cols": share.cols, "entries": entries,
+        "exchanges": scaling.exchanges, "forms": forms}
     return lp, maps, scal, {"host": t1 - t0, "upload": t2 - t1,
                             "scaling": t3 - t2, "layout": t4 - t3,
                             "wall": t4 - t0}
-
 
 build_share_ingest.record = None
 
@@ -327,10 +354,12 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     scaling_time its scaling.  A failed ingest raises: no other route is
     tried.
 
-    mesh_shape=N ("auto" or "lane"): inside a process group of N ranks,
-    each rank solves on its device (distributed.mesh_device: `device`
-    "cpu" for gloo ranks, else cuda:{local rank}) with A and A^T
-    column-sharded; the decisions come from replicated values and the
+    mesh_shape=N: inside a process group of N ranks, each rank solves on
+    its device (distributed.mesh_device: `device` "cpu" for gloo ranks,
+    else cuda:{local rank}) with A and A^T sharded, by columns on the
+    tiles and by rows on "gather" and "dense" ("auto" takes the choice
+    of an autotune the ranks agree on); the decisions come from
+    replicated values and the
     time limit from the slowest rank's clock, so every rank returns the
     same Results, whose times are the ranks' maxima.  Only rank 0 prints.
     Without a group it launches N ranks (_launch_mesh) and returns rank
@@ -338,7 +367,6 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     """
     params = params or Parameters()
     params.validate()
-    check_mesh_supported(params)
     mesh = bool(params.mesh_shape)
     if mesh and not distributed.in_group():
         return _launch_mesh(problem, params, x0, y0, sigma0, device)

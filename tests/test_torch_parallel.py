@@ -103,13 +103,33 @@ def _cases():
                                                           **KW_GIANT,
                                                           **mesh)), {}),
         ("own_model", "own_model", (ht.Parameters(**KW_OWN),), {}),
+        ("f64_gather", "solve", (_port(_lp(LP21)), _quiet(
+            ht.Parameters, spmv_backend="gather", **KW_F64, **mesh)), {}),
+        ("f64_dense", "solve", (_port(_lp(LP21)), _quiet(
+            ht.Parameters, spmv_backend="dense", **KW_F64, **mesh)), {}),
+        ("agree_tiles", "agree", (_port(_lp(LP21)), AGREE["tiles"]), {}),
+        ("agree_gather", "agree", (_port(_lp(LP21)), AGREE["gather"]), {}),
     ]
+
+
+# The autotune's agreement: each rank's scripted probe seconds by backend.
+# The ranks' maxima choose what one rank's own seconds would not: in
+# "tiles" rank 0's alone pick "gather" and rank 1's "dense"; in "gather"
+# rank 1's alone keep the tiles ("gather" is less than 5% faster there).
+AGREE = {
+    "tiles": [{"tiled": 1.0, "gather": 0.5, "dense": 2.0},
+              {"tiled": 1.0, "gather": 3.0, "dense": 0.6}],
+    "gather": [{"tiled": 1.0, "gather": 0.5, "dense": 2.0},
+               {"tiled": 0.72, "gather": 0.7, "dense": 0.9}],
+}
 
 
 def _jax_references(monkeypatch):
     mesh = {"mesh_shape": JAX_DEVICES}
     out = {
         "f64": jax_solve(_lp(LP21), _quiet(JaxParameters, **KW_F64, **mesh)),
+        "f64_dense": jax_solve(_lp(LP21), _quiet(
+            JaxParameters, spmv_backend="dense", **KW_F64, **mesh)),
         "lane": jax_solve(_lp(LP32),
                           _quiet(JaxParameters, **KW_LANE, **mesh)),
         "batched": jax_solve_batched(
@@ -163,7 +183,9 @@ def test_each_rank_is_a_fresh_gloo_rank_without_jax(runs):
 
 @pytest.mark.parametrize("case", ["f64", "lane", "giant", "batched",
                                   "model", "mixed", "presolve_once",
-                                  "overlap_reuse", "overlap_discard"])
+                                  "overlap_reuse", "overlap_discard",
+                                  "f64_gather", "f64_dense", "agree_tiles",
+                                  "agree_gather"])
 def test_every_rank_returns_the_same_results(runs, case):
     """Every field of every rank's result bitwise rank 0's, times
     included (the ranks agree on them)."""
@@ -254,6 +276,48 @@ def test_f64_lp_matches_the_jax_mesh_solve(runs):
     single = ht.solve_problem(_port(_lp(LP21)),
                               _quiet(ht.Parameters, **KW_F64), device="cpu")
     assert got.iter == single.iter
+
+
+@pytest.mark.parametrize("backend", ["gather", "dense"])
+def test_row_sharded_lp_matches_the_jax_mesh_solve(runs, backend):
+    """tests/test_parallel.py:28's LP at 1e-6 in f64 with spmv_backend
+    "gather" and "dense", A and A^T row-sharded on 2 ranks, against the
+    JAX package's mesh solve with the same backend on 8 devices (its
+    "auto" takes "gather" on the CPU, the "f64" reference): its status,
+    backend and iterations, the objective to rel 1e-9 and x to atol
+    1e-7; and bitwise the port's one-card solve with that backend."""
+    per_rank, refs = runs
+    got = per_rank[0][f"f64_{backend}"]
+    want = refs["f64" if backend == "gather" else "f64_dense"]
+    assert want.spmv_backend == got.spmv_backend == backend
+    assert got.status == want.status == "OPTIMAL"
+    assert got.iter == want.iter
+    assert got.primal_obj == pytest.approx(want.primal_obj, rel=1e-9)
+    np.testing.assert_allclose(got.x, want.x, atol=1e-7)
+    one = ht.solve_problem(_port(_lp(LP21)), _quiet(
+        ht.Parameters, spmv_backend=backend, **KW_F64), device="cpu")
+    assert got.iter == one.iter and got.primal_obj == one.primal_obj
+    np.testing.assert_array_equal(got.x, one.x)
+
+
+@pytest.mark.parametrize("case", sorted(AGREE))
+def test_the_ranks_take_the_slowest_ranks_choice(runs, case):
+    """The autotune on 2 ranks whose probe seconds differ (AGREE): every
+    rank reports each backend's seconds as the ranks' maximum beside its
+    own, takes the choice those maxima make, releases the losers' forms
+    (the row shards when the tiles win, the tiles when "gather" does) and
+    solves to OPTIMAL on it."""
+    per_rank, _ = runs
+    times = AGREE[case]
+    want = {k: max(t[k] for t in times) for k in times[0]}
+    for r, out in enumerate(per_rank):
+        res, rec, kept = out[f"agree_{case}"]
+        assert rec["seconds"] == want
+        assert rec["rank_seconds"] == times[r]
+        assert rec["choice"] == res.spmv_backend == (
+            "tiled" if case == "tiles" else "gather")
+        assert kept == [(case == "tiles", case != "tiles")] * 2
+        assert res.status == "OPTIMAL"
 
 
 def test_f32_lane_lp_matches_the_jax_mesh_solve(runs):

@@ -1,6 +1,7 @@
 """The port's mesh solves with no JAX reference: the column slices of
-parallel/sharded.py, the sharded SpMV's partial products, a one-rank gloo
-group in this process, the launcher and its errors, and the CLI's --mesh.
+parallel/sharded.py, the sharded SpMV's partial products, the row shards
+of a one-rank gloo group in this process and its solves on every
+backend, the launcher and its errors, and the CLI's --mesh.
 
 This module imports neither JAX nor the JAX package: the ranks that
 tests/test_torch_parallel.py launches import it for `run_cases`, and a
@@ -8,6 +9,7 @@ rank fails if JAX was imported.  Its own tests run on the CPU in f64
 unless they say otherwise; each states its tolerance.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -22,7 +24,8 @@ from hypothesis import given, settings, strategies as st
 import hprlp_tpu_torch as ht
 from hprlp_tpu_torch import cli
 from hprlp_tpu_torch.ops.device_problem import host_csr, upload_problem
-from hprlp_tpu_torch.ops.sparse import all_reduce_sum, spmv
+from hprlp_tpu_torch.ops.sparse import (all_gather_rows, all_reduce_sum,
+                                        spmv, spmv_backend)
 from hprlp_tpu_torch.ops.spmv import spmv_reference
 from hprlp_tpu_torch.ops.tiles import build_tiles, tiled_spmv_reference
 from hprlp_tpu_torch.parallel import distributed
@@ -51,7 +54,9 @@ def run_cases(cases):
     "giant_model" (overlapped: counted_model_solve with GIANT),
     "presolve_once" (presolve_once), "own_model" (own_model_solve),
     "share" (share_against_one_card),
-    "share_solve" (share_solve_against_one_card)."""
+    "share_solve" (share_solve_against_one_card), "rows"
+    (rows_against_one_card), "rows_solve" (rows_solve_against_one_card),
+    "agree" (autotune_agreement)."""
     out = {}
     for name, kind, args, kwargs in cases:
         if kind == "facts":
@@ -71,6 +76,12 @@ def run_cases(cases):
             out[name] = share_against_one_card(*args)
         elif kind == "share_solve":
             out[name] = share_solve_against_one_card(*args)
+        elif kind == "rows":
+            out[name] = rows_against_one_card(*args)
+        elif kind == "rows_solve":
+            out[name] = rows_solve_against_one_card(*args)
+        elif kind == "agree":
+            out[name] = autotune_agreement(*args)
         else:
             saved = loop.GIANT_LANE_FIRST_NNZ
             if kind == "giant":
@@ -151,11 +162,9 @@ def own_model_solve(params):
     return res, ht.model.solve_with_presolve.record, printed.getvalue()
 
 
-def one_card_then_shard(problem, params, rank, world, device="cpu"):
-    """The reference of the share ingest: the one-card ingest (host_csr,
-    upload_problem, scale_problem) on `device`, then shard_problem, as
-    build_ingest's (lp, maps, scal, seconds)."""
-    from hprlp_tpu_torch.parallel.sharded import shard_problem
+def one_card_ingest(problem, params, device="cpu"):
+    """The one-card ingest (host_csr, upload_problem, scale_problem) on
+    `device`: (lp, maps, scal)."""
     from hprlp_tpu_torch.solver.scaling import scale_problem
 
     device = torch.device(device)
@@ -163,20 +172,23 @@ def one_card_then_shard(problem, params, rank, world, device="cpu"):
     lp, maps = upload_problem(problem, A, AT, dtype=loop.resolve_dtype(
         params, device), device=device)
     lp, scal = scale_problem(lp)
+    return lp, maps, scal
+
+
+def one_card_then_shard(problem, params, rank, world, device="cpu"):
+    """The reference of the share ingest: the one-card ingest on
+    `device`, then shard_problem, as build_ingest's (lp, maps, scal,
+    seconds)."""
+    from hprlp_tpu_torch.parallel.sharded import shard_problem
+
+    lp, maps, scal = one_card_ingest(problem, params, device)
     lp = shard_problem(lp, rank, world)
     return lp, maps, scal, {"wall": 0.0, "scaling": 0.0}
 
 
-def share_against_one_card(problem, precision, device="cpu"):
-    """This rank's share ingest (loop.build_share_ingest) on `device`
-    (its gloo group's all-reduces run on the card's tensors too) against
-    one_card_then_shard on it: {what: bitwise equal?} for the scaling's
-    factors and scalars, the scaled vectors, each matrix's slice and
-    tiles; the upload of every host array, by its size; the ingest's
-    record; the sizes (m_pad, n_pad, nnz) and the entries of A[R, :] and
-    A[:, C]."""
-    world, rank = distributed.world_size(), distributed.rank()
-    params = quiet(mesh_shape=world, precision=precision)
+def _recorded_uploads(call):
+    """(call(), the size of every numpy array uploaded through
+    torch.as_tensor during it)."""
     uploads = []
     as_tensor = torch.as_tensor
 
@@ -187,16 +199,149 @@ def share_against_one_card(problem, precision, device="cpu"):
 
     torch.as_tensor = recorded
     try:
-        lp, _, scal, _ = loop.build_share_ingest(
-            problem, params, torch.device(device), rank, world)
+        return call(), uploads
     finally:
         torch.as_tensor = as_tensor
+
+
+SCALING_FIELDS = ("row_norm", "col_norm", "b_scale", "c_scale", "norm_b",
+                  "norm_c", "norm_b_org", "norm_c_org")
+
+
+def rows_against_one_card(problem, precision, device="cpu"):
+    """This rank's share ingest for spmv_backend "gather"
+    (loop.build_share_ingest) against the one-card ingest on `device`:
+    {what: bitwise equal?} for the scaling's factors and scalars, the
+    scaled vectors, each matrix's row form (indptr from 0, indices,
+    values) against the one-card scaled matrix's rows R of A and C of
+    A^T, the row shard's bounds and plan (no tiles, no column shard), and
+    on random operands the row shards' spmv and the halves (x_half,
+    y_half: on the CPU the plain ops on the gathered products) against
+    the one-card matrices on "gather"; the upload of every host array, by
+    its size; the ingest's record; the sizes (m_pad, n_pad, nnz); the
+    entries of A[R, :] and A^T[C, :]; the all-gathers the products ran."""
+    from hprlp_tpu_torch.solver.autotune import set_spmv_backend
+    from hprlp_tpu_torch.solver.chunk import Halpern, x_half, y_half
+
+    world, rank = distributed.world_size(), distributed.rank()
+    params = quiet(mesh_shape=world, precision=precision,
+                   spmv_backend="gather")
+    (lp, _, scal, _), uploads = _recorded_uploads(
+        lambda: loop.build_share_ingest(problem, params,
+                                        torch.device(device), rank, world))
+    rec = loop.build_share_ingest.record
+    ref, _, rscal = one_card_ingest(problem, params, device)
+    same = {k: torch.equal(getattr(scal, k), getattr(rscal, k))
+            for k in SCALING_FIELDS}
+    same.update({k: torch.equal(getattr(lp, k), getattr(ref, k))
+                 for k in ("AL", "AU", "c", "l", "u")})
+    forms = []
+    for name in ("A", "AT"):
+        a, b = getattr(lp, name), getattr(ref, name)
+        rs = a.row_shard
+        e0, e1 = int(b.indptr[rs.r0]), int(b.indptr[rs.r1])
+        forms.append(e1 - e0)
+        same[name + ".indptr"] = torch.equal(
+            a.indptr, b.indptr[rs.r0:rs.r1 + 1] - e0)
+        same[name + ".indices"] = torch.equal(a.indices, b.indices[e0:e1])
+        same[name + ".vals"] = torch.equal(a.vals, b.vals[e0:e1])
+        same[name + ".layout"] = (
+            a.tiles is None and a.shard is None and a.dense is None
+            and a.blocks is not None and rs.rank == rank
+            and (a.nrows, a.ncols) == (b.nrows, b.ncols)
+            and rs.cuts[0] == 0 and rs.cuts[-1] == b.nrows
+            and len(rs.cuts) == world + 1)
+    gen = torch.Generator().manual_seed(3)
+    dtype = lp.c.dtype
+
+    def rand(k):
+        return torch.randn(k, generator=gen, dtype=torch.float64).to(dtype)
+
+    gathers = all_gather_rows.launches
+    for name in ("A", "AT"):
+        a, b = getattr(lp, name), getattr(ref, name)
+        v = rand(a.ncols)
+        same[name + ".spmv"] = torch.equal(spmv(a, v), spmv_reference(b, v))
+    one = set_spmv_backend(ref, "gather")
+    x, y, last_x, last_y = rand(lp.n), rand(lp.m), rand(lp.n), rand(lp.m)
+    h = Halpern(torch.tensor(3, dtype=torch.int32), 2, dtype)
+    sigma = torch.tensor(0.7, dtype=dtype)
+    got = x_half(lp, x, y, last_x, sigma, h)
+    want = x_half(one, x, y, last_x, sigma, h)
+    same["x_half"] = all(torch.equal(p, q) for p, q in zip(got, want))
+    x_hat = got[1]
+    same["y_half"] = torch.equal(
+        y_half(lp, y, x_hat, last_y, sigma * 2.0, h),
+        y_half(one, y, x_hat, last_y, sigma * 2.0, h))
+    return {"same": same, "uploads": uploads, "record": rec,
+            "sizes": (lp.m, lp.n, problem.nnz), "forms": tuple(forms),
+            "gathers": all_gather_rows.launches - gathers}
+
+
+def rows_solve_against_one_card(problem, params):
+    """(the mesh solve with params, the one-card solve with params
+    without its mesh), both on the CPU."""
+    got = ht.solve_problem(problem, params, device="cpu")
+    one = dataclasses.replace(params, mesh_shape=None)
+    return got, ht.solve_problem(problem, one, device="cpu")
+
+
+def autotune_agreement(problem, times):
+    """A mesh "auto" solve (f64, 1e-6) on the CPU with its autotune made
+    to probe: the share ingest told that a probe runs (loop.probe_runs),
+    the tiled kernel taken as available (autotune._lane_ok) and each
+    probe's seconds scripted by rank and backend (times[rank][backend]),
+    its metrics one stand-in that every rank reports.  Returns (Results,
+    autotune_backends.record, whether A and A^T kept their tiles and their
+    row shards after the autotune)."""
+    from hprlp_tpu_torch.solver import autotune
+
+    mine = times[distributed.rank()]
+    kept = []
+    real = (loop.probe_runs, loop.autotune_backends, autotune._lane_ok,
+            autotune._time_chunk)
+
+    def tune(lp, *a, **k):
+        out = real[1](lp, *a, **k)
+        kept.extend((M.tiles is not None, M.row_shard is not None)
+                    for M in (out.A, out.AT))
+        return out
+
+    loop.probe_runs = lambda nnz, device: True
+    loop.autotune_backends = tune
+    autotune._lane_ok = lambda lp: True
+    autotune._time_chunk = lambda lp, args, counts: (
+        mine[spmv_backend(lp.A)], {"nrm_Rp": 1.0, "nrm_Rd": 1.0})
+    try:
+        res = ht.solve_problem(problem, quiet(
+            mesh_shape=distributed.world_size(), stop_tol=1e-6),
+            device="cpu")
+    finally:
+        (loop.probe_runs, loop.autotune_backends, autotune._lane_ok,
+         autotune._time_chunk) = real
+    return res, autotune.autotune_backends.record, kept
+
+
+def share_against_one_card(problem, precision, device="cpu"):
+    """This rank's share ingest on the tiles (loop.build_share_ingest,
+    spmv_backend "lane") on `device` (its gloo group's all-reduces run on
+    the card's tensors too) against
+    one_card_then_shard on it: {what: bitwise equal?} for the scaling's
+    factors and scalars, the scaled vectors, each matrix's slice and
+    tiles; the upload of every host array, by its size; the ingest's
+    record; the sizes (m_pad, n_pad, nnz) and the entries of A[R, :] and
+    A[:, C]."""
+    world, rank = distributed.world_size(), distributed.rank()
+    params = quiet(mesh_shape=world, precision=precision,
+                   spmv_backend="lane")
+    (lp, _, scal, _), uploads = _recorded_uploads(
+        lambda: loop.build_share_ingest(problem, params,
+                                        torch.device(device), rank, world))
     rec = loop.build_share_ingest.record
     ref, _, rscal, _ = one_card_then_shard(problem, params, rank, world,
                                            device)
-    same = {k: torch.equal(getattr(scal, k), getattr(rscal, k)) for k in (
-        "row_norm", "col_norm", "b_scale", "c_scale", "norm_b", "norm_c",
-        "norm_b_org", "norm_c_org")}
+    same = {k: torch.equal(getattr(scal, k), getattr(rscal, k))
+            for k in SCALING_FIELDS}
     same.update({k: torch.equal(getattr(lp, k), getattr(ref, k))
                  for k in ("AL", "AU", "c", "l", "u")})
     for name in ("A", "AT"):
@@ -250,6 +395,23 @@ def random_problem(seed, m=40, n=60, density=0.3) -> LpProblem:
     rng = np.random.default_rng(seed)
     A = sp.random(m, n, density=density, random_state=rng,
                   data_rvs=lambda k: rng.normal(size=k)).tocsr()
+    return _problem_around(A, rng)
+
+
+def long_row_problem(seed=13, m=70, n=1200, density=0.01) -> LpProblem:
+    """random_problem's kind of LP whose row 5 is full: 1,200 entries,
+    more than the CSR kernel's window in f64 (1,024) and so a row block
+    alone on the card."""
+    rng = np.random.default_rng(seed)
+    A = sp.random(m, n, density=density, random_state=rng,
+                  data_rvs=lambda k: rng.normal(size=k)).tolil()
+    A[5, :] = rng.normal(size=n)
+    return _problem_around(A.tocsr(), rng)
+
+
+def _problem_around(A, rng) -> LpProblem:
+    """An LP on A with a feasible point and mixed bounds, from rng."""
+    m, n = A.shape
     x_feas = rng.uniform(-1.0, 1.0, n)
     Ax = A @ x_feas
     AL = Ax - rng.uniform(0.1, 2.0, m)
@@ -275,8 +437,8 @@ def quiet(**kw):
 @pytest.fixture
 def one_rank_group():
     """A one-rank gloo group in this process, destroyed after the test."""
-    distributed.initialize(f"tcp://127.0.0.1:{distributed._free_port()}",
-                           1, 0, "cpu")
+    distributed.initialize(world_size=1, rank=0, device_type="cpu",
+                           store=distributed.host_store())
     try:
         yield
     finally:
@@ -430,6 +592,51 @@ def test_mesh_of_one_rank_is_the_lane_solve(precision, one_rank_group):
     assert got.status == "OPTIMAL" and got.spmv_backend == "tiled"
 
 
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+@pytest.mark.parametrize("backend", ["gather", "dense", "auto"])
+def test_mesh_of_one_rank_is_the_one_card_solve(backend, precision,
+                                                one_rank_group):
+    """mesh_shape=1 in a one-rank gloo group with spmv_backend "gather"
+    or "dense" runs the row-sharded route (the share's row forms, an
+    all-gather per SpMV), "auto" on the CPU the column-sharded tiles:
+    every field of the Results, times aside, bitwise the one-card solve
+    with the same backend."""
+    problem = random_problem(21, m=60, n=80, density=0.2)
+    kw = {"stop_tol": 1e-6 if precision == "f64" else 1e-4,
+          "precision": precision, "spmv_backend": backend}
+    gathers, reduces = all_gather_rows.launches, all_reduce_sum.launches
+    got = ht.solve_problem(problem, quiet(mesh_shape=1, **kw), device="cpu")
+    gathers = all_gather_rows.launches - gathers
+    reduces = all_reduce_sum.launches - reduces
+    want = ht.solve_problem(problem, quiet(**kw), device="cpu")
+    for name in loop.TIME_FIELDS:
+        setattr(got, name, 0.0)
+        setattr(want, name, 0.0)
+    same_results(got, want)
+    assert got.status == "OPTIMAL"
+    rows = backend != "auto"
+    assert got.spmv_backend == (backend if rows else "tiled")
+    assert (gathers > 0, reduces > 0) == (rows, not rows)
+    assert loop.build_share_ingest.record["forms"] == (
+        ("rows",) if rows else ("cols",))
+
+
+@pytest.mark.parametrize("lp", ["lp", "long_row"])
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_row_forms_of_one_rank_are_the_one_card_matrices(lp, precision,
+                                                         one_rank_group):
+    """At one rank the share's scaled row forms are the whole one-card
+    scaled A and A^T, bitwise, and the row shards' products and halves,
+    gathered, bitwise the one-card "gather" matrices' (an LP with a row
+    longer than the f64 kernel's window among the cases)."""
+    problem = (random_problem(11, m=150, n=230, density=0.06)
+               if lp == "lp" else long_row_problem())
+    got = rows_against_one_card(problem, precision)
+    assert not [k for k, ok in got["same"].items() if not ok]
+    assert got["gathers"] == 4 and got["record"]["forms"] == ("rows",)
+    assert got["forms"] == (problem.nnz, problem.nnz)
+
+
 def test_mixed_mesh_of_one_rank_is_the_one_card_mixed(one_rank_group):
     """precision="mixed" (f32 stages, the f64 tail) with mesh_shape=1 in a
     one-rank gloo group: every stage and the tail a mesh solve on its own
@@ -512,18 +719,6 @@ def batched_args(B, seed=9):
     Ax = A @ x0
     return (A, rng.normal(size=(n, B)), Ax - 1.0, Ax + 1.0, x0 - 2.0,
             x0 + 2.0)
-
-
-@pytest.mark.parametrize("kw", [{"spmv_backend": "gather"},
-                                {"spmv_backend": "dense"}],
-                         ids=["gather", "dense"])
-def test_what_a_mesh_does_not_run_raises(kw):
-    problem = random_problem(3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ht.solve_problem(problem, quiet(mesh_shape=2, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ht.Model(problem).solve(ht.Parameters(verbose=False, mesh_shape=2,
-                                              **kw), device="cpu")
 
 
 def test_batch_not_divisible_by_the_mesh_raises():
@@ -609,17 +804,20 @@ print(distributed.rank(), distributed.world_size(), res.status,
 
 def test_ranks_started_as_torchrun_starts_them():
     """Two processes with torchrun's environment (MASTER_ADDR,
-    MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK) call initialize() with no
-    arguments and solve with mesh_shape=world_size() inside the group:
-    the same status and objective bits on both (-26.4 to 1e-3), and only
-    rank 0 prints the solve's log."""
-    port = distributed._free_port()
+    MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK, and
+    TORCHELASTIC_USE_AGENT_STORE: the store is served by this process,
+    as torchrun's agent serves it, so its port stays bound from the
+    start) call initialize() with no arguments and solve with
+    mesh_shape=world_size() inside the group: the same status and
+    objective bits on both (-26.4 to 1e-3), and only rank 0 prints the
+    solve's log."""
+    store = distributed.host_store()
     procs = []
     for r in range(2):
         env = dict(os.environ, MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(r),
-                   LOCAL_RANK=str(r), GLOO_SOCKET_IFNAME="lo",
-                   PYTHONPATH=ROOT)
+                   MASTER_PORT=str(store.port), WORLD_SIZE="2", RANK=str(r),
+                   LOCAL_RANK=str(r), TORCHELASTIC_USE_AGENT_STORE="True",
+                   GLOO_SOCKET_IFNAME="lo", PYTHONPATH=ROOT)
         procs.append(subprocess.Popen(
             [sys.executable, "-c", TORCHRUN_RANK, MODEL], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -649,6 +847,29 @@ def test_cli_mesh_on_cpu_ranks(capsys):
     assert rec["world"] == 2 and len(rec["start_s"]) == 2
     assert all(0 < s < rec["wall_s"] for s in rec["start_s"])
     assert out.err.count("group up in") == 2
+
+
+def test_cli_mesh_on_cpu_ranks_with_the_gather_backend(capsys,
+                                                        monkeypatch):
+    """cli.main --mesh 2 --cusparse-spmv true --device cpu (the CLI's way
+    to ask for spmv_backend "gather", as the JAX package's CLI has it):
+    two gloo ranks on their row shards, rc 0, -26.4."""
+    seen = []
+    real = distributed.launch
+
+    def launch(fn, args=(), *a, **k):
+        seen.append(args[1].spmv_backend)
+        return real(fn, args, *a, **k)
+
+    monkeypatch.setattr(distributed, "launch", launch)
+    assert cli.main(["-i", MODEL, "--mesh", "2", "--device", "cpu",
+                     "--cusparse-spmv", "true", "--quiet"]) == 0
+    out = capsys.readouterr()
+    line = [ln for ln in out.out.splitlines() if ln.startswith("status=")]
+    assert len(line) == 1 and "status=OPTIMAL" in line[0]
+    obj = float(line[0].split("obj=")[1].split()[0])
+    assert obj == pytest.approx(-26.4, rel=1e-3)
+    assert seen == ["gather"] and out.err.count("group up in") == 2
 
 
 def test_cli_mesh_flag_sets_mesh_shape(monkeypatch, capsys):

@@ -3,7 +3,10 @@ build_share_ingest, solver/scaling.py with a ScalingShare) over 2 and 3
 gloo ranks on the CPU: each rank builds, uploads and scales only its
 share, and its scaled vectors, factors and tiles are bitwise those of the
 one-card ingest followed by shard_problem, in f64 and f32; so are its
-mesh solves.
+mesh solves.  On "gather" each rank keeps its scaled row forms, bitwise
+the one-card scaled matrices' rows, its row shards' products and halves
+gather to the one-card ones bitwise, and its mesh solves on "gather" and
+"dense" are bitwise the one-card solves.
 
 One launch per world size (parallel/distributed.py::launch, the ranks
 running test_torch_parallel_ranks.py::run_cases) runs every case.  This
@@ -30,6 +33,9 @@ LPS = {"lp": lambda: random_problem(11, m=150, n=230, density=0.06),
        "small": lambda: random_problem(12, m=40, n=70, density=0.2)}
 SOLVES = {"f64": {"stop_tol": 1e-6, "precision": "f64"},
           "f32": {"stop_tol": 1e-4, "precision": "f32"}}
+# The row shards' cases: LPS and an LP with a row longer than the f64 CSR
+# kernel's window.
+ROW_LPS = dict(LPS, long_row=ranks.long_row_problem)
 
 
 def _cases(world):
@@ -38,6 +44,11 @@ def _cases(world):
     out += [(f"solve_{prec}", "share_solve",
              (LPS["lp"](), quiet(mesh_shape=world, **kw)), {})
             for prec, kw in SOLVES.items()]
+    out += [(f"rows_{lp}_{prec}", "rows", (make(), prec), {})
+            for lp, make in ROW_LPS.items() for prec in ("f64", "f32")]
+    out += [(f"rows_solve_{backend}_{prec}", "rows_solve", (LPS["lp"](), quiet(
+        mesh_shape=world, spmv_backend=backend, **kw)), {})
+        for backend in ("gather", "dense") for prec, kw in SOLVES.items()]
     return out
 
 
@@ -151,3 +162,79 @@ def test_discard_branch_broadcasts_once_the_ingest_is_gone():
     assert sizes[0][1] >= 12 * entered[0]["nnz"]
     assert all(r["broadcast_bytes"] == sum(sizes[0]) for r in per_rank)
     assert per_rank[0]["status"] == per_rank[1]["status"]
+
+
+@pytest.mark.parametrize("lp", sorted(ROW_LPS))
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+def test_row_forms_are_the_one_card_rows_bitwise(runs, lp, prec):
+    """Every rank on "gather": the scaling's factors and scalars and the
+    scaled vectors bitwise the one-card ingest's, as on the tiles; its
+    scaled row forms A[R, :] and A^T[C, :] bitwise the one-card scaled A's
+    rows R and A^T's rows C (indptr from 0, indices, values), kept with a
+    row shard and a plan, no tiles; the record's forms ("rows",); 51
+    exchanges.  The ranks' forms hold every entry of A once each."""
+    world, per_rank = runs
+    total = [0, 0]
+    for r, out in enumerate(per_rank):
+        got = out[f"rows_{lp}_{prec}"]
+        bad = [k for k, ok in got["same"].items()
+               if not ok and not k.endswith(("spmv", "half"))]
+        assert not bad, (r, bad)
+        assert got["record"]["forms"] == ("rows",)
+        assert got["record"]["exchanges"] == 51
+        total = [t + f for t, f in zip(total, got["forms"])]
+    assert total == [got["sizes"][2]] * 2
+
+
+@pytest.mark.parametrize("lp", sorted(ROW_LPS))
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+def test_row_shards_gather_to_the_whole_bitwise(runs, lp, prec):
+    """Every rank: spmv on its row shards of A and A^T, one all-gather
+    each, bitwise spmv_reference on the one-card scaled matrices, and the
+    x- and y-halves on them (the plain ops on the gathered products)
+    bitwise the one-card halves on "gather": 4 all-gathers.  "small" has
+    an empty slice at 3 ranks, "long_row" a row longer than the f64
+    kernel's window."""
+    world, per_rank = runs
+    for r, out in enumerate(per_rank):
+        got = out[f"rows_{lp}_{prec}"]
+        bad = [k for k, ok in got["same"].items()
+               if not ok and k.endswith(("spmv", "half"))]
+        assert not bad, (r, bad)
+        assert got["gathers"] == 4
+
+
+def test_the_row_route_uploads_no_column_form(runs):
+    """On "gather" each rank uploads its row forms, values and indices,
+    their indptrs and the vectors, and no column form: no array beyond
+    the larger of A[R, :]'s and A^T[C, :]'s entries or a vector, and
+    at most each row-form entry twice (value and index) in all."""
+    world, per_rank = runs
+    for out in per_rank:
+        got = out["rows_lp_f64"]
+        m_pad, n_pad, _ = got["sizes"]
+        e_a, e_at = got["forms"]
+        ups = got["uploads"]
+        assert max(ups) <= max(e_a, e_at, m_pad + 1, n_pad + 1)
+        assert sum(ups) <= (2 * (e_a + e_at) + 2 * (m_pad + n_pad + 2)
+                            + 2 * m_pad + 3 * n_pad)
+        assert sum(ups) < 4 * (e_a + e_at)
+
+
+@pytest.mark.parametrize("backend", ["gather", "dense"])
+@pytest.mark.parametrize("prec", sorted(SOLVES))
+def test_row_sharded_solve_is_the_one_card_solve(runs, backend, prec):
+    """The mesh solve on "gather" or "dense" (row shards, the share
+    ingest): every field of every rank's Results bitwise the one-card
+    solve's with the same backend, times aside, OPTIMAL on that backend;
+    every rank's the same, times included."""
+    world, per_rank = runs
+    case = f"rows_solve_{backend}_{prec}"
+    for out in per_rank:
+        got, want = out[case]
+        assert got.status == "OPTIMAL" and got.spmv_backend == backend
+        for name in ranks.loop.TIME_FIELDS:
+            setattr(want, name, getattr(got, name))
+        same_results(got, want)
+    for out in per_rank[1:]:
+        same_results(out[case][0], per_rank[0][case][0])

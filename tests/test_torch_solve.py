@@ -136,12 +136,19 @@ def test_no_device_without_cuda_raises(monkeypatch):
     {"mesh_shape": 2, "precision": "mixed", "spmv_backend": "gather"},
 ], ids=["kw1", "kw2", "kw3"])
 def test_options_not_ported_raise(kw):
-    """A mesh runs the tiled kernel ("auto", "lane"), precision="mixed"
-    included; what it does not run yet raises, naming ROADMAP, before any
-    rank starts, a "mixed" solve too."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ht.solve_problem(LpProblem.from_arrays(*CASES["demo"]()),
-                         ht.Parameters(verbose=False, **kw), device="cpu")
+    """The options a mesh once refused (spmv_backend "gather" and
+    "dense", precision="mixed" with "gather") now run on 2 gloo ranks:
+    OPTIMAL on the backend asked for, the one-card solve's objective to
+    rel 1e-6."""
+    problem = LpProblem.from_arrays(*CASES["demo"]())
+    got = ht.solve_problem(problem, ht.Parameters(verbose=False, **kw),
+                           device="cpu")
+    one = ht.solve_problem(problem, ht.Parameters(
+        verbose=False, **{k: v for k, v in kw.items() if k != "mesh_shape"}),
+        device="cpu")
+    assert got.status == one.status == "OPTIMAL"
+    assert got.spmv_backend == kw["spmv_backend"]
+    assert got.primal_obj == pytest.approx(one.primal_obj, rel=1e-6)
 
 
 def test_precision_routing():
