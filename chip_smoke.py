@@ -13,8 +13,9 @@ and the C ABI with their workers on the card, precision="mixed", and a
 on the card replays its chunk boundary from a CUDA graph captured before
 its clock starts, and (single LP) runs the SpMV backend the autotune
 chose; a solve fails its phase unless it launched that backend's kernel
-and no other SpMV kernel (the probes' launches are counted apart), on
-"gather" its fused halves too, and never the previous designs:
+and its fused halves (on the tiles or "gather"; none on "dense") and no
+other SpMV kernel or half (the probes' launches are counted apart), and
+never the previous designs:
 
   1. toolchain   nvidia-smi name/power limit, torch, CUDA, nvcc, Triton
   2. build       the five kernel libraries (nvcc, sm_90a, one process per
@@ -51,6 +52,8 @@ and no other SpMV kernel (the probes' launches are counted apart), on
                  against scipy's linear_sum_assignment
   6. real size   solve of the second LP (10.5M nnz) at 1e-4, its peak
                  device memory and its chunk profiled, as in phase 4
+                 (on the tiles beside their figures before the fused
+                 halves, TILES_BEFORE_FUSION)
   7. variants    the four prof_* studies (hprlp_tpu_torch/prof/) on the
                  bench LP (A, A^T) and on phase 6's LP (A): the ablate,
                  multi_acc and flush families are instantiations of the
@@ -114,7 +117,19 @@ and no other SpMV kernel (the probes' launches are counted apart), on
                  single-LP halves fused into the CSR kernel, one through
                  the plain halves and the fused chunk's graph replay,
                  bitwise equal; each half timed fused and plain, beside
-                 its byte bound
+                 its byte bound; (c) the halves fused into the tiled SpMV
+                 at sparse_large and sparse_huge, f32 and f64, on the
+                 default tiles and on tiles of another strip-group count
+                 (G = 1 against G > 1): each half alone bitwise the
+                 kernel's store and the plain ops (else its ulps, and the
+                 phase fails), one 150-iteration run_chunk fused, plain
+                 and by graph replay, bitwise equal, with 148 launches of
+                 each fused half; each half timed fused, plain and as the
+                 kernel's store then the mesh's epilogue, beside its bound
+                 (the function's bytes, half_bound) and the tiles' stream;
+                 on the default tiles the mesh's epilogue on the kernel's
+                 products, bitwise its plain version, timed with its
+                 inputs out of L2 beside its plain version and its bound
  11. autotune    autotune_backends twice on sparse_large f32, sparse_large
                  f64 and random_lp(4096, 8192, 128, seed=5) (1.56% dense):
                  each candidate's probe time, the choice, whether the two
@@ -133,7 +148,8 @@ and no other SpMV kernel (the probes' launches are counted apart), on
                  iterations and objectives, sparse_large four more times
                  (client wall time beside Results.time), the card's used
                  memory after requests 2 and 5 within MEMORY_SLACK_MIB,
-                 shutdown, exit 0, and the worker's kernel launches; (b)
+                 shutdown, exit 0, and the worker's kernel launches (the
+                 tiled SpMV and its fused halves among them); (b)
                  the port's C ABI library and launcher (capi.py), the
                  three examples/c programs built against it and run, each
                  worker on the card, and a ctypes consumer's f32 solve of
@@ -161,7 +177,10 @@ and no other SpMV kernel (the probes' launches are counted apart), on
                  model.REINGEST_SHARE of nnz, else two), the stage seconds, Model.solve's wall against
                  presolve + ingest (it must be below) and all stages in
                  a row, device memory, host peak RSS; OPTIMAL
-                 with host-f64 KKT < 1e-3 on the tiled kernel only; (c)
+                 with host-f64 KKT < 1e-3 on the tiled kernel and its
+                 fused halves only, ms/it beside the figure before the
+                 fused halves, and one captured chunk of the solve's
+                 tiles profiled (device us/it, kernels/it); (c)
                  the tiled SpMV at the giant's A and A^T (the solve's
                  tiles) against its plain version, beside its bound and
                  cuSPARSE (torch.mv on the same matrix, built after the
@@ -181,7 +200,10 @@ and no other SpMV kernel (the probes' launches are counted apart), on
                  the slice, the all-reduces captured in the CUDA graph),
                  bitwise the one-card solve on the backend it chose
                  (iterations, objective, x), both Results.time, the
-                 launches and the collectives per iteration; (c)
+                 launches and the collectives per iteration; on the tiles
+                 one epilogue launch per middle-iteration half after its
+                 all-reduce (as many as the one-card solve's fused tiled
+                 halves) and no fused tiled half; (c)
                  batched_large with mesh_shape=1,
                  every member bitwise the single-device batched solve;
                  (d) `python -m hprlp_tpu_torch.cli -i data/model.mps
@@ -239,6 +261,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -247,6 +270,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -455,11 +479,17 @@ def repair_checks(card, problem):
 
 
 # The single-LP SpMV wrappers by the name of their launches in a record:
-# the tiled kernel, the CSR kernel ("gather") and its fused halves, and
-# the previous row-group design, which no solve may launch.
-SPMV_COUNTERS = {"tiled": "tiled_spmv", "gather": "csr_spmv",
+# the tiled kernel and its fused halves, the column-sharded mesh's
+# epilogue, the CSR kernel ("gather") and its fused halves, and the
+# previous row-group design, which no solve may launch.
+SPMV_COUNTERS = {"tiled": "tiled_spmv", "tiled_x_half": "tiled_x_half",
+                 "tiled_y_half": "tiled_y_half",
+                 "epilogue": "tiled_half_epilogue", "gather": "csr_spmv",
                  "x_half": "spmv_x_half", "y_half": "spmv_y_half",
                  "rowgroup": "csr_spmv_rowgroup"}
+# Each backend's fused halves, by their keys in SPMV_COUNTERS.
+FUSED_HALVES = {"tiled": ("tiled_x_half", "tiled_y_half"),
+                "gather": ("x_half", "y_half")}
 
 
 def spmv_counters():
@@ -474,15 +504,15 @@ def reset_spmv_launches():
 
 
 def spmv_launches():
-    """{"tiled", "gather", "x_half", "y_half", "rowgroup": launches}."""
+    """{key of SPMV_COUNTERS: launches}."""
     return {k: fn.launches for k, fn in spmv_counters().items()}
 
 
 def check_backend(n, backend, launches):
-    """Fail unless a solve on `backend` launched its SpMV kernel and no
-    other: on "gather" its fused halves too, elsewhere never; the row-group
-    design never.  launches: spmv_launches() (a worker's record may hold
-    the first four only); a dense product launches none."""
+    """Fail unless a one-card solve on `backend` launched its SpMV kernel
+    and its fused halves and no other's ("dense": none), never the mesh's
+    epilogue and never the row-group design.  launches: spmv_launches()
+    (a record may lack a kernel it never counted)."""
     for name in ("tiled", "gather"):
         count = launches.get(name, 0)
         if name == backend:
@@ -491,12 +521,13 @@ def check_backend(n, backend, launches):
         else:
             check(count == 0, f"phase {n}: a solve on {backend} launched "
                   f"the {name} kernel {count} times")
-    for half in ("x_half", "y_half"):
-        count = launches.get(half, 0)
-        check((count > 0) == (backend == "gather"), f"phase {n}: a solve on "
-              f"{backend} launched the fused {half} {count} times")
-    check(launches.get("rowgroup", 0) == 0, f"phase {n}: a solve launched "
-          f"the previous CSR design")
+        for half in FUSED_HALVES[name]:
+            count = launches.get(half, 0)
+            check((count > 0) == (name == backend), f"phase {n}: a solve on "
+                  f"{backend} launched the fused {half} {count} times")
+    for name in ("epilogue", "rowgroup"):
+        check(launches.get(name, 0) == 0, f"phase {n}: a one-card solve "
+              f"launched {SPMV_COUNTERS[name]} {launches.get(name)} times")
 
 
 def check_probes(n, rec):
@@ -1377,7 +1408,10 @@ def graph_phase(card, prob4, prob5, peak6):
                   f"{rec['busy_unprofiled']:.3f} unprofiled (device us/it "
                   f"over unprofiled wall us/it), {prof['kernels']:.1f} "
                   f"kernels/it, sparse products {prof['product_us']:.1f} "
-                  f"us/it ({prof['product_share']:.1%}) [{card}]")
+                  f"us/it ({prof['product_share']:.1%})"
+                  + ("" if problem is None else
+                     before_fusion(problem.name, dtype, backend))
+                  + f" [{card}]")
         del loop, graph, eager, replayed
         check(k_e == k_g, f"phase 10: {cell}: {k_e} eager chunks, {k_g} "
               f"replayed")
@@ -1390,6 +1424,26 @@ def graph_phase(card, prob4, prob5, peak6):
               f"[{card}]")
     records["sparse_huge_peak_bytes"] = peak6
     return records
+
+
+# Device us/it and kernels/it of the single-LP loop on the tiles before
+# their middle halves were fused (PERF.md section 5; chip_smoke.py phases
+# 6 and 10 on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this
+# run's; and the banded giant's solve in ms/it then (phase 14 (b)).
+TILES_BEFORE_FUSION = {("random65536x131072", "f32"): (65.1, 34.5),
+                       ("random262144x524288", "f32"): (168.8, 34.5),
+                       ("assignment64", "f64"): (48.9, 32.5)}
+GIANT_MS_PER_IT_BEFORE = "1.39-1.41"
+
+
+def before_fusion(name, dtype, backend):
+    """The phrase giving TILES_BEFORE_FUSION's figures for this cell, or
+    "" where there are none."""
+    before = TILES_BEFORE_FUSION.get((name, str(dtype)[6:]))
+    if backend != "tiled" or before is None:
+        return ""
+    return (f" (before the tiles' fused halves: {before[0]} device us/it, "
+            f"{before[1]} kernels/it)")
 
 
 def chunk_profile(n, problem, dtype, backend, card):
@@ -1410,15 +1464,15 @@ def chunk_profile(n, problem, dtype, backend, card):
              f"kernels/it, busy share {prof['busy']:.3f} profiled and "
              f"{rec['busy_unprofiled']:.3f} unprofiled, SpMV "
              f"{prof['product_us']:.1f} us/it ({prof['product_share']:.1%})"
-             f" [{card}]")
+             + before_fusion(problem.name, dtype, backend) + f" [{card}]")
     return rec
 
 
 def autotune_phase(card, prob4):
     """Phase 11: the autotune twice on three LPs, the chunk it picked
     profiled, forced backends, and the CLI's --cusparse-spmv true.  Returns
-    ({dtype tag: {"gather", "x_half", "y_half": launches of the solves}},
-    record)."""
+    ({dtype tag: {"gather", "x_half", "y_half", "tiled_x_half",
+    "tiled_y_half": launches of the solves}}, record)."""
     import hprlp_tpu_torch as hp
     from hprlp_tpu_torch import cli
     from hprlp_tpu_torch.prof import prof_loop
@@ -1428,7 +1482,8 @@ def autotune_phase(card, prob4):
     cells = (("sparse_large_f32", prob4, torch.float32, "f32"),
              ("sparse_large_f64", prob4, torch.float64, "f64"),
              ("dense_lp_f32", dense_lp, torch.float32, "f32"))
-    gather_keys = ("gather", "x_half", "y_half")
+    gather_keys = ("gather", "x_half", "y_half", "tiled_x_half",
+                   "tiled_y_half")
     csr_launches = {t: dict.fromkeys(gather_keys, 0) for t in ("f32", "f64")}
     records = {}
     for cell, problem, dtype, tag in cells:
@@ -1708,7 +1763,8 @@ def server_pipes(card, prob4, built_paths):
               f"{card5:.1f} MiB; whole card after each request: "
               + ", ".join(f"{k} {v[1]:.1f}" for k, v in memory.items()))
     check(rc == 0, f"phase 12: the server exited {rc}")
-    for name in ("tiled_spmv", "csr_spmm", "spmm_x_half", "spmm_y_half"):
+    for name in ("tiled_spmv", "tiled_x_half", "tiled_y_half", "csr_spmm",
+                 "spmm_x_half", "spmm_y_half"):
         check(launches and launches[name] > 0,
               f"phase 12: the worker never launched {name}: {launches}")
     check(abs(card5 - card2) <= MEMORY_SLACK_MIB,
@@ -2153,22 +2209,24 @@ def giant_phase(card, prob6):
     lowered for the call) and on the standard route, bitwise equal; (b) the
     banded giant through Model.solve with presolve on, presolve beside the
     ingest; (c) the tiled SpMV at the giant's A and A^T by graph replay
-    against its plain version, its bound and cuSPARSE.  Returns (tiled
-    launches of (a) and (b), csr_spmm launches there (the scaling's row
-    sums), {"giant_A", "giant_AT": shape record}, record)."""
+    against its plain version, its bound and cuSPARSE.  Returns (the SpMV
+    launches of (a) and (b) by SPMV_COUNTERS' keys, csr_spmm launches there
+    (the scaling's row sums), {"giant_A", "giant_AT": shape record},
+    record)."""
     import hprlp_tpu_torch as hp
     from hprlp_tpu_torch import presolve
     from hprlp_tpu_torch.model import REINGEST_SHARE
     from hprlp_tpu_torch.ops.spmm import csr_spmm
     from hprlp_tpu_torch.ops.spmv import tiled_spmv
     from hprlp_tpu_torch.ops.tiles import tiled_spmv_reference
+    from hprlp_tpu_torch.prof import prof_loop
     from hprlp_tpu_torch.prof.problems import banded_lp
     from hprlp_tpu_torch.solver import loop
 
     # (a) sparse_huge on both routes, on the tiles ("lane": no probe).
     params = hp.Parameters(stop_tol=1e-4, verbose=False, max_iter=50_000,
                            spmv_backend="lane")
-    routes, launches, row_sums = {}, 0, 0
+    routes, launches, row_sums = {}, dict.fromkeys(SPMV_COUNTERS, 0), 0
     for route, threshold in (("standard", 10**18), ("giant", 1)):
         mem = {}
         reset_spmv_launches()
@@ -2183,7 +2241,8 @@ def giant_phase(card, prob6):
         check_backend(14, "tiled", l)
         check(csr_spmm.launches > 0, f"phase 14: sparse_huge {route}: the "
               f"scaling's row sums never ran on the SpMM kernel")
-        launches += l["tiled"]
+        for k, v in l.items():
+            launches[k] += v
         row_sums += csr_spmm.launches
         routes[route] = res
         rec = {"setup_s": res.setup_time, "scaling_s": res.scaling_time,
@@ -2237,7 +2296,8 @@ def giant_phase(card, prob6):
         wall = time.perf_counter() - t0
     solve_peak = torch.cuda.max_memory_allocated() - base
     l = spmv_launches()
-    launches += l["tiled"]
+    for k, v in l.items():
+        launches[k] += v
     giant_sums = csr_spmm.launches
     row_sums += giant_sums
     capture_s = loop.solve_problem.capture_time
@@ -2288,7 +2348,8 @@ def giant_phase(card, prob6):
               + f") setup={res.setup_time:.3f}s scaling="
               f"{res.scaling_time:.3f}s power={res.power_time:.3f}s "
               f"capture={capture_s:.3f}s solve={res.time:.3f}s "
-              f"({record['s_per_it'] * 1e3:.3f} ms/it); Model.solve wall "
+              f"({record['s_per_it'] * 1e3:.3f} ms/it; before the tiles' "
+              f"fused halves {GIANT_MS_PER_IT_BEFORE}); Model.solve wall "
               f"{wall:.3f}s against presolve + ingest "
               f"{res.presolve_time + ingest_s:.3f}s and all stages in a "
               f"row {serial:.3f}s [{card}]")
@@ -2315,6 +2376,22 @@ def giant_phase(card, prob6):
     check(wall < res.presolve_time + ingest_s, f"phase 14: Model.solve "
           f"took {wall} s, no less than presolve + ingest "
           f"({res.presolve_time + ingest_s} s): no overlap")
+
+    # The solve's chunk on the solve's tiles, as it replays it.
+    prof = prof_loop.profile(prof_loop.ChunkReplay(lp, ingests[-1][1][2]),
+                             prof_loop.SPMV_KERNELS, chunks=2)
+    record["chunk_profile"] = {k: prof[k] for k in (
+        "its", "wall_us", "device_us", "busy", "kernels", "product_us",
+        "product_share")}
+    phase(14, f"(b) the giant's chunk (prof_loop over replays of one "
+              f"captured chunk on the solve's tiles, groups A "
+              f"{lp.A.tiles.n_groups} / A^T {lp.AT.tiles.n_groups}): "
+              f"{prof['its']:.1f} it/s unprofiled, device "
+              f"{prof['device_us']:.1f} us/it, {prof['kernels']:.1f} "
+              f"kernels/it, busy share {prof['busy']:.3f}, SpMV "
+              f"{prof['product_us']:.1f} us/it ({prof['product_share']:.1%})"
+              f"; before the tiles' fused halves ~34 kernels/it and "
+              f"{GIANT_MS_PER_IT_BEFORE} ms/it [{card}]")
 
     # (c) the tiled SpMV at the giant's shapes, on the solve's tiles.
     rng = np.random.default_rng(0)
@@ -2437,6 +2514,19 @@ def malloc_phase(card, untuned):
     return rec
 
 
+CHUNK_FIELDS = ("x", "y", "last_x", "last_y", "x_bar", "y_bar", "z_bar",
+                "y_obj", "inner")
+
+
+def chunk_differ(a, b):
+    """The state fields and metrics in which two run_chunk results differ
+    (not bitwise equal)."""
+    (st_a, m_a), (st_b, m_b) = a, b
+    return ([f for f in CHUNK_FIELDS
+             if not torch.equal(getattr(st_a, f), getattr(st_b, f))]
+            + [k for k in m_a if not torch.equal(m_a[k], m_b[k])])
+
+
 def fused_spmv_phase(card, problem):
     """Phase 10 (b): the single-LP middle iteration fused into the CSR
     kernel, at `problem` (sparse_large) on the gather backend, f32 and
@@ -2451,15 +2541,7 @@ def fused_spmv_phase(card, problem):
     from hprlp_tpu_torch.solver import chunk
     from hprlp_tpu_torch.solver.graph import CapturedStep
 
-    fields = ("x", "y", "last_x", "last_y", "x_bar", "y_bar", "z_bar",
-              "y_obj", "inner")
-
-    def differ(a, b):
-        (st_a, m_a), (st_b, m_b) = a, b
-        return ([f for f in fields
-                 if not torch.equal(getattr(st_a, f), getattr(st_b, f))]
-                + [k for k in m_a if not torch.equal(m_a[k], m_b[k])])
-
+    differ = chunk_differ
     records = {}
     for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
         loop = prof_loop.Loop(problem, dtype, graph=False, backend="gather")
@@ -2525,6 +2607,235 @@ def fused_spmv_phase(card, problem):
               f"({tag}) in {vs_plain}")
         check(not vs_graph, f"phase 10: the fused chunk's replay differs "
               f"from its eager run ({tag}) in {vs_graph}")
+    return records
+
+
+def tiled_halves_phase(card, problems):
+    """Phase 10 (c): the single-LP middle iteration's halves fused into the
+    tiled SpMV, at each of `problems` ({name: LP}), f32 and f64, on the
+    default tiles and on tiles with another strip-group count (G = 1 where
+    the default has groups, else 4): each half alone bitwise the kernel's
+    store followed by the plain ops (else the largest difference in ulps,
+    and the phase fails); one 150-iteration run_chunk through the fused
+    halves, through the plain halves and by its graph's replay, every state
+    tensor and metric bitwise equal, with 148 fused launches of each half
+    and none of the CSR kernel's; each half timed by graph replay, fused,
+    plain, and as the kernel's store then the mesh's epilogue, beside its
+    bound (half_bound over its matrix: the function's bytes) and the
+    tiles' stream.  On the default tiles the mesh's epilogue too, on the
+    kernel's products: bitwise its plain version, timed with its inputs out
+    of L2 (rotated copies) beside its plain version, timed so, and its
+    bound, and in L2.  Returns {cell: record}."""
+    import dataclasses
+
+    from hprlp_tpu_torch.ops.spmv import (spmv_x_half, spmv_y_half,
+                                          tiled_half_epilogue, tiled_spmv,
+                                          tiled_x_half, tiled_y_half)
+    from hprlp_tpu_torch.ops.tiles import build_tiles
+    from hprlp_tpu_torch.prof import prof_loop
+    from hprlp_tpu_torch.prof.timing import (HBM_BYTES_PER_S, epilogue_bound,
+                                             half_bound, l2_rotations,
+                                             tiled_half_bytes)
+    from hprlp_tpu_torch.solver import chunk
+    from hprlp_tpu_torch.solver.graph import CapturedStep
+
+    def counts():
+        return (tiled_x_half.launches, tiled_y_half.launches,
+                spmv_x_half.launches + spmv_y_half.launches)
+
+    records = {}
+    t0 = time.perf_counter()
+    for size, problem in problems.items():
+        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            loop = prof_loop.Loop(problem, dtype, graph=False,
+                                  backend="tiled")
+            loop.run(1)
+            st, sigma = loop.state, loop.sigma
+            lam_sigma = loop.lam * sigma
+            other = {name: M.with_tiles(build_tiles(
+                M, strip_groups=1 if M.tiles.n_groups > 1 else 4))
+                for name, M in (("A", loop.lp.A), ("AT", loop.lp.AT))}
+            tilings = {"default": loop.lp,
+                       "other_G": dataclasses.replace(loop.lp, **other)}
+            for tiling, lp in tilings.items():
+                cell = f"{size}_{tag}_{tiling}"
+                groups = (lp.A.tiles.n_groups, lp.AT.tiles.n_groups)
+                rows_x = (st.x, st.last_x, lp.c, lp.l, lp.u)
+                rows_y = (st.y, st.last_y, lp.AL, lp.AU)
+
+                def h():  # the first middle iteration's counter
+                    return chunk.Halpern(st.inner, 0, dtype)
+
+                def fused_x():
+                    return chunk.x_half(lp, st.x, st.y, st.last_x, sigma,
+                                        h())
+
+                def plain_x():
+                    return chunk.x_half_plain(lp, st.x, st.y, st.last_x,
+                                              sigma, h())
+
+                before = counts()
+                xf, xp = fused_x(), plain_x()
+                y_f = chunk.y_half(lp, st.y, xf[1], st.last_y, lam_sigma,
+                                   h())
+                y_p = chunk.y_half_plain(lp, st.y, xp[1], st.last_y,
+                                         lam_sigma, h())
+                torch.cuda.synchronize()
+                alone = tuple(a - b for a, b in zip(counts(), before))
+                pairs = {"x_new": (xf[0], xp[0]), "x_hat": (xf[1], xp[1]),
+                         "y_new": (y_f, y_p)}
+                half_ulps = {k: ulps(a, b) for k, (a, b) in pairs.items()}
+                max_err = max(float((a - b).abs().max())
+                              for a, b in pairs.values())
+
+                args = (lp, loop.scal, st, sigma, loop.lam,
+                        torch.tensor(False, device="cuda"), loop.check)
+                before = counts()
+                fused = chunk.run_chunk(*args)
+                launches = tuple(a - b for a, b in zip(counts(), before))
+                with swapped(chunk, x_half=chunk.x_half_plain,
+                             y_half=chunk.y_half_plain):
+                    plain = chunk.run_chunk(*args)
+                step = CapturedStep(lambda: chunk.run_chunk(*args),
+                                    counts={})
+                step.replay()
+                torch.cuda.synchronize()
+                vs_plain = chunk_differ(fused, plain)
+                vs_graph = chunk_differ(fused, step.out)
+                del fused, plain, step
+
+                x_hat = xf[1]
+                rec = {"groups": {"A": groups[0], "AT": groups[1]},
+                       "ulps": half_ulps, "max_abs_err": max_err,
+                       "alone_launches": alone, "chunk_launches": launches,
+                       "differ_plain": vs_plain, "differ_graph": vs_graph}
+                timed = (
+                    ("x", fused_x, plain_x, lp.AT, st.y, rows_x, sigma),
+                    ("y", lambda: chunk.y_half(lp, st.y, x_hat, st.last_y,
+                                               lam_sigma, h()),
+                     lambda: chunk.y_half_plain(lp, st.y, x_hat, st.last_y,
+                                                lam_sigma, h()),
+                     lp.A, x_hat, rows_y, lam_sigma))
+                for half, fused_fn, plain_fn, M, v, rows, scal in timed:
+                    T = M.tiles
+                    # The bound is the function's bytes over M (half_bytes);
+                    # the tiles' stream (padding, runs, partials) is shown
+                    # beside it.  split: the kernel's store, then the mesh's
+                    # epilogue on its y, the other way to run the half.
+                    bound_ms, bound_by = half_bound(M, dtype, 1, half)
+                    rec[half] = r = {
+                        "ms": time_ms(fused_fn),
+                        "plain_ms": time_ms(plain_fn, reps=10),
+                        "split_ms": time_ms(
+                            lambda: tiled_half_epilogue(
+                                half, tiled_spmv(T, v), rows, scal,
+                                st.inner, 0)),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "stream_ms": tiled_half_bytes(T, dtype, half)
+                        / HBM_BYTES_PER_S * 1e3}
+                    phase(10, f"(c) {cell} fused {half}-half on the tiles "
+                              f"(G {T.n_groups}): {r['ms']:.5f} ms "
+                              f"({bound_ms / r['ms']:.1%} of bound "
+                              f"{bound_ms:.5f} ms, {bound_by}; the tiles' "
+                              f"stream at the HBM rate {r['stream_ms']:.5f} "
+                              f"ms); the store then the epilogue "
+                              f"{r['split_ms']:.5f} ms; its SpMV and plain "
+                              f"ops {r['plain_ms']:.5f} ms (graph replay) "
+                              f"[{card}]")
+                if tiling == "default":
+                    # The plain updates on given rows: (x, last_x, c, l, u)
+                    # or (y, last_y, AL, AU).
+                    epi = {
+                        "x": (tiled_spmv(lp.AT.tiles, st.y), rows_x, sigma,
+                              lambda s, r: chunk.x_update(
+                                  types.SimpleNamespace(c=r[2], l=r[3],
+                                                        u=r[4]),
+                                  r[0], s, r[1], sigma, *h().factors)[:2]),
+                        "y": (tiled_spmv(lp.A.tiles, x_hat), rows_y,
+                              lam_sigma,
+                              lambda s, r: chunk.y_update(
+                                  types.SimpleNamespace(AL=r[2], AU=r[3]),
+                                  r[0], s, r[1], lam_sigma,
+                                  *h().factors)[:1])}
+                    for half, (s_, rows, scal, plain_fn) in epi.items():
+                        got = tiled_half_epilogue(half, s_, rows, scal,
+                                                  st.inner, 0)
+                        got = got if half == "x" else (got,)
+                        want = plain_fn(s_, rows)
+                        torch.cuda.synchronize()
+                        e_ulps = max(ulps(a, b) for a, b in zip(got, want))
+                        bound_ms, bound_by = epilogue_bound(s_.numel(), dtype,
+                                                            half)
+                        # Timed with its inputs out of L2, as a mesh solve
+                        # meets them after a tiled SpMV: each call takes the
+                        # next of enough copies to fill the L2 four times.
+                        k = l2_rotations((1 + len(rows)) * s_.numel()
+                                         * s_.element_size())
+                        copies = [tuple(a.clone() for a in (s_, *rows))
+                                  for _ in range(k)]
+                        turn = itertools.cycle(copies)
+
+                        def cold_fused():
+                            s1, *r1 = next(turn)
+                            return tiled_half_epilogue(half, s1, r1, scal,
+                                                       st.inner, 0)
+
+                        def cold_plain():
+                            s1, *r1 = next(turn)
+                            return plain_fn(s1, r1)
+
+                        rec[f"epilogue_{half}"] = r = {
+                            "ulps": e_ulps, "max_abs_err": max(
+                                float((a - b).abs().max())
+                                for a, b in zip(got, want)),
+                            "ms": time_ms(cold_fused, reps=max(50, k)),
+                            "plain_ms": time_ms(cold_plain, reps=max(10, k)),
+                            "l2_resident_ms": time_ms(
+                                lambda: tiled_half_epilogue(
+                                    half, s_, rows, scal, st.inner, 0)),
+                            "rotated_copies": k,
+                            "bound_ms": bound_ms, "bound_by": bound_by}
+                        del copies, turn
+                        phase(10, f"(c) {cell} the mesh's {half}-half "
+                                  f"epilogue alone ({s_.numel()} rows): "
+                                  f"{e_ulps} ulps from its plain version; "
+                                  f"{r['ms']:.5f} ms with its inputs out of "
+                                  f"L2 ({k} copies; {bound_ms / r['ms']:.1%}"
+                                  f" of bound {bound_ms:.5f} ms, {bound_by})"
+                                  f", plain {r['plain_ms']:.5f} ms; in L2 "
+                                  f"{r['l2_resident_ms']:.5f} ms [{card}]")
+                        check(e_ulps == 0, f"phase 10 (c): {cell}: the "
+                              f"{half}-half epilogue is {e_ulps} ulps from "
+                              f"its plain version")
+                records[cell] = rec
+                phase(10, f"(c) {cell}: tiles of A / A^T in {groups[0]} / "
+                          f"{groups[1]} strip groups; each half alone: ulps "
+                          f"from the store and plain ops {half_ulps}, "
+                          f"launches (tiled x, tiled y, CSR) {alone}; chunk "
+                          f"of {loop.check}: launches {launches}, fields "
+                          f"differing from the plain halves: "
+                          f"{vs_plain or 'none'}, from the graph's replay: "
+                          f"{vs_graph or 'none'} [{card}]")
+                middle = loop.check - 2
+                check(all(u == 0 for u in half_ulps.values()),
+                      f"phase 10 (c): {cell}: a fused half differs from "
+                      f"its store and plain ops by {half_ulps} ulps")
+                check(alone == (1, 1, 0) and launches == (middle, middle, 0),
+                      f"phase 10 (c): {cell}: launches {alone} alone, "
+                      f"{launches} in the chunk")
+                check(not vs_plain, f"phase 10 (c): {cell}: fused and "
+                      f"plain chunks differ in {vs_plain}")
+                check(not vs_graph, f"phase 10 (c): {cell}: the fused "
+                      f"chunk's replay differs from its eager run in "
+                      f"{vs_graph}")
+            g = [records[f"{size}_{tag}_{t}"]["groups"] for t in tilings]
+            check(all(g[0][k] != g[1][k] for k in ("A", "AT"))
+                  and any(v == 1 for d in g for v in d.values())
+                  and any(v > 1 for d in g for v in d.values()),
+                  f"phase 10 (c): {size} {tag}: strip groups {g}: no pair "
+                  f"of G = 1 and G > 1")
+            del loop, tilings, other
+    phase(10, f"(c) took {time.perf_counter() - t0:.1f} s [{card}]")
     return records
 
 
@@ -2914,21 +3225,28 @@ def mesh_phase(card, prob6, prob5, prob4, giant):
                 share = dict(loop.build_share_ingest.record)
                 tune = autotune_backends.record
                 ran = mesh.spmv_backend
-                lane = hp.solve_problem(problem, hp.Parameters(
-                    spmv_backend="lane" if ran == "tiled" else ran, **kw))
+                lane, lane_counts = mesh_counts(lambda: hp.solve_problem(
+                    problem, hp.Parameters(
+                        spmv_backend="lane" if ran == "tiled" else ran,
+                        **kw)))
             add(tag, counts)
             singles[name] = lane
             same = same_point(mesh, lane)
             tiles = ran == "tiled"
             coll = "all_reduce_sum" if tiles else "all_gather_rows"
             per_it = counts[coll] / max(mesh.iter, 1)
+            # One epilogue per middle-iteration half after its all-reduce
+            # on the mesh, where one card launches the fused halves.
+            lane_halves = (lane_counts["tiled_x_half"]
+                           + lane_counts["tiled_y_half"])
             mesh_s, lane_s = [out[3] for _, _, out in calls]
             rec[name] = {"iter": mesh.iter, "status": mesh.status,
                          "spmv_backend": ran, "autotune": tune,
                          "time_mesh": mesh.time, "time_lane": lane.time,
                          "setup_mesh": mesh.setup_time,
                          "setup_lane": lane.setup_time,
-                         "launches": counts, "collectives_per_iter": per_it,
+                         "launches": counts, "lane_launches": lane_counts,
+                         "collectives_per_iter": per_it,
                          "bitwise": same, "share": share,
                          "ingest_mesh_s": mesh_s, "ingest_lane_s": lane_s}
             phase(15, f"(b) {name} {tag} mesh_shape=1 (one NCCL rank, "
@@ -2942,7 +3260,9 @@ def mesh_phase(card, prob6, prob5, prob4, giant):
                       f"{lane.setup_time:.3f}s) tiled_spmv launches "
                       f"{counts['tiled_spmv']}, csr_spmv "
                       f"{counts['csr_spmv']}, {coll} {counts[coll]} "
-                      f"({per_it:.3f} per iteration); bitwise the one-card "
+                      f"({per_it:.3f} per iteration), tiled_half_epilogue "
+                      f"{counts['tiled_half_epilogue']} (one card's fused "
+                      f"tiled halves {lane_halves}); bitwise the one-card "
                       f"solve (iterations, objective, x): {same} [{card}]")
             phase(15, f"(f) {name} {tag}: the share ingest (rows "
                       f"{share['rows']}, columns {share['cols']}, "
@@ -2960,6 +3280,14 @@ def mesh_phase(card, prob6, prob5, prob4, giant):
             check((counts["tiled_spmv"] > 0) == tiles and counts[coll] > 0
                   and (counts["csr_spmv"] == 0) == tiles,
                   f"phase 15 (b): {name} on {ran} launched {counts}")
+            check(not tiles or (
+                counts["tiled_x_half"] == counts["tiled_y_half"] == 0
+                and counts["tiled_half_epilogue"] == lane_halves > 0),
+                f"phase 15 (b): {name} on the tiles launched "
+                f"{counts['tiled_half_epilogue']} epilogues and the fused "
+                f"halves {counts['tiled_x_half']} / "
+                f"{counts['tiled_y_half']} times, one card "
+                f"{lane_halves} fused halves")
             check(share["exchanges"] == 51 and share["entries"]
                   == 2 * problem.nnz, f"phase 15 (f): {name}: {share}")
         A, C, AL, AU, l, u = arrays
@@ -3385,6 +3713,8 @@ def main():
     fused_rec = fused_phase(card)
     graph_rec = graph_phase(card, prob4, prob5, peak6)
     single_fused = fused_spmv_phase(card, prob4)
+    tiled_rec = tiled_halves_phase(card, {"sparse_large": prob4,
+                                          "sparse_huge": prob6})
     csr11, autotune_rec = autotune_phase(card, prob4)
     t_service = time.perf_counter()
     server_rec, l12a, iters12 = server_pipes(
@@ -3420,8 +3750,8 @@ def main():
     kernels = []
     for tag, launches, replaces, also in (
             ("f32", l4["tiled"] + l6["tiled"] + l8["tiled"] + l9_tiled
-             + worker_sum(w32, "tiled_spmv") + l13["f32"]["tiled"] + l14
-             + l15["f32"]["tiled_spmv"],
+             + worker_sum(w32, "tiled_spmv") + l13["f32"]["tiled"]
+             + l14["tiled"] + l15["f32"]["tiled_spmv"],
              "hprlp_tpu/ops/pallas_spmv.py:67",
              "thin_spmv hprlp_tpu/ops/pallas_spmv.py:272"),
             ("f64", l5["tiled"] + worker_sum(w64, "tiled_spmv")
@@ -3500,8 +3830,8 @@ def main():
             "library_ms": a["library_ms"],
             "shapes": shapes(tag, ("rowgroup_ms", "bound_ms",
                                    "library_ms"))})
-    for half, matrix, line in (("x", "A^T", "_x_half :76"),
-                               ("y", "A", "_y_half :85")):
+    for half, matrix, line in (("x", "A^T", "x_update :89"),
+                               ("y", "A", "y_update :99")):
         r32, r64 = single_fused["f32"][half], single_fused["f64"][half]
         per_phase = {t: gather_by_phase(t, f"{half}_half",
                                         f"spmv_{half}_half")
@@ -3528,10 +3858,74 @@ def main():
     kernels[-1]["chunks"] = {t: {k: v for k, v in r.items()
                                  if k not in ("x", "y")}
                              for t, r in single_fused.items()}
+
+    def tiled_by_phase(tag, key, i):
+        """A tiled half's launches by phase: the solves' (gather_by_phase),
+        phase 10 (c)'s chunks and phase 14's solves."""
+        out = gather_by_phase(tag, key, key)
+        out["10"] = sum(r["chunk_launches"][i] for c, r in tiled_rec.items()
+                        if f"_{tag}_" in c)
+        if tag == "f32":
+            out["14"] = l14[key]
+        return out
+
+    head = tiled_rec["sparse_large_f32_default"]
+    for i, (half, matrix, line) in enumerate((("x", "A^T", "x_update :89"),
+                                              ("y", "A", "y_update :99"))):
+        key = f"tiled_{half}_half"
+        per_phase = {t: tiled_by_phase(t, key, i) for t in ("f32", "f64")}
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": os.path.relpath(spmv_mod.TILED_SOURCE, HERE),
+            "replaces": "hprlp_tpu/solver/chunk.py:" + (
+                "72" if half == "x" else "81"),
+            "note": f"the single-LP middle iteration's {half}-half fused "
+                    f"into the tiled SpMV over {matrix}'s rows (plain: "
+                    f"hprlp_tpu_torch/solver/chunk.py {line}); no Pallas "
+                    f"kernel in the JAX package (XLA fuses it); headline "
+                    f"sparse_large f32 on the default tiles, plain_ms the "
+                    f"kernel's store and the plain ops by graph replay; "
+                    f"cells: phase 10 (c)",
+            "launches": sum(sum(v.values()) for v in per_phase.values()),
+            "launches_by_phase": per_phase,
+            "max_abs_err": max(r["max_abs_err"] for r in tiled_rec.values()),
+            "ms": head[half]["ms"], "plain_ms": head[half]["plain_ms"],
+            "bound_ms": head[half]["bound_ms"],
+            "bound_by": head[half]["bound_by"], "library_ms": None,
+            "cells": {c: dict(r[half], groups=r["groups"])
+                      for c, r in tiled_rec.items()}})
+    kernels[-1]["chunks"] = {c: {k: v for k, v in r.items()
+                                 if k not in ("x", "y", "epilogue_x",
+                                              "epilogue_y")}
+                             for c, r in tiled_rec.items()}
+    epi = {c: {h: r[f"epilogue_{h}"] for h in ("x", "y")}
+           for c, r in tiled_rec.items() if "epilogue_x" in r}
+    epi_head = epi["sparse_huge_f32_default"]["x"]
+    epi_by_phase = {t: {"15": l15[t].get("tiled_half_epilogue", 0)}
+                    for t in ("f32", "f64")}
+    kernels.append({
+        "name": "tiled_half_epilogue", "route": "cuda",
+        "source": os.path.relpath(spmv_mod.TILED_SOURCE, HERE),
+        "replaces": "hprlp_tpu/solver/chunk.py:72",
+        "also_replaces": "hprlp_tpu/solver/chunk.py:81",
+        "note": "a column-sharded mesh's middle-iteration half after the "
+                "all-reduce of the partial products: half_epilogue_kernel "
+                "(group_sum_kernel's pass at G = 1 with the half's update); "
+                "headline the x-half at sparse_huge f32's n rows with its "
+                "inputs out of L2 (rotated copies), plain_ms solver/"
+                "chunk.py::x_update timed so; launches: phase 15's mesh "
+                "solves on the tiles",
+        "launches": sum(v["15"] for v in epi_by_phase.values()),
+        "launches_by_phase": epi_by_phase,
+        "max_abs_err": max(r[h]["max_abs_err"] for r in epi.values()
+                           for h in r),
+        "ms": epi_head["ms"], "plain_ms": epi_head["plain_ms"],
+        "bound_ms": epi_head["bound_ms"], "bound_by": epi_head["bound_by"],
+        "library_ms": None, "cells": epi})
     kernels[0]["launches_by_phase"] = {
         "4": l4["tiled"], "6": l6["tiled"], "8": l8["tiled"], "9": l9_tiled,
         "12": worker_sum(w32, "tiled_spmv"), "13": l13["f32"]["tiled"],
-        "14": l14, "15": l15["f32"]["tiled_spmv"]}
+        "14": l14["tiled"], "15": l15["f32"]["tiled_spmv"]}
     kernels[0]["shapes"].update(giant_shapes)
     kernels[0]["giant"] = giant_rec
     kernels[0]["mesh"] = mesh_rec

@@ -1,5 +1,7 @@
 // Column-strip tiled SpMV for Hopper: y = A x over the padded row/column
-// spaces of the solver's layout, on the tiles of ops/tiles.py.
+// spaces of the solver's layout, on the tiles of ops/tiles.py, and the
+// single-LP HPR middle iteration's two half-updates fused into its row
+// write.
 //
 // Replaces, on the main path, the four Pallas TPU kernels of
 // hprlp_tpu/ops/pallas_spmv.py: lane_spmv and thin_spmv (the float
@@ -8,11 +10,18 @@
 // pairs).  Like _lane_kernel, which stages one 16384-entry x window in VMEM
 // per grid step and keeps y in VMEM, a block here stages x one column strip
 // at a time in shared memory and keeps its rows of y there.  It succeeds
-// the row-parallel CSR kernel of csrc/spmv.cu.
+// the row-parallel CSR kernel of csrc/spmv.cu.  The fused halves replace
+// the plain elementwise ops of solver/chunk.py::_x_half/_y_half after the
+// store (XLA fuses them in the JAX package, hprlp_tpu/solver/chunk.py:72,
+// :81), as csrc/spmv_csr.cu's do on the "gather" backend.
 //
 // What bounds it: bytes.  Each nonzero reads its value and a 4-byte key
 // (8 B per f32 entry, as CSR's value and column index), and y is written
-// once; the multiply-add per entry is negligible beside that traffic.
+// once; the multiply-add per entry is negligible beside that traffic.  A
+// fused half adds its row operands (x-half: x, last_x, c, l, u read, x_new
+// and x_hat written; y-half: y, last_y, AL, AU read, y_new written) and,
+// with G > 1, the G partials written and read (prof/timing.py::
+// tiled_half_bytes).
 // What the design does about the two costs the CSR kernel's ablations
 // found:
 // 1. The x gather (44% of the CSR kernel's time at 10.5M nnz): a gather
@@ -46,6 +55,23 @@
 // one): 0 gathers x from global memory, with the same stream and y in
 // shared memory; 1 stages each strip per block; 2, 4 and 8 share it across
 // a cluster of that many blocks by multicast.
+//
+// The epilogues (template E, instantiated for the main stage, CLUSTER = 1,
+// and SEG = kScan only): kStore writes y (or a group's partial of it);
+// kXHalf and kYHalf replace y's write by one HPR half-update of each row
+// given its sum, with csrc/hpr_half.cuh's rounding rules (each operation
+// rounded once, NaN taken as torch.clamp and torch.maximum take it), so a
+// fused half is bitwise the kStore launch followed by PyTorch's elementwise
+// ops.  With G = 1 the kernel itself writes the half-update of row row0 +
+// i in place of ys[i]; with G > 1 the blocks write their partials as
+// kStore does and group_sum_kernel<T, E> applies the half to each row's
+// sum, taken in group order as for y.  half_epilogue_kernel<T, E> is that
+// same pass at G = 1 on a given y: the column-sharded mesh's epilogue,
+// after the all-reduce of the ranks' partial products, launched under a
+// name of its own so that a profile tells it from the SpMV.  sigma (or
+// lambda * sigma) is a 0-dim device tensor and the Halpern counter is read
+// from device memory as inner + t, t baked in at launch, so a captured
+// CUDA graph replays it unchanged.
 //
 // The segsum study (template SEG, float and stage 1 only; launched by
 // ops/spmv_variants.py::spmv_segsum, never by a solve; SEG = 0 is the
@@ -85,6 +111,8 @@
 
 #include <algorithm>
 #include <cstdint>
+
+#include "hpr_half.cuh"
 
 namespace {
 
@@ -648,7 +676,56 @@ __device__ __forceinline__ void fused_step(const Step<float>& st,
   __syncwarp();  // the staging is the next step's
 }
 
-template <typename T, int CLUSTER, int SEG = kScan>
+// The row writes (template E; see the note at the top).
+enum Epilogue : int { kStore = 0, kXHalf = 1, kYHalf = 2 };
+
+// A fused half's operands, each (nrows,) but scal (0-dim) and inner (0-dim
+// int32); null pointers for kStore.  out: x_new (y_new); hat: x_hat
+// (x-half only); cur, last: x and last_x (y and last_y); p0, p1, p2: c, l
+// and u (AL and AU; no p2); scal: sigma (lambda sigma); the Halpern counter
+// is *inner + t.
+struct Half {
+  void* out;
+  void* hat;
+  const void *cur, *last, *p0, *p1, *p2, *scal;
+  const int* inner;
+  int t;
+};
+
+// The half's scalar and Halpern factor f1, read once per thread.
+template <typename T>
+struct HalfScalars {
+  T s, f1;
+};
+
+template <typename T>
+__device__ __forceinline__ HalfScalars<T> half_scalars(const Half& h) {
+  return {*static_cast<const T*>(h.scal),
+          hprlp::halpern_f1<T>(*h.inner + h.t)};
+}
+
+// Row `row`'s half-update given its sum: x_new and x_hat, or y_new.
+template <typename T, int E>
+__device__ __forceinline__ void write_half(const Half& h, int64_t row, T sum,
+                                           const HalfScalars<T>& k) {
+  const T cur = static_cast<const T*>(h.cur)[row];
+  const T last = static_cast<const T*>(h.last)[row];
+  const T p0 = static_cast<const T*>(h.p0)[row];
+  const T p1 = static_cast<const T*>(h.p1)[row];
+  if constexpr (E == kXHalf) {
+    T xh;
+    static_cast<T*>(h.out)[row] = hprlp::x_half_update(
+        sum, cur, last, p0, p1, static_cast<const T*>(h.p2)[row], k.s, k.f1,
+        xh);
+    static_cast<T*>(h.hat)[row] = xh;
+  } else {
+    static_assert(E == kYHalf, "a half is kXHalf or kYHalf");
+    static_cast<T*>(h.out)[row] =
+        hprlp::y_half_update(sum, cur, last, p0, p1, k.s, k.f1);
+  }
+}
+
+template <typename T, int CLUSTER, int SEG = kScan, int E = kStore>
 __global__ void __launch_bounds__(kThreads, 1)
 tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
                   int max_rows, const T* __restrict__ vals,
@@ -656,7 +733,9 @@ tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
                   const int* __restrict__ runs,
                   const int* __restrict__ row_start,
                   const T* __restrict__ x, T* __restrict__ out,
-                  const SegTiles rt) {
+                  const SegTiles rt, const Half h) {
+  static_assert(E == kStore || (CLUSTER == 1 && SEG == kScan),
+                "the halves are fused into the main stage only");
   constexpr bool kStaged = CLUSTER > 0;
   // Shared memory: nbuf x strips of W entries, y of the largest chunk
   // (rounded up to 16 bytes), two mbarriers -- the same offsets in every
@@ -781,23 +860,58 @@ tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
       }
     }
   }
-  // y of the chunk, or with several groups this group's partial of it.
-  T* dst = out + static_cast<int64_t>(g) * nrows + row0;
-  for (int i = tid; i < nrows_b; i += kThreads) dst[i] = ys[i];
+  if constexpr (E == kStore) {
+    // y of the chunk, or with several groups this group's partial of it.
+    T* dst = out + static_cast<int64_t>(g) * nrows + row0;
+    for (int i = tid; i < nrows_b; i += kThreads) dst[i] = ys[i];
+  } else {  // G = 1: each row's half-update in place of its store
+    const HalfScalars<T> k = half_scalars<T>(h);
+    for (int i = tid; i < nrows_b; i += kThreads) {
+      write_half<T, E>(h, row0 + i, ys[i], k);
+    }
+  }
 }
 
 // y = the G partials summed in group order (the fixed order that keeps y
-// bitwise reproducible; no atomics).
-template <typename T>
-__global__ void __launch_bounds__(256)
-group_sum_kernel(int G, int nrows, const T* __restrict__ part,
-                 T* __restrict__ y) {
+// bitwise reproducible; no atomics), or each row's half-update given that
+// sum.
+template <typename T, int E>
+__device__ __forceinline__ void group_rows(int G, int nrows,
+                                           const T* __restrict__ part,
+                                           T* __restrict__ y, const Half& h) {
+  HalfScalars<T> k{};
+  if constexpr (E != kStore) k = half_scalars<T>(h);
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < nrows; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     T sum = part[i];
     for (int g = 1; g < G; ++g) sum += part[static_cast<int64_t>(g) * nrows + i];
-    y[i] = sum;
+    if constexpr (E == kStore) {
+      y[i] = sum;
+    } else {
+      write_half<T, E>(h, i, sum, k);
+    }
   }
+}
+
+template <typename T, int E>
+__global__ void __launch_bounds__(256)
+group_sum_kernel(int G, int nrows, const T* __restrict__ part,
+                 T* __restrict__ y, const Half h) {
+  group_rows<T, E>(G, nrows, part, y, h);
+}
+
+// The column-sharded mesh's epilogue: group_rows at G = 1 on the
+// all-reduced y (see the note at the top).
+template <typename T, int E>
+__global__ void __launch_bounds__(256)
+half_epilogue_kernel(int nrows, const T* __restrict__ y, const Half h) {
+  group_rows<T, E>(1, nrows, y, nullptr, h);
+}
+
+// Blocks of 256 threads for a pass over n rows: one per 256 rows, at most
+// 8 per SM.
+int row_pass_grid(int64_t n) {
+  return static_cast<int>(std::min<int64_t>((n + 255) / 256, 132 * 8));
 }
 
 template <typename T>
@@ -830,33 +944,47 @@ struct Args {
   const void *vals, *keys, *runs, *row_start, *x;
   void *part, *y;
   SegTiles rt;  // mm_precomp's R; null pointers for every other launch
+  Half h;       // a fused half's operands; null pointers for kStore
 };
 
-template <typename T, int CLUSTER, int SEG = kScan>
+// Whether h holds every operand epilogue E reads and writes.
+template <int E>
+bool half_complete(const Half& h) {
+  if constexpr (E == kStore) {
+    return true;
+  } else {
+    return h.out && h.cur && h.last && h.p0 && h.p1 && h.scal && h.inner &&
+           (E == kYHalf || (h.hat && h.p2));
+  }
+}
+
+template <typename T, int CLUSTER, int SEG = kScan, int E = kStore>
 int launch_stage(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(CLUSTER, a.W, a.Kg, a.max_rows) +
                       kSegsumBytes<SEG>;
   const int nblocks = a.G * a.C;
   if (smem > static_cast<size_t>(kMaxSmem) ||
-      a.C % (CLUSTER > 1 ? CLUSTER : 1) || (a.G > 1 && !a.part)) {
+      a.C % (CLUSTER > 1 ? CLUSTER : 1) || (a.G > 1 && !a.part) ||
+      !half_complete<E>(a.h)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config<T, CLUSTER>(nblocks, smem, stream,
                                                     &attr);
   T* out = static_cast<T*>(a.G > 1 ? a.part : a.y);
+  // With G > 1 the blocks store their partials and the half, if any, runs
+  // on their sum.
+  const auto kernel = a.G > 1 ? &tiled_spmv_kernel<T, CLUSTER, SEG, kStore>
+                              : &tiled_spmv_kernel<T, CLUSTER, SEG, E>;
   cudaError_t err = cudaLaunchKernelEx(
-      &cfg, tiled_spmv_kernel<T, CLUSTER, SEG>, a.nrows, a.ncols, a.W, a.K,
-      a.Kg, a.C, a.max_rows, static_cast<const T*>(a.vals),
-      static_cast<const uint32_t*>(a.keys), static_cast<const int*>(a.runs),
-      static_cast<const int*>(a.row_start), static_cast<const T*>(a.x), out,
-      a.rt);
+      &cfg, kernel, a.nrows, a.ncols, a.W, a.K, a.Kg, a.C, a.max_rows,
+      static_cast<const T*>(a.vals), static_cast<const uint32_t*>(a.keys),
+      static_cast<const int*>(a.runs), static_cast<const int*>(a.row_start),
+      static_cast<const T*>(a.x), out, a.rt, a.h);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err == cudaSuccess && a.G > 1) {
-    const int grid = static_cast<int>(
-        std::min<int64_t>((a.nrows + 255) / 256, 132 * 8));
-    group_sum_kernel<T><<<grid, 256, 0, stream>>>(
-        a.G, a.nrows, out, static_cast<T*>(a.y));
+    group_sum_kernel<T, E><<<row_pass_grid(a.nrows), 256, 0, stream>>>(
+        a.G, a.nrows, out, static_cast<T*>(a.y), a.h);
     err = cudaGetLastError();
   } else {
     cudaGetLastError();  // clear a launch error that err already holds
@@ -889,6 +1017,43 @@ int launch(int cluster, const Args& a, void* stream) {
   }
 }
 
+// A fused half on the main stage (cluster 1, the only one instantiated
+// with the halves).
+template <typename T>
+int launch_half(int epilogue, int cluster, const Args& a, void* stream) {
+  if (cluster != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.G * a.C <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (epilogue) {
+    case kXHalf: return launch_stage<T, 1, kScan, kXHalf>(a, s);
+    case kYHalf: return launch_stage<T, 1, kScan, kYHalf>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int E>
+int launch_epilogue(int nrows, const void* y, const Half& h,
+                    cudaStream_t stream) {
+  if (!y || !half_complete<E>(h)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  half_epilogue_kernel<T, E><<<row_pass_grid(nrows), 256, 0, stream>>>(
+      nrows, static_cast<const T*>(y), h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_epilogue(int epilogue, int nrows, const void* y, const Half& h,
+                    void* stream) {
+  if (nrows <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (epilogue) {
+    case kXHalf: return launch_epilogue<T, kXHalf>(nrows, y, h, s);
+    case kYHalf: return launch_epilogue<T, kYHalf>(nrows, y, h, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
 int max_active(int cluster, int smem) {
   switch (cluster) {
@@ -909,6 +1074,8 @@ int set_max_smem() {
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 2>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 4>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 8>),
+      reinterpret_cast<const void*>(tiled_spmv_kernel<T, 1, kScan, kXHalf>),
+      reinterpret_cast<const void*>(tiled_spmv_kernel<T, 1, kScan, kYHalf>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, kSegFull>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, kSegPrecomp>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, kSegHi1>),
@@ -942,9 +1109,49 @@ int hprlp_tiled_spmv(int f64, int cluster, int nrows, int ncols, int W,
                      const void* row_start, const void* x, void* part,
                      void* y, void* stream) {
   const Args a{nrows, ncols, W, K, G, Kg, C, max_rows, vals, keys, runs,
-               row_start, x, part, y, {}};
+               row_start, x, part, y, {}, {}};
   return f64 ? launch<double>(cluster, a, stream)
              : launch<float>(cluster, a, stream);
+}
+
+// One single-LP middle-iteration half fused into y = A x's row write on
+// the tiles: `epilogue` 1 the x-half (out = x_new, hat = x_hat; cur, last,
+// p0, p1, p2 = x, last_x, c, l, u), 2 the y-half (out = y_new; cur, last,
+// p0, p1 = y, last_y, AL, AU; hat and p2 unread); scal: the 0-dim sigma
+// (lambda sigma), inner: the 0-dim int32 Halpern counter at the first
+// middle iteration, t this iteration's index.  The tile arguments as for
+// hprlp_tiled_spmv at cluster 1 (the main stage; any other is refused);
+// with G > 1, `part` holds G * nrows partials.  Returns the launch's error
+// code (0 on success).
+int hprlp_tiled_half(int f64, int epilogue, int cluster, int nrows, int ncols,
+                     int W, int K, int G, int Kg, int C, int max_rows,
+                     const void* vals, const void* keys, const void* runs,
+                     const void* row_start, const void* x, void* part,
+                     void* out, void* hat, const void* cur, const void* last,
+                     const void* p0, const void* p1, const void* p2,
+                     const void* scal, const void* inner, int t,
+                     void* stream) {
+  const Half h{out, hat, cur, last, p0, p1, p2, scal,
+               static_cast<const int*>(inner), t};
+  const Args a{nrows, ncols, W, K, G, Kg, C, max_rows, vals, keys, runs,
+               row_start, x, part, nullptr, {}, h};
+  return f64 ? launch_half<double>(epilogue, cluster, a, stream)
+             : launch_half<float>(epilogue, cluster, a, stream);
+}
+
+// The column-sharded mesh's epilogue: the half-update of each of nrows rows
+// given its sum y[row] (the all-reduced partial products), the operands as
+// for hprlp_tiled_half.  Returns the launch's error code (0 on success).
+int hprlp_tiled_half_epilogue(int f64, int epilogue, int nrows, const void* y,
+                              void* out, void* hat, const void* cur,
+                              const void* last, const void* p0,
+                              const void* p1, const void* p2,
+                              const void* scal, const void* inner, int t,
+                              void* stream) {
+  const Half h{out, hat, cur, last, p0, p1, p2, scal,
+               static_cast<const int*>(inner), t};
+  return f64 ? launch_epilogue<double>(epilogue, nrows, y, h, stream)
+             : launch_epilogue<float>(epilogue, nrows, y, h, stream);
 }
 
 // One variant of the segsum study (float, strips staged per block):
@@ -964,7 +1171,8 @@ int hprlp_tiled_segsum(int variant, int nrows, int ncols, int W, int K,
                row_start, x, part, y,
                {static_cast<const uint4*>(rt_ranks),
                 static_cast<const uint4*>(rt_rows),
-                static_cast<const int*>(rt_step0)}};
+                static_cast<const int*>(rt_step0)},
+               {}};
   if (variant == kSegPrecomp &&
       (!a.rt.ranks || !a.rt.rows || !a.rt.step0 ||
        (reinterpret_cast<uintptr_t>(rt_ranks) |

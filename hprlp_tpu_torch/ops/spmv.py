@@ -7,6 +7,11 @@ whose plain version is `tiles.tiled_spmv_reference`; it is the main
 path's SpMV and replaces the four Pallas TPU kernels of
 hprlp_tpu/ops/pallas_spmv.py (lane_spmv, thin_spmv, lane_spmv_df64,
 thin_spmv_df64; see the notes at the top of the CUDA source).
+`tiled_x_half` and `tiled_y_half` run the same kernel with the single-LP
+middle iteration's x- or y-half fused into its row write, and
+`tiled_half_epilogue` runs that half alone on a given product, as a
+column-sharded mesh does after its all-reduce (their plain versions:
+solver/chunk.py::x_half_plain, y_half_plain, x_update, y_update).
 `csr_spmv` launches `csrc/spmv_csr.cu` (row blocks, 16-byte vector loads,
 sums in shared memory) on a CsrMatrix that carries its row-block plan
 (`row_blocks`): the "gather" backend; `spmv_x_half` and `spmv_y_half` run
@@ -207,12 +212,16 @@ def threads_per_row(nnz: int, nrows: int) -> int:
     return _THREADS_PER_ROW[-1]
 
 
-def check_csr_matrix(A, x: torch.Tensor) -> None:
-    """The checks every CSR kernel wrapper makes of A and of the device and
-    dtype of its dense operand x before a launch."""
+def _check_cuda(x: torch.Tensor) -> None:
     if not x.is_cuda:
         raise ValueError(f"the CUDA kernels need a CUDA tensor, got "
                          f"{x.device}")
+
+
+def check_csr_matrix(A, x: torch.Tensor) -> None:
+    """The checks every CSR kernel wrapper makes of A and of the device and
+    dtype of its dense operand x before a launch."""
+    _check_cuda(x)
     for name, t in (("indptr", A.indptr), ("indices", A.indices),
                     ("vals", A.vals)):
         if t.device != x.device:
@@ -347,14 +356,12 @@ def csr_spmv_no_gather(A, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def check_half_args(A, v: torch.Tensor, rows: dict, scal: torch.Tensor,
-                    inner: torch.Tensor) -> None:
-    """The checks the fused halves make before a launch: A and its gathered
-    operand v as for csr_spmv; each of `rows` (name -> tensor) contiguous
-    (A.nrows,) of v's dtype and device; scal 0-dim of that dtype and inner
-    0-dim int32 on that device."""
-    check_csr_args(A, v)
-    wants = [(name, t, (A.nrows,), v.dtype) for name, t in rows.items()]
+def check_half_operands(nrows: int, v: torch.Tensor, rows: dict,
+                        scal: torch.Tensor, inner: torch.Tensor) -> None:
+    """The checks of a fused half's own operands (device-independent): each
+    of `rows` (name -> tensor) contiguous (nrows,) of v's dtype and device;
+    scal 0-dim of that dtype and inner 0-dim int32 on that device."""
+    wants = [(name, t, (nrows,), v.dtype) for name, t in rows.items()]
     wants += [("scal", scal, (), v.dtype), ("inner", inner, (), torch.int32)]
     for name, t, shape, dtype in wants:
         if t.device != v.device:
@@ -365,6 +372,14 @@ def check_half_args(A, v: torch.Tensor, rows: dict, scal: torch.Tensor,
                              f"got {tuple(t.shape)}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+
+
+def check_half_args(A, v: torch.Tensor, rows: dict, scal: torch.Tensor,
+                    inner: torch.Tensor) -> None:
+    """The checks the fused halves make before a launch: A and its gathered
+    operand v as for csr_spmv, and check_half_operands over A's rows."""
+    check_csr_args(A, v)
+    check_half_operands(A.nrows, v, rows, scal, inner)
     check_blocks(A, v)
 
 
@@ -448,6 +463,10 @@ def _tiled_library(device_index: int) -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.hprlp_tiled_spmv.argtypes = [i] * 10 + [ptr] * 8
     lib.hprlp_tiled_spmv.restype = i
+    lib.hprlp_tiled_half.argtypes = [i] * 11 + [ptr] * 15 + [i, ptr]
+    lib.hprlp_tiled_half.restype = i
+    lib.hprlp_tiled_half_epilogue.argtypes = [i] * 3 + [ptr] * 10 + [i, ptr]
+    lib.hprlp_tiled_half_epilogue.restype = i
     lib.hprlp_tiled_segsum.argtypes = [i] * 9 + [ptr] * 11
     lib.hprlp_tiled_segsum.restype = i
     lib.hprlp_tiled_max_active_clusters.argtypes = [i, i, i]
@@ -465,9 +484,7 @@ def _tiled_library(device_index: int) -> ctypes.CDLL:
 
 def check_tiled_args(T, x: torch.Tensor) -> None:
     """The checks the tiled kernel's wrapper makes before a launch."""
-    if not x.is_cuda:
-        raise ValueError(f"the CUDA kernels need a CUDA tensor, got "
-                         f"{x.device}")
+    _check_cuda(x)
     check_tiled_layout(T, x)
 
 
@@ -512,6 +529,34 @@ def check_tiled_layout(T, x: torch.Tensor) -> None:
                          f"the cluster size {CLUSTER}")
 
 
+def _tiled_lib(x: torch.Tensor) -> ctypes.CDLL:
+    return _tiled_library(x.device.index if x.device.index is not None
+                          else torch.cuda.current_device())
+
+
+def _tile_args(T, x: torch.Tensor, part) -> tuple:
+    """The tile arguments of hprlp_tiled_spmv and hprlp_tiled_half, from
+    nrows to x and the partials."""
+    return (T.nrows, T.ncols, T.strip_width, T.n_strips, T.n_groups,
+            T.group_strips, T.n_chunks, T.max_block_rows, T.vals.data_ptr(),
+            T.keys.data_ptr(), T.runs.data_ptr(), T.row_start.data_ptr(),
+            x.data_ptr(), None if part is None else part.data_ptr())
+
+
+def _partials(T, x: torch.Tensor):
+    """Each strip group's partial y (G * nrows), summed in group order by a
+    second pass, where the tiles have G > 1 groups; else None."""
+    return (torch.empty(T.n_groups * T.nrows, dtype=x.dtype, device=x.device)
+            if T.n_groups > 1 else None)
+
+
+def _raise_tiled(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.hprlp_tiled_error_string(err).decode()
+        raise RuntimeError(f"tiled SpMV launch failed ({what}): {msg} "
+                           f"({err})")
+
+
 def tiled_spmv(T, x: torch.Tensor, stage: str = MAIN_STAGE) -> torch.Tensor:
     """y = A @ x on the card, on A's column-strip tiles (ops/tiles.py).
     `stage` picks a measurement variant (TILED_STAGES); all give the same
@@ -519,31 +564,153 @@ def tiled_spmv(T, x: torch.Tensor, stage: str = MAIN_STAGE) -> torch.Tensor:
     check_tiled_args(T, x)
     if T.nnz == 0:  # nothing to launch (an LP with no constraints)
         return torch.zeros(T.nrows, dtype=x.dtype, device=x.device)
-    lib = _tiled_library(x.device.index if x.device.index is not None
-                         else torch.cuda.current_device())
+    lib = _tiled_lib(x)
     y = torch.empty(T.nrows, dtype=x.dtype, device=x.device)
-    # Each strip group's partial y, summed in group order by a second pass.
-    part = (torch.empty(T.n_groups * T.nrows, dtype=x.dtype, device=x.device)
-            if T.n_groups > 1 else None)
+    part = _partials(T, x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.hprlp_tiled_spmv(
-            int(x.dtype == torch.float64), TILED_STAGES[stage], T.nrows,
-            T.ncols, T.strip_width, T.n_strips, T.n_groups, T.group_strips,
-            T.n_chunks, T.max_block_rows, T.vals.data_ptr(),
-            T.keys.data_ptr(), T.runs.data_ptr(), T.row_start.data_ptr(),
-            x.data_ptr(), None if part is None else part.data_ptr(),
-            y.data_ptr(), stream)
-    if err != 0:
-        msg = lib.hprlp_tiled_error_string(err).decode()
-        raise RuntimeError(f"tiled SpMV launch failed ({stage}, "
-                           f"{T.n_blocks} blocks, {T.smem_bytes} B shared "
-                           f"memory): {msg} ({err})")
+            int(x.dtype == torch.float64), TILED_STAGES[stage],
+            *_tile_args(T, x, part), y.data_ptr(), stream)
+    _raise_tiled(lib, err, f"{stage}, {T.n_blocks} blocks, {T.smem_bytes} "
+                           f"B shared memory")
     tiled_spmv.launches += 1
     return y
 
 
 tiled_spmv.launches = 0
+
+# The operands of each half besides its gathered operand, by the names the
+# checks report, in csrc/spmv_tiled.cu's order (cur, last, p0, p1, p2), and
+# its epilogue there (the numbers of csrc/spmv_csr.cu's).
+HALF_ROWS = {"x": ("x", "last_x", "c", "l", "u"),
+             "y": ("y", "last_y", "AL", "AU")}
+HALF_EPILOGUES = {"x": X_HALF, "y": Y_HALF}
+
+
+def _named_rows(half: str, rows) -> dict:
+    names = HALF_ROWS[half]
+    if len(rows) != len(names):
+        raise ValueError(f"the {half}-half takes {len(names)} row operands "
+                         f"({', '.join(names)}), got {len(rows)}")
+    return dict(zip(names, rows))
+
+
+def check_tiled_half_layout(T, v: torch.Tensor, half: str, rows,
+                            scal: torch.Tensor, inner: torch.Tensor) -> None:
+    """Device-independent checks of a fused half on the tiles: T and its
+    gathered operand v as check_tiled_layout makes them, and `rows` (the
+    tensors named HALF_ROWS[half], in that order) with scal and inner as
+    check_half_operands makes them over T's rows."""
+    check_tiled_layout(T, v)
+    check_half_operands(T.nrows, v, _named_rows(half, rows), scal, inner)
+
+
+def _half_out(half: str, rows):
+    """The outputs of a half: (x_new, x_hat) or (y_new,), new tensors, so
+    no output aliases an operand (a captured graph replays it as run)."""
+    return tuple(torch.empty_like(rows[0]) for _ in range(
+        2 if half == "x" else 1))
+
+
+def _ptrs(out, rows, scal, inner) -> tuple:
+    """out, hat, cur, last, p0, p1, p2, scal and inner as the C entries take
+    them (None where a half has none)."""
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+
+    out, hat = (out + (None,))[:2]
+    rows = tuple(rows) + (None,) * (5 - len(rows))
+    return tuple(ptr(v) for v in (out, hat, *rows, scal, inner))
+
+
+def _tiled_half(half: str, T, v: torch.Tensor, rows, scal, inner, t: int):
+    """One fused half on the tiles: checked, launched, its outputs."""
+    _check_cuda(v)
+    check_tiled_half_layout(T, v, half, rows, scal, inner)
+    out = _half_out(half, rows)
+    if T.nnz == 0:  # no entries: every row's sum is +0
+        _epilogue_launch(half, torch.zeros(T.nrows, dtype=v.dtype,
+                                           device=v.device), out, rows,
+                         scal, inner, t)
+        return out
+    lib = _tiled_lib(v)
+    part = _partials(T, v)
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        err = lib.hprlp_tiled_half(
+            int(v.dtype == torch.float64), HALF_EPILOGUES[half],
+            TILED_STAGES[MAIN_STAGE], *_tile_args(T, v, part),
+            *_ptrs(out, rows, scal, inner), t, stream)
+    _raise_tiled(lib, err, f"{half}-half, {T.n_blocks} blocks, "
+                           f"{T.smem_bytes} B shared memory")
+    return out
+
+
+def tiled_x_half(T, y, x, last_x, c, l, u, sigma, inner, t: int):
+    """One single-LP middle-iteration x-half on the card, fused into A^T
+    y's row write on A^T's tiles T: returns (x_new, x_hat), as solver/
+    chunk.py::x_half_plain computes them after tiled_spmv.  y: (m,); x,
+    last_x, c, l, u: (n,); sigma: 0-dim; inner: 0-dim int32, the Halpern
+    counter at the first middle iteration; t: this iteration's index.
+    Raises on a bad argument or a refused launch."""
+    out = _tiled_half("x", T, y, (x, last_x, c, l, u), sigma, inner, t)
+    tiled_x_half.launches += 1
+    return out
+
+
+tiled_x_half.launches = 0
+
+
+def tiled_y_half(T, x_hat, y, last_y, AL, AU, lam_sigma, inner, t: int):
+    """One single-LP middle-iteration y-half on the card, fused into A
+    x_hat's row write on A's tiles T: returns y_new, as solver/chunk.py::
+    y_half_plain computes it after tiled_spmv.  x_hat: (n,); y, last_y,
+    AL, AU: (m,); lam_sigma: 0-dim; inner, t as for tiled_x_half.  Raises
+    on a bad argument or a refused launch."""
+    out = _tiled_half("y", T, x_hat, (y, last_y, AL, AU), lam_sigma, inner,
+                      t)[0]
+    tiled_y_half.launches += 1
+    return out
+
+
+tiled_y_half.launches = 0
+
+
+def _epilogue_launch(half: str, s: torch.Tensor, out, rows, scal, inner,
+                     t: int) -> None:
+    lib = _tiled_lib(s)
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream(s.device).cuda_stream
+        err = lib.hprlp_tiled_half_epilogue(
+            int(s.dtype == torch.float64), HALF_EPILOGUES[half], s.numel(),
+            s.data_ptr(), *_ptrs(out, rows, scal, inner), t, stream)
+    _raise_tiled(lib, err, f"{half}-half epilogue, {s.numel()} rows")
+
+
+def tiled_half_epilogue(half: str, s: torch.Tensor, rows, scal, inner,
+                        t: int):
+    """A column-sharded mesh's middle-iteration half after the all-reduce:
+    each row's half-update given its summed product s (A^T y for half "x",
+    A x_hat for "y"), one launch of csrc/spmv_tiled.cu's epilogue.  rows:
+    the tensors HALF_ROWS[half] names, in that order (x, last_x, c, l, u or
+    y, last_y, AL, AU); scal: sigma or lambda sigma; inner, t as for
+    tiled_x_half.  Returns (x_new, x_hat) or y_new, as solver/chunk.py::
+    x_update / y_update compute them from s.  Raises on a bad argument or
+    a refused launch."""
+    _check_cuda(s)
+    if s.dtype not in (torch.float32, torch.float64) or s.dim() != 1 \
+            or not s.is_contiguous():
+        raise TypeError(f"the summed product must be a contiguous f32 or "
+                        f"f64 vector, got {s.dtype} {tuple(s.shape)}")
+    check_half_operands(s.numel(), s, _named_rows(half, rows), scal, inner)
+    out = _half_out(half, rows)
+    _epilogue_launch(half, s, out, rows, scal, inner, t)
+    tiled_half_epilogue.launches += 1
+    return out if half == "x" else out[0]
+
+
+tiled_half_epilogue.launches = 0
 
 
 def max_active_clusters(T, stage: str = MAIN_STAGE) -> int:

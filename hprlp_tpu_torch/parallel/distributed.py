@@ -55,6 +55,11 @@ PG_TIMEOUT_S = 600
 LAUNCH_SLACK_S = 1800
 # The end of a failed rank's stderr that launch's error carries.
 STDERR_TAIL = 4000
+# After a rank fails, how long the others get to exit before they are
+# killed: a rank whose peer failed fails too (its collective sees the
+# closed connection) and may be seen first, and the report names every
+# rank that failed by then, the one whose failure came first among them.
+FAIL_GRACE_S = 5.0
 WORKER = "hprlp_tpu_torch.parallel.worker"
 
 
@@ -377,17 +382,22 @@ launch.record = None
 
 def _wait(procs, deadline) -> list:
     """Poll the ranks until all exit 0 ([]) or some fail: [(rank, what
-    happened)] of the ranks that had failed when the first failure was
-    seen, or of those still running at the deadline."""
+    happened)] of the ranks that had failed FAIL_GRACE_S after the first
+    failure was seen (or when every rank had exited), or of those still
+    running at the deadline."""
+    first_failure = None
     while True:
         codes = [p.poll() for p in procs]
         failed = [(r, f"exited with code {rc}") for r, rc in enumerate(codes)
                   if rc not in (None, 0)]
         if failed:
-            return failed
-        if all(rc == 0 for rc in codes):
+            first_failure = first_failure or time.time()
+            if None not in codes or \
+                    time.time() - first_failure > FAIL_GRACE_S:
+                return failed
+        elif None not in codes:
             return []
-        if deadline is not None and time.time() > deadline:
+        elif deadline is not None and time.time() > deadline:
             return [(r, "outlived the launch's timeout")
                     for r, rc in enumerate(codes) if rc is None]
         time.sleep(0.02)

@@ -8,7 +8,9 @@ the devices; each runs the Pallas kernel on its groups against the
 replicated x, and one psum completes the SpMV.  Here each rank holds the
 tiles (ops/tiles.py) of a contiguous column slice of A, and of A^T, runs
 the tiled kernel on its slice of x, which gives a partial y over all rows,
-and one all-reduce sums the partials (ops/sparse.py::spmv on a `Shard`).
+and one all-reduce sums the partials (ops/sparse.py::spmv on a `Shard`);
+a middle iteration's half-update then runs as one epilogue kernel on the
+summed vector (solver/chunk.py::x_half, y_half).
 Vectors are replicated, so dots and norms need no collective.  Per
 iteration that moves (m + n) values through all-reduces.
 

@@ -19,9 +19,15 @@ the solve runs them; --eager runs the same steps eagerly instead.  --batch B set
 members that share one A as solve_batched does (--size large is
 prof.problems.batched_lp(65536, 131072, B, seed=3), huge
 batched_lp(262144, 524288, B, seed=4)), and the share is the SpMM
-kernel's.  --backend gather runs the single-LP loop on the CSR kernel,
-its middle halves fused into it (the share is then the CSR kernel's).
-Needs a CUDA device.
+kernel's.  --backend gather runs the single-LP loop on the CSR kernel.
+On either backend the middle iterations' halves run fused into the SpMV
+kernel (on tiles of several strip groups, into the group sum that follows
+it), so the SpMV share counts the halves' updates, and a share taken
+while they ran as plain ops did not; it counts the tiles' group sums too.
+A column-sharded mesh's epilogue (half_epilogue_kernel) is not an SpMV
+kernel and stays outside it.  `ChunkReplay` replays one chunk of an
+LP a solve has already laid out, for `profile` where the LP is too large
+to set up a second time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ from ..params import Parameters
 from ..solver import batched
 from ..solver.batched_device_loop import (init_batched_restart_dev,
                                           run_batched_superchunk)
-from ..solver.chunk import init_state, initial_metrics
+from ..solver.chunk import init_state, initial_metrics, run_chunk
+from ..solver.graph import CapturedStep
 from ..solver.batched_device_loop import capture_batched_superchunk
 from ..solver.device_loop import (capture_superchunk, init_restart_dev,
                                   run_superchunk)
@@ -57,6 +64,8 @@ BATCHED_SIZES = {"large": lambda B: batched_lp(65536, 131072, B, seed=3),
 CHUNKS = 2
 # The most chunks one run() call replays.
 MAX_CHUNKS = 8
+# The SpMV kernels, with or without a fused half-update (csrc/spmv_tiled.cu,
+# csrc/spmv_csr.cu).
 SPMV_KERNELS = ("tiled_spmv_kernel", "group_sum_kernel", "csr_spmv_kernel")
 # The SpMM kernel, with or without a fused half-update (csrc/spmm.cu).
 SPMM_KERNELS = ("csr_spmm_kernel",)
@@ -98,6 +107,26 @@ class Loop:
             self.metrics, self.it, self.obj_c, 0.0, n_chunks, self.check, 0,
             self.best, self.graph)
         self.it += k * self.check
+
+
+class ChunkReplay:
+    """One chunk of run_chunk (check_iter iterations) on an LP a solve has
+    laid out (lp, scal: its ingest), from the zero state at sigma and
+    lambda 1, captured once; run(n) replays it n times.  The SpMV kernels'
+    work does not depend on the iterates, so this times an iteration as
+    the solve runs it."""
+
+    def __init__(self, lp, scal):
+        dtype, dev = lp.c.dtype, lp.c.device
+        self.check = Parameters().check_iter
+        one = torch.ones((), dtype=dtype, device=dev)
+        args = (lp, scal, init_state(lp), one, one,
+                torch.tensor(False, device=dev), self.check)
+        self.step = CapturedStep(lambda: run_chunk(*args), counts={})
+
+    def run(self, n_chunks: int) -> None:
+        for _ in range(n_chunks):
+            self.step.replay()
 
 
 class BatchedLoop:

@@ -3,10 +3,16 @@
 `time_ms` is device time by CUDA-graph replay between CUDA events;
 `eager_ms` adds the host's launch gaps.  `spmv_bytes`/`spmv_bound` give
 the least time one y = A x, or one Y = A X over B columns, can take on an
-H100 SXM, and `half_bytes`/`half_bound` that of one fused batched
-half-update (the SpMM and its row write, csrc/spmm.cu): the larger of its
-bytes over the HBM rate and its operations over the vector-unit peak
-(NVIDIA's data sheet; both assume the 700 W power limit).  `PeakRss`
+H100 SXM, `half_bytes`/`half_bound` that of one fused half-update (the
+SpMM or the CSR kernel and its row write, csrc/spmm.cu, csrc/
+spmv_csr.cu, and the tiles' fused halves, csrc/spmv_tiled.cu: the same
+function) and `epilogue_bound` that of the mesh's epilogue alone: the
+larger of its bytes over the HBM rate and its operations over the
+vector-unit peak (NVIDIA's data sheet; both assume the 700 W power
+limit).  `l2_rotations` sizes a set of input copies that keeps a timed
+call's inputs out of L2.  `tiled_half_bytes` is what a fused half on the tiles streams,
+padding and partials included: a figure of the layout, not a bound.
+`PeakRss`
 samples the host's resident set while a block runs.
 """
 
@@ -19,6 +25,7 @@ import threading
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20
 # Non-tensor-core peaks: 67 TFLOP/s in f32, 34 TFLOP/s in f64.
 FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
@@ -49,6 +56,14 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def l2_rotations(nbytes: int, fill: int = 4) -> int:
+    """How many copies of a call's nbytes of inputs to take in turn, one a
+    call, so that `fill` times the L2 passes between two calls on one copy:
+    time_ms then sees its inputs come from HBM, as a call that follows a
+    larger kernel does."""
+    return max(2, -(-fill * L2_BYTES // max(nbytes, 1)))
+
+
 def eager_ms(fn, reps: int = 50) -> float:
     """Time per call of reps back-to-back eager calls (host launch gaps
     included), by CUDA events."""
@@ -73,13 +88,19 @@ def spmv_bytes(A, dtype: torch.dtype, B: int = 1) -> int:
             + B * (A.ncols + A.nrows) * v)
 
 
+def _bound(nbytes: int, ops: int, dtype: torch.dtype) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of nbytes over the HBM rate and ops
+    over the vector-unit peak of `dtype`, and which one it is."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FLOPS_PER_S[dtype] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
 def spmv_bound(A, dtype: torch.dtype, B: int = 1) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time of one Y = A X with X of B
     columns, and whether its bytes or its 2 * nnz * B operations set it."""
-    bytes_ms = spmv_bytes(A, dtype, B) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * A.nnz * B / FLOPS_PER_S[dtype] * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                           "operations")
+    return _bound(spmv_bytes(A, dtype, B), 2 * A.nnz * B, dtype)
 
 
 # The (rows, B) tensors a fused half reads or writes besides its gathered
@@ -103,10 +124,32 @@ def half_bound(A, dtype: torch.dtype, B: int, half: str
     """(bound_ms, bound_by) of one fused half: its bytes over the HBM rate
     against its 2 * nnz * B multiply-adds and ~12 operations per (row,
     member) of the update over the vector-unit peak."""
-    bytes_ms = half_bytes(A, dtype, B, half) / HBM_BYTES_PER_S * 1e3
-    ops_ms = (2 * A.nnz * B + 12 * A.nrows * B) / FLOPS_PER_S[dtype] * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                           "operations")
+    return _bound(half_bytes(A, dtype, B, half),
+                  2 * A.nnz * B + 12 * A.nrows * B, dtype)
+
+
+def tiled_half_bytes(T, dtype: torch.dtype, half: str) -> int:
+    """Bytes one fused single-LP half streams on the tiles T (A^T's for
+    the x-half): the tiles' padded value/key stream, their runs and row
+    starts, the gathered operand's strips (x once), the half's row vectors
+    read and written, with G > 1 strip groups the G partials written and
+    read, and the scalar and counter.  The layout's cost beside the
+    function's least bytes (half_bytes), which bound the half."""
+    v = torch.empty((), dtype=dtype).element_size()
+    partials = 2 * T.n_groups * T.nrows * v if T.n_groups > 1 else 0
+    return (T.vals.shape[0] * (v + 4)
+            + (T.runs.numel() + T.row_start.numel()) * 4 + T.ncols * v
+            + HALF_ROW_TENSORS[half] * T.nrows * v + partials + v + 4)
+
+
+def epilogue_bound(nrows: int, dtype: torch.dtype, half: str
+                   ) -> tuple[float, str]:
+    """(bound_ms, bound_by) of the mesh's epilogue over nrows rows: the
+    summed product and the half's row vectors read and written once, the
+    scalar and counter, against ~12 operations per row."""
+    v = torch.empty((), dtype=dtype).element_size()
+    return _bound((1 + HALF_ROW_TENSORS[half]) * nrows * v + v + 4,
+                  12 * nrows, dtype)
 
 
 def card() -> str:

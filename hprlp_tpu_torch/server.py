@@ -351,11 +351,14 @@ def launch_counts() -> dict:
     """Launches of each hand-written kernel in this process, by wrapper
     (their plain versions on the CPU count none)."""
     from .ops.spmm import csr_spmm, spmm_x_half, spmm_y_half
-    from .ops.spmv import csr_spmv, spmv_x_half, spmv_y_half, tiled_spmv
+    from .ops.spmv import (csr_spmv, spmv_x_half, spmv_y_half,
+                           tiled_half_epilogue, tiled_spmv, tiled_x_half,
+                           tiled_y_half)
 
     return {f.__name__: f.launches for f in (
-        tiled_spmv, csr_spmv, spmv_x_half, spmv_y_half, csr_spmm,
-        spmm_x_half, spmm_y_half)}
+        tiled_spmv, tiled_x_half, tiled_y_half, tiled_half_epilogue,
+        csr_spmv, spmv_x_half, spmv_y_half, csr_spmm, spmm_x_half,
+        spmm_y_half)}
 
 
 def _protocol_stdout():

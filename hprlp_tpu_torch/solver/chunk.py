@@ -20,16 +20,22 @@ One HPR iteration (reference: src/cuda_kernels/HPR_cuda_kernels.cu:229-295):
     fact1 = 1/(k+2), fact2 = 1 - fact1, k = iterations since restart.
 
 A middle iteration's two halves go through `x_half` and `y_half`: on the
-card, with A on the "gather" backend, each is one launch of the CSR
-kernel with the half fused into its row write (ops/spmv.py::spmv_x_half,
-spmv_y_half), bitwise equal to its plain ops; elsewhere (tiles, a dense
-copy, the CPU) the plain ops (`x_half_plain`, `y_half_plain`).  The first
-and last iterations of a chunk stay plain.  On a mesh's row shards the
-fused half runs on this rank's rows (A^T[C, :] with x[C], last_x[C], c[C],
-l[C], u[C]; A[R, :] with y[R], last_y[R], AL[R], AU[R]) against the whole
-operand, and one all-gather puts the ranks' rows together (x_new and x_hat
-packed into one): every vector is replicated again, so the rest of the
-chunk runs as on one card.
+card, with A on the tiles or on the "gather" backend, each is one launch
+of that backend's SpMV kernel with the half fused into its row write
+(ops/spmv.py::tiled_x_half, tiled_y_half; spmv_x_half, spmv_y_half),
+bitwise equal to its plain ops; elsewhere (a dense copy, the CPU) the
+plain ops (`x_half_plain`, `y_half_plain`).  The first and last
+iterations of a chunk stay plain.  On a mesh's column shards the tiled
+kernel on this rank's slice gives a partial product, one all-reduce sums
+the ranks' partials (ops/sparse.py::spmv), and one launch of the epilogue
+kernel (tiled_half_epilogue, whose plain version is `x_update` or
+`y_update`) applies the half to the whole replicated vector on every
+rank.  On a mesh's row shards the fused half runs on this rank's rows
+(A^T[C, :] with x[C], last_x[C], c[C], l[C], u[C]; A[R, :] with y[R],
+last_y[R], AL[R], AU[R]) against the whole operand, and one all-gather
+puts the ranks' rows together (x_new and x_hat packed into one).  Either
+way every vector is replicated again, so the rest of the chunk runs as on
+one card.
 
 The TPU package's double-f32 chunk (_df64_chunk_iters) has no counterpart:
 the GPU has native f64.
@@ -44,7 +50,8 @@ import torch
 
 from ..ops.device_problem import LpDevice
 from ..ops.sparse import all_gather_rows, spmv, spmv_backend
-from ..ops.spmv import spmv_x_half, spmv_y_half
+from ..ops.spmv import (spmv_x_half, spmv_y_half, tiled_half_epilogue,
+                        tiled_x_half, tiled_y_half)
 from .scaling import ScalingInfo
 
 
@@ -79,8 +86,9 @@ def _halpern_factors(inner, dtype):
     return fact1, 1.0 - fact1
 
 
-def _x_half(lp, x, y, last_x, sigma, fact1, fact2):
-    ATy = spmv(lp.AT, y)
+def x_update(lp, x, ATy, last_x, sigma, fact1, fact2):
+    """The x-half's elementwise ops given ATy = A^T y: (x_new, x_hat, x_bar,
+    z_tmp).  The plain version of ops/spmv.py::tiled_half_epilogue("x")."""
     z_tmp = x + sigma * (ATy - lp.c)
     x_bar = torch.clamp(z_tmp, lp.l, lp.u)
     x_hat = 2.0 * x_bar - x
@@ -88,14 +96,24 @@ def _x_half(lp, x, y, last_x, sigma, fact1, fact2):
     return x_new, x_hat, x_bar, z_tmp
 
 
-def _y_half(lp, y, x_hat, last_y, lam_sigma, fact1, fact2):
-    Ax = spmv(lp.A, x_hat)
+def y_update(lp, y, Ax, last_y, lam_sigma, fact1, fact2):
+    """The y-half's elementwise ops given Ax = A x_hat: (y_new, y_bar,
+    v + d).  The plain version of tiled_half_epilogue("y")."""
     v = Ax - lam_sigma * y
     d = torch.maximum(lp.AL - v, torch.clamp(lp.AU - v, max=0.0))
     y_bar = d / lam_sigma
     y_hat = 2.0 * y_bar - y
     y_new = fact2 * y_hat + fact1 * last_y
     return y_new, y_bar, v + d
+
+
+def _x_half(lp, x, y, last_x, sigma, fact1, fact2):
+    return x_update(lp, x, spmv(lp.AT, y), last_x, sigma, fact1, fact2)
+
+
+def _y_half(lp, y, x_hat, last_y, lam_sigma, fact1, fact2):
+    return y_update(lp, y, spmv(lp.A, x_hat), last_y, lam_sigma, fact1,
+                    fact2)
 
 
 class Halpern:
@@ -126,39 +144,55 @@ def y_half_plain(lp, y, x_hat, last_y, lam_sigma, h: Halpern):
 
 
 def _fused(M, v: torch.Tensor) -> bool:
-    """Whether a half over M's rows runs fused: M on the "gather" backend
-    (the CSR kernel) and its operand on the card."""
-    return v.device.type == "cuda" and spmv_backend(M) == "gather"
+    """Whether a half over M's rows runs as a hand-written kernel: its
+    operand on the card and M on the tiles (the tiled kernel) or on
+    "gather" (the CSR kernel).  A dense copy's product and a CPU operand
+    take the plain ops."""
+    return v.device.type == "cuda" and spmv_backend(M) in ("tiled", "gather")
 
 
 def x_half(lp, x, y, last_x, sigma, h: Halpern):
-    """x_half_plain, fused into A^T y's row write where _fused holds; on a
-    row shard, over this rank's rows, then gathered."""
-    if not _fused(lp.AT, y):
+    """x_half_plain, fused into A^T y's row write where _fused holds: on the
+    tiles, or on a column shard the sharded product then the epilogue
+    kernel; on a row shard, over this rank's rows, then gathered."""
+    M = lp.AT
+    if not _fused(M, y):
         return x_half_plain(lp, x, y, last_x, sigma, h)
-    rs = lp.AT.row_shard
+    rows = (x, last_x, lp.c, lp.l, lp.u)
+    if spmv_backend(M) == "tiled":
+        if M.shard is None:
+            return tiled_x_half(M.tiles, y, *rows, sigma, h.inner, h.t)
+        return tiled_half_epilogue("x", spmv(M, y), rows, sigma, h.inner,
+                                   h.t)
+    rs = M.row_shard
     if rs is None:
-        return spmv_x_half(lp.AT, y, x, last_x, lp.c, lp.l, lp.u, sigma,
-                           h.inner, h.t)
+        return spmv_x_half(M, y, *rows, sigma, h.inner, h.t)
     k = slice(rs.r0, rs.r1)
-    parts = spmv_x_half(lp.AT.rows_local(), y, x[k], last_x[k], lp.c[k],
-                        lp.l[k], lp.u[k], sigma, h.inner, h.t)
+    parts = spmv_x_half(M.rows_local(), y, *(r[k] for r in rows), sigma,
+                        h.inner, h.t)
     x_new, x_hat = all_gather_rows(parts, rs)
     return x_new, x_hat
 
 
 def y_half(lp, y, x_hat, last_y, lam_sigma, h: Halpern):
-    """y_half_plain, fused into A x_hat's row write where _fused holds; on
-    a row shard, over this rank's rows, then gathered."""
-    if not _fused(lp.A, x_hat):
+    """y_half_plain, fused into A x_hat's row write where _fused holds, as
+    x_half is."""
+    M = lp.A
+    if not _fused(M, x_hat):
         return y_half_plain(lp, y, x_hat, last_y, lam_sigma, h)
-    rs = lp.A.row_shard
+    rows = (y, last_y, lp.AL, lp.AU)
+    if spmv_backend(M) == "tiled":
+        if M.shard is None:
+            return tiled_y_half(M.tiles, x_hat, *rows, lam_sigma, h.inner,
+                                h.t)
+        return tiled_half_epilogue("y", spmv(M, x_hat), rows, lam_sigma,
+                                   h.inner, h.t)
+    rs = M.row_shard
     if rs is None:
-        return spmv_y_half(lp.A, x_hat, y, last_y, lp.AL, lp.AU, lam_sigma,
-                           h.inner, h.t)
+        return spmv_y_half(M, x_hat, *rows, lam_sigma, h.inner, h.t)
     k = slice(rs.r0, rs.r1)
-    part = spmv_y_half(lp.A.rows_local(), x_hat, y[k], last_y[k], lp.AL[k],
-                       lp.AU[k], lam_sigma, h.inner, h.t)
+    part = spmv_y_half(M.rows_local(), x_hat, *(r[k] for r in rows),
+                       lam_sigma, h.inner, h.t)
     return all_gather_rows([part], rs)[0]
 
 
@@ -231,7 +265,7 @@ def run_chunk(lp: LpDevice, scal: ScalingInfo, state: SolverState,
     inner = inner + 1
 
     # Middle iterations: plain updates, each half fused into its SpMV on
-    # the "gather" backend on the card; the counter advances once after.
+    # the card (x_half, y_half); the counter advances once after.
     x2, y2 = x1, y1
     for t in range(n_iters - 2):
         h = Halpern(inner, t, dtype)

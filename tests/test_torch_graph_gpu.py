@@ -23,7 +23,8 @@ from hprlp_tpu_torch.ops.device_problem import (attach_tiles,
                                                 build_device_problem)
 from hprlp_tpu_torch.ops.sparse import spmv_backend
 from hprlp_tpu_torch.ops.spmm import csr_spmm
-from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
+from hprlp_tpu_torch.ops.spmv import (csr_spmv, tiled_spmv, tiled_x_half,
+                                      tiled_y_half)
 from hprlp_tpu_torch.ops.tiles import build_tiles
 from hprlp_tpu_torch.problem import LpProblem
 from hprlp_tpu_torch.solver import autotune, batched
@@ -124,14 +125,19 @@ def test_the_replay_past_done_changes_nothing(cuda):
 
 def test_replays_count_their_launches(cuda):
     """A chunk of n iterations runs 2n + 4 SpMVs (two per iteration, the
-    first iteration's fixed-point gap, three for the residuals): the
-    capture counts none, and each replay adds them."""
+    first iteration's fixed-point gap, three for the residuals), the n - 2
+    middle iterations' two as the fused halves: the capture counts none,
+    and each replay adds them."""
     args, obj_c = _setup(torch.float32, cuda)
     graph = dl.capture_superchunk(*args, obj_c, 0.0, CHECK, 1, 4)
-    assert graph.captured.per_replay["tiled_spmv"] == 2 * CHECK + 4
+    per = graph.captured.per_replay
+    assert (per["tiled_spmv"], per["tiled_x_half"], per["tiled_y_half"]) \
+        == (8, CHECK - 2, CHECK - 2)
     tiled_spmv.launches = csr_spmv.launches = 0
+    tiled_x_half.launches = tiled_y_half.launches = 0
     _run(args, obj_c, 0.0, 3, graph)
-    assert tiled_spmv.launches == 3 * (2 * CHECK + 4)
+    assert tiled_spmv.launches == 3 * 8
+    assert tiled_x_half.launches == tiled_y_half.launches == 3 * (CHECK - 2)
     assert csr_spmv.launches == 0
 
 
@@ -147,7 +153,9 @@ def test_time_probe_counts_apart_and_returns_the_replay(cuda):
     tiled_spmv.launches = 0
     secs, out = time_probe(fn, cuda, counts=counts)
     assert secs > 0.0 and tiled_spmv.launches == 0
-    assert counts["tiled_spmv"] == 5 * (2 * 20 + 4)  # warm-up + 4 replays
+    # warm-up + 4 replays, the 18 middle iterations' halves fused
+    assert counts["tiled_spmv"] == 5 * 8
+    assert counts["tiled_x_half"] == counts["tiled_y_half"] == 5 * 18
     assert torch.equal(out, fn())
 
 

@@ -316,7 +316,9 @@ def test_pipe_session(verbose, libraries):
         err = p.stderr.read()
         assert err.splitlines()[0] == "device cpu"
         assert ("iter" in err) == verbose
-        assert _launches(err) == {"tiled_spmv": 0, "csr_spmv": 0,
+        assert _launches(err) == {"tiled_spmv": 0, "tiled_x_half": 0,
+                                  "tiled_y_half": 0,
+                                  "tiled_half_epilogue": 0, "csr_spmv": 0,
                                   "spmv_x_half": 0, "spmv_y_half": 0,
                                   "csr_spmm": 0, "spmm_x_half": 0,
                                   "spmm_y_half": 0}

@@ -249,13 +249,14 @@ def test_half_dispatch_on_the_cpu_is_bitwise_the_old_halves(backend):
         assert "factors" in h.__dict__  # made once, shared by the halves
 
 
-def test_half_dispatch_fuses_only_the_gather_backend_on_the_card():
-    """The rule: the fused kernel for a matrix on "gather" with a CUDA
-    operand; the plain ops for tiles, a dense copy or a CPU operand."""
+def test_half_dispatch_fuses_the_tiled_and_gather_backends_on_the_card():
+    """The rule: the fused kernel for a matrix on the tiles or on "gather"
+    with a CUDA operand; the plain ops for a dense copy or a CPU
+    operand."""
     class OnCard:  # stands in for a CUDA tensor: _fused reads its device
         device = torch.device("cuda")
 
-    for backend, fused in (("gather", True), ("tiled", False),
+    for backend, fused in (("gather", True), ("tiled", True),
                            ("dense", False)):
         lp = _lp(backend)
         assert chunk._fused(lp.A, OnCard()) is fused
