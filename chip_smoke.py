@@ -43,7 +43,13 @@ never the previous designs:
                  random x gather, of the tiled kernel's stages and of
                  torch.mv on a sparse CSR tensor (cuSPARSE, the library
                  yardstick), the bound and share of it, and the tiles'
-                 and plans' build times
+                 and plans' build times; the tiles built with the card's
+                 resident clusters (cluster_slots) as a solve's are, and
+                 the main stage (the strip groups of a row chunk as one
+                 cluster) bitwise block_x (the previous design) on them
+                 and on one strip group, with G x C and the resident
+                 clusters; block_x also timed on its own layout (tiles
+                 built with slots=None)
   4. main f32    solve of the first LP at stop_tol=1e-4 (auto -> f32),
                  with the autotune's probe times, its choice and the
                  graph's capture time; the chosen backend's chunk
@@ -124,12 +130,19 @@ never the previous designs:
                  kernel's store and the plain ops (else its ulps, and the
                  phase fails), one 150-iteration run_chunk fused, plain
                  and by graph replay, bitwise equal, with 148 launches of
-                 each fused half; each half timed fused, plain and as the
+                 each fused half and no group-sum pass; each half and its
+                 matrix's product on the main stage (the strip groups of a
+                 row chunk as one cluster) bitwise block_x's (the previous
+                 design) and timed beside it, with G x C and the resident
+                 clusters; each half timed fused, plain and as the
                  kernel's store then the mesh's epilogue, beside its bound
                  (the function's bytes, half_bound) and the tiles' stream;
                  on the default tiles the mesh's epilogue on the kernel's
                  products, bitwise its plain version, timed with its
-                 inputs out of L2 beside its plain version and its bound
+                 inputs out of L2 beside its plain version and its bound;
+                 then kernels/it at sparse_large and (phase 6's profile)
+                 sparse_huge f32 on the tiles, each at most
+                 KERNELS_PER_IT
  11. autotune    autotune_backends twice on sparse_large f32, sparse_large
                  f64 and random_lp(4096, 8192, 128, seed=5) (1.56% dense):
                  each candidate's probe time, the choice, whether the two
@@ -325,7 +338,8 @@ def kernel_check(card, problems):
     {(size, dtype tag, matrix): record}."""
     from hprlp_tpu_torch.ops.device_problem import build_device_problem
     from hprlp_tpu_torch.ops.spmv import (MAIN_STAGE, TILED_STAGES,
-                                          csr_spmv, csr_spmv_no_gather,
+                                          cluster_slots, csr_spmv,
+                                          csr_spmv_no_gather,
                                           csr_spmv_plain, csr_spmv_rowgroup,
                                           max_active_clusters, row_blocks,
                                           spmv_reference, tiled_spmv)
@@ -333,6 +347,11 @@ def kernel_check(card, problems):
 
     rng = np.random.default_rng(0)
     records = {}
+    # The card's resident clusters of G blocks, which build_tiles takes on
+    # the card.
+    slots = cluster_slots("cuda")
+    phase(3, f"resident clusters of G strip-group blocks at a block's full "
+             f"shared memory (the main stage's): {slots} [{card}]")
     for size, problem in problems.items():
         for dtype, rtol, tag in ((torch.float32, 1e-5, "f32"),
                                  (torch.float64, 1e-12, "f64")):
@@ -376,20 +395,37 @@ def kernel_check(card, problems):
                       f"{what}: two CSR launches differ")
                 check(err_prev <= rtol * scale, f"{what}: row-group CSR max "
                       f"abs err {err_prev} > {rtol} * {scale}")
-                # The stages: each x path on the main tiles, and x staged
-                # per block on tiles of one strip group (row blocks only).
+                # The stages: each x path on the main tiles, and the main
+                # stage and block_x on tiles of one strip group (row blocks
+                # only); the main stage bitwise block_x on both tilings.
+                # block_x also on both tilings as laid out before the cut
+                # to the card's clusters (slots=None, the previous design's
+                # own layout: 128 chunks at G = 1), its yardstick.
                 one_group = build_tiles(M, strip_groups=1)
                 runs = [(stage, T, stage) for stage in TILED_STAGES]
-                runs.append(("block_x_one_group", one_group, "block_x"))
-                stages = {}
+                runs += [(f"{stage}_one_group", one_group, stage)
+                         for stage in (MAIN_STAGE, "block_x")]
+                runs += [("block_x_uncut", build_tiles(M, slots=None),
+                          "block_x"),
+                         ("block_x_one_group_uncut", build_tiles(
+                             M, strip_groups=1, slots=None), "block_x")]
+                stages, outs = {}, {}
                 for name, tiles, stage in runs:
-                    y_s = tiled_spmv(tiles, x, stage)
+                    outs[name] = y_s = tiled_spmv(tiles, x, stage)
                     torch.cuda.synchronize()
                     e = float((y_s - y_ref).abs().max())
                     check(e <= rtol * scale, f"{what}: stage {name} max "
                           f"abs err {e}")
                     stages[name] = time_ms(
                         lambda t=tiles, st=stage: tiled_spmv(t, x, st))
+                for suffix in ("", "_one_group"):
+                    u = ulps(outs[MAIN_STAGE + suffix],
+                             outs["block_x" + suffix])
+                    check(u == 0, f"{what}: {MAIN_STAGE}{suffix} is {u} "
+                          f"ulps from block_x{suffix}")
+                uncut = (runs[-2][1].n_groups, runs[-2][1].n_chunks,
+                         runs[-1][1].n_chunks)
+                del outs, runs
                 bound_ms, bound_by = spmv_bound(M, dtype)
                 rec = {
                     "err": err, "scale": scale, "err_csr": err_csr,
@@ -398,8 +434,12 @@ def kernel_check(card, problems):
                     "plan_blocks": P.n_blocks, "blocks_bytes": P.nbytes,
                     "strips": T.n_strips, "strip_width": T.strip_width,
                     "groups": T.n_groups, "chunks": T.n_chunks,
+                    "live_chunks": T.live_chunks,
                     "blocks": T.n_blocks, "smem": T.smem_bytes,
                     "clusters8": max_active_clusters(T, "cluster8_x"),
+                    "resident": max_active_clusters(T),
+                    "one_group_chunks": one_group.live_chunks,
+                    "uncut_shape": uncut,
                     "ms": stages[MAIN_STAGE],
                     "plain_ms": time_ms(lambda: tiled_spmv_reference(T, x)),
                     "csr_ms": time_ms(lambda: csr_spmv(M, x)),
@@ -442,7 +482,15 @@ def kernel_check(card, problems):
                          f"{rec['library_ms']:.5f} ms [{card}]")
                 phase(3, f"{what} stages (ms, graph replay): " + ", ".join(
                     f"{k}={v:.5f}" for k, v in stages.items())
-                    + f"; {rec['clusters8']} clusters of 8 fit at once")
+                    + f"; {rec['clusters8']} clusters of 8 fit at once; "
+                      f"main stage: G x C = {T.n_groups} x {T.n_chunks} "
+                      f"({T.live_chunks} chunks with rows launched, "
+                      f"{rec['resident']} clusters of {T.n_groups} "
+                      f"resident; one group: 1 x "
+                      f"{one_group.live_chunks}), bitwise block_x on both "
+                      f"tilings; block_x uncut (slots=None): G x C = "
+                      f"{uncut[0]} x {uncut[1]}, one group 1 x {uncut[2]} "
+                      f"[{card}]")
     return records
 
 
@@ -481,12 +529,17 @@ def repair_checks(card, problem):
 # The single-LP SpMV wrappers by the name of their launches in a record:
 # the tiled kernel and its fused halves, the column-sharded mesh's
 # epilogue, the CSR kernel ("gather") and its fused halves, and the
-# previous row-group design, which no solve may launch.
+# previous designs, which no solve may launch: the row-group CSR kernel,
+# the tiles' group-sum pass (block_x at G > 1) and the fused halves on
+# block_x.
 SPMV_COUNTERS = {"tiled": "tiled_spmv", "tiled_x_half": "tiled_x_half",
                  "tiled_y_half": "tiled_y_half",
                  "epilogue": "tiled_half_epilogue", "gather": "csr_spmv",
                  "x_half": "spmv_x_half", "y_half": "spmv_y_half",
-                 "rowgroup": "csr_spmv_rowgroup"}
+                 "rowgroup": "csr_spmv_rowgroup",
+                 "group_sum": "group_sum_kernel",
+                 "x_half_block_x": "tiled_x_half_block_x",
+                 "y_half_block_x": "tiled_y_half_block_x"}
 # Each backend's fused halves, by their keys in SPMV_COUNTERS.
 FUSED_HALVES = {"tiled": ("tiled_x_half", "tiled_y_half"),
                 "gather": ("x_half", "y_half")}
@@ -511,8 +564,9 @@ def spmv_launches():
 def check_backend(n, backend, launches):
     """Fail unless a one-card solve on `backend` launched its SpMV kernel
     and its fused halves and no other's ("dense": none), never the mesh's
-    epilogue and never the row-group design.  launches: spmv_launches()
-    (a record may lack a kernel it never counted)."""
+    epilogue, never the row-group design, never the tiles' group-sum
+    pass and never a fused half on block_x.  launches: spmv_launches() (a record may lack a kernel it never
+    counted)."""
     for name in ("tiled", "gather"):
         count = launches.get(name, 0)
         if name == backend:
@@ -525,7 +579,8 @@ def check_backend(n, backend, launches):
             count = launches.get(half, 0)
             check((count > 0) == (name == backend), f"phase {n}: a solve on "
                   f"{backend} launched the fused {half} {count} times")
-    for name in ("epilogue", "rowgroup"):
+    for name in ("epilogue", "rowgroup", "group_sum", "x_half_block_x",
+                 "y_half_block_x"):
         check(launches.get(name, 0) == 0, f"phase {n}: a one-card solve "
               f"launched {SPMV_COUNTERS[name]} {launches.get(name)} times")
 
@@ -1434,6 +1489,9 @@ TILES_BEFORE_FUSION = {("random65536x131072", "f32"): (65.1, 34.5),
                        ("random262144x524288", "f32"): (168.8, 34.5),
                        ("assignment64", "f64"): (48.9, 32.5)}
 GIANT_MS_PER_IT_BEFORE = "1.39-1.41"
+# The most kernels an iteration of the single-LP loop on the tiles may
+# launch since their products and fused halves are one launch at any G.
+KERNELS_PER_IT = 5.0
 
 
 def before_fusion(name, dtype, backend):
@@ -1472,7 +1530,8 @@ def autotune_phase(card, prob4):
     """Phase 11: the autotune twice on three LPs, the chunk it picked
     profiled, forced backends, and the CLI's --cusparse-spmv true.  Returns
     ({dtype tag: {"gather", "x_half", "y_half", "tiled_x_half",
-    "tiled_y_half": launches of the solves}}, record)."""
+    "tiled_y_half", "group_sum", "x_half_block_x", "y_half_block_x":
+    launches of the solves}}, record)."""
     import hprlp_tpu_torch as hp
     from hprlp_tpu_torch import cli
     from hprlp_tpu_torch.prof import prof_loop
@@ -1483,7 +1542,8 @@ def autotune_phase(card, prob4):
              ("sparse_large_f64", prob4, torch.float64, "f64"),
              ("dense_lp_f32", dense_lp, torch.float32, "f32"))
     gather_keys = ("gather", "x_half", "y_half", "tiled_x_half",
-                   "tiled_y_half")
+                   "tiled_y_half", "group_sum", "x_half_block_x",
+                   "y_half_block_x")
     csr_launches = {t: dict.fromkeys(gather_keys, 0) for t in ("f32", "f64")}
     records = {}
     for cell, problem, dtype, tag in cells:
@@ -2619,18 +2679,30 @@ def tiled_halves_phase(card, problems):
     and the phase fails); one 150-iteration run_chunk through the fused
     halves, through the plain halves and by its graph's replay, every state
     tensor and metric bitwise equal, with 148 fused launches of each half
-    and none of the CSR kernel's; each half timed by graph replay, fused,
-    plain, and as the kernel's store then the mesh's epilogue, beside its
-    bound (half_bound over its matrix: the function's bytes) and the
-    tiles' stream.  On the default tiles the mesh's epilogue too, on the
+    and none of the CSR kernel's or of the group-sum pass; each half and
+    its matrix's product on the main stage (one cluster of the G
+    strip-group blocks per row chunk) bitwise and timed beside block_x
+    (the previous design: partials through HBM, then group_sum_kernel),
+    with G x C and the resident clusters; each half timed by graph
+    replay, fused, plain, and as the kernel's store then the mesh's
+    epilogue, beside its bound (half_bound over its matrix: the
+    function's bytes) and the tiles' stream on both stages; block_x also
+    on its own layout (the same tiling built with slots=None), bitwise
+    that layout's store then the mesh's epilogue.  Tiles are built with
+    the card's resident clusters (cluster_slots), as a solve builds them.
+    On the default tiles the mesh's epilogue too, on the
     kernel's products: bitwise its plain version, timed with its inputs out
     of L2 (rotated copies) beside its plain version, timed so, and its
     bound, and in L2.  Returns {cell: record}."""
     import dataclasses
 
-    from hprlp_tpu_torch.ops.spmv import (spmv_x_half, spmv_y_half,
-                                          tiled_half_epilogue, tiled_spmv,
-                                          tiled_x_half, tiled_y_half)
+    from hprlp_tpu_torch.ops.spmv import (MAIN_STAGE, group_sum_kernel,
+                                          max_active_clusters, spmv_x_half,
+                                          spmv_y_half, tiled_half_epilogue,
+                                          tiled_spmv, tiled_x_half,
+                                          tiled_x_half_block_x,
+                                          tiled_y_half,
+                                          tiled_y_half_block_x)
     from hprlp_tpu_torch.ops.tiles import build_tiles
     from hprlp_tpu_torch.prof import prof_loop
     from hprlp_tpu_torch.prof.timing import (HBM_BYTES_PER_S, epilogue_bound,
@@ -2639,9 +2711,11 @@ def tiled_halves_phase(card, problems):
     from hprlp_tpu_torch.solver import chunk
     from hprlp_tpu_torch.solver.graph import CapturedStep
 
-    def counts():
+    def counts():  # fused tiled x, y; CSR halves; group sums; block_x x, y
         return (tiled_x_half.launches, tiled_y_half.launches,
-                spmv_x_half.launches + spmv_y_half.launches)
+                spmv_x_half.launches + spmv_y_half.launches,
+                group_sum_kernel.launches, tiled_x_half_block_x.launches,
+                tiled_y_half_block_x.launches)
 
     records = {}
     t0 = time.perf_counter()
@@ -2659,6 +2733,7 @@ def tiled_halves_phase(card, problems):
                        "other_G": dataclasses.replace(loop.lp, **other)}
             for tiling, lp in tilings.items():
                 cell = f"{size}_{tag}_{tiling}"
+                at_start = counts()
                 groups = (lp.A.tiles.n_groups, lp.AT.tiles.n_groups)
                 rows_x = (st.x, st.last_x, lp.c, lp.l, lp.u)
                 rows_y = (st.y, st.last_y, lp.AL, lp.AU)
@@ -2716,15 +2791,64 @@ def tiled_halves_phase(card, problems):
                      lambda: chunk.y_half_plain(lp, st.y, x_hat, st.last_y,
                                                 lam_sigma, h()),
                      lp.A, x_hat, rows_y, lam_sigma))
+                halves = {"x": tiled_x_half,
+                          "y": lambda *a, **k: (tiled_y_half(*a, **k),)}
                 for half, fused_fn, plain_fn, M, v, rows, scal in timed:
                     T = M.tiles
+
+                    def on(stage, T=T, v=v, rows=rows, scal=scal,
+                           half=half):  # the half alone on a stage
+                        return halves[half](T, v, *rows, scal, st.inner, 0,
+                                            stage=stage)
+
+                    # block_x's yardstick on its own layout: these tiles as
+                    # laid out before the cut to the card's clusters
+                    # (slots=None).  Another layout sums in another order,
+                    # so the half there is held bitwise to that layout's
+                    # store then the mesh's epilogue.
+                    T_uncut = build_tiles(
+                        M, strip_groups=None if tiling == "default"
+                        else T.n_groups, slots=None)
+
+                    def uncut(T_uncut=T_uncut, v=v, rows=rows, scal=scal,
+                              half=half):
+                        return halves[half](T_uncut, v, *rows, scal,
+                                            st.inner, 0, stage="block_x")
+
+                    split = tiled_half_epilogue(
+                        half, tiled_spmv(T_uncut, v, "block_x"), rows, scal,
+                        st.inner, 0)
+                    uncut_ulps = max(ulps(a, b) for a, b in zip(
+                        uncut(), split if half == "x" else (split,)))
+                    check(uncut_ulps == 0, f"phase 10 (c): {cell}: the "
+                          f"{half}-half on block_x's own layout is "
+                          f"{uncut_ulps} ulps from its store then the "
+                          f"epilogue")
+
+                    # The main stage against the previous design on the
+                    # same tiles: the half and the product, bitwise.
+                    stage_ulps = {
+                        "half": max(ulps(a, b) for a, b in zip(
+                            on(MAIN_STAGE), on("block_x"))),
+                        "product": ulps(tiled_spmv(T, v),
+                                        tiled_spmv(T, v, "block_x"))}
                     # The bound is the function's bytes over M (half_bytes);
-                    # the tiles' stream (padding, runs, partials) is shown
-                    # beside it.  split: the kernel's store, then the mesh's
-                    # epilogue on its y, the other way to run the half.
+                    # the tiles' stream (padding, runs, on block_x the
+                    # partials) is shown beside it.  split: the kernel's
+                    # store, then the mesh's epilogue on its y, the other
+                    # way to run the half.
                     bound_ms, bound_by = half_bound(M, dtype, 1, half)
                     rec[half] = r = {
                         "ms": time_ms(fused_fn),
+                        "block_x_ms": time_ms(lambda: on("block_x")),
+                        "product_ms": time_ms(lambda: tiled_spmv(T, v)),
+                        "product_block_x_ms": time_ms(
+                            lambda: tiled_spmv(T, v, "block_x")),
+                        "block_x_uncut_ms": time_ms(uncut),
+                        "product_block_x_uncut_ms": time_ms(
+                            lambda: tiled_spmv(T_uncut, v, "block_x")),
+                        "uncut_shape": (T_uncut.n_groups, T_uncut.n_chunks),
+                        "uncut_ulps": uncut_ulps,
                         "plain_ms": time_ms(plain_fn, reps=10),
                         "split_ms": time_ms(
                             lambda: tiled_half_epilogue(
@@ -2732,16 +2856,41 @@ def tiled_halves_phase(card, problems):
                                 st.inner, 0)),
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "stream_ms": tiled_half_bytes(T, dtype, half)
-                        / HBM_BYTES_PER_S * 1e3}
+                        / HBM_BYTES_PER_S * 1e3,
+                        "stream_block_x_ms": tiled_half_bytes(
+                            T, dtype, half, "block_x")
+                        / HBM_BYTES_PER_S * 1e3,
+                        "groups": T.n_groups, "chunks": T.n_chunks,
+                        "live_chunks": T.live_chunks,
+                        "resident": max_active_clusters(T),
+                        "ulps_vs_block_x": stage_ulps}
                     phase(10, f"(c) {cell} fused {half}-half on the tiles "
-                              f"(G {T.n_groups}): {r['ms']:.5f} ms "
-                              f"({bound_ms / r['ms']:.1%} of bound "
-                              f"{bound_ms:.5f} ms, {bound_by}; the tiles' "
-                              f"stream at the HBM rate {r['stream_ms']:.5f} "
-                              f"ms); the store then the epilogue "
-                              f"{r['split_ms']:.5f} ms; its SpMV and plain "
-                              f"ops {r['plain_ms']:.5f} ms (graph replay) "
-                              f"[{card}]")
+                              f"(G x C {T.n_groups} x {T.n_chunks}, "
+                              f"{T.live_chunks} launched, {r['resident']} "
+                              f"clusters of {T.n_groups} resident): "
+                              f"{r['ms']:.5f} ms, block_x "
+                              f"{r['block_x_ms']:.5f} ms ("
+                              f"{bound_ms / r['ms']:.1%} and "
+                              f"{bound_ms / r['block_x_ms']:.1%} of "
+                              f"half_bound {bound_ms:.5f} ms, {bound_by}; "
+                              f"the tiles' stream at the HBM rate "
+                              f"{r['stream_ms']:.5f} ms, block_x's "
+                              f"{r['stream_block_x_ms']:.5f}); the product "
+                              f"{r['product_ms']:.5f} ms, block_x "
+                              f"{r['product_block_x_ms']:.5f} ms; block_x "
+                              f"on its own layout (G x C {T_uncut.n_groups} "
+                              f"x {T_uncut.n_chunks}, slots=None): half "
+                              f"{r['block_x_uncut_ms']:.5f} ms, product "
+                              f"{r['product_block_x_uncut_ms']:.5f} ms, "
+                              f"{uncut_ulps} ulps from its store then the "
+                              f"epilogue; ulps from "
+                              f"block_x {stage_ulps}; the store then the "
+                              f"epilogue {r['split_ms']:.5f} ms; its SpMV "
+                              f"and plain ops {r['plain_ms']:.5f} ms (graph "
+                              f"replay) [{card}]")
+                    check(not any(stage_ulps.values()), f"phase 10 (c): "
+                          f"{cell}: the {half}-half's main stage differs "
+                          f"from block_x by {stage_ulps} ulps")
                 if tiling == "default":
                     # The plain updates on given rows: (x, last_x, c, l, u)
                     # or (y, last_y, AL, AU).
@@ -2807,11 +2956,16 @@ def tiled_halves_phase(card, problems):
                         check(e_ulps == 0, f"phase 10 (c): {cell}: the "
                               f"{half}-half epilogue is {e_ulps} ulps from "
                               f"its plain version")
+                # The fused halves' calls on block_x in this cell: the
+                # timings' and bitwise checks' alone (the chunks take none).
+                rec["block_x_calls"] = tuple(
+                    a - b for a, b in zip(counts(), at_start))[4:]
                 records[cell] = rec
                 phase(10, f"(c) {cell}: tiles of A / A^T in {groups[0]} / "
                           f"{groups[1]} strip groups; each half alone: ulps "
                           f"from the store and plain ops {half_ulps}, "
-                          f"launches (tiled x, tiled y, CSR) {alone}; chunk "
+                          f"launches (tiled x, tiled y, CSR, group sums, "
+                          f"block_x x, block_x y) {alone}; chunk "
                           f"of {loop.check}: launches {launches}, fields "
                           f"differing from the plain halves: "
                           f"{vs_plain or 'none'}, from the graph's replay: "
@@ -2820,7 +2974,8 @@ def tiled_halves_phase(card, problems):
                 check(all(u == 0 for u in half_ulps.values()),
                       f"phase 10 (c): {cell}: a fused half differs from "
                       f"its store and plain ops by {half_ulps} ulps")
-                check(alone == (1, 1, 0) and launches == (middle, middle, 0),
+                check(alone == (1, 1, 0, 0, 0, 0)
+                      and launches == (middle, middle, 0, 0, 0, 0),
                       f"phase 10 (c): {cell}: launches {alone} alone, "
                       f"{launches} in the chunk")
                 check(not vs_plain, f"phase 10 (c): {cell}: fused and "
@@ -3712,6 +3867,18 @@ def main():
     l9_tiled = l9["tiled_spmv"]
     fused_rec = fused_phase(card)
     graph_rec = graph_phase(card, prob4, prob5, peak6)
+    # One launch a tiled product and a fused half at any G: the single-LP
+    # iteration's kernels on the tiles (sparse_huge: phase 6's chunk).
+    per_it = {"sparse_large_f32": graph_rec["sparse_large_f32"]["profile"][
+        "kernels"]}
+    if res6.spmv_backend == "tiled":
+        per_it["sparse_huge_f32"] = chunk6["kernels"]
+    graph_rec["kernels_per_it"] = per_it
+    phase(10, f"kernels/it on the tiles (one launch a product and a fused "
+              f"half at any G; 6.9 with a group-sum pass at G > 1): "
+              f"{per_it} [{card}]")
+    check(all(v <= KERNELS_PER_IT for v in per_it.values()),
+          f"phase 10: kernels/it {per_it} above {KERNELS_PER_IT}")
     single_fused = fused_spmv_phase(card, prob4)
     tiled_rec = tiled_halves_phase(card, {"sparse_large": prob4,
                                           "sparse_huge": prob6})
@@ -3772,6 +3939,49 @@ def main():
             "shapes": shapes(tag, ("nnz", "ms", "plain_ms", "bound_ms",
                                    "library_ms", "csr_ms", "tiles_s",
                                    "stages"))})
+    # The previous design of the tiles (stage block_x: each strip group's
+    # partial y through HBM, then group_sum_kernel), timed beside the main
+    # stage in phases 3 and 10 (c); its group-sum pass's and fused halves'
+    # launches by the solves of each phase, which must all be 0.
+    def previous_by_phase(tag, key, counted):
+        """A previous design's launches by the solves of each phase: key
+        in SPMV_COUNTERS, counted its name in solver/graph.py::COUNTED."""
+        out = {k: v.get(key, 0) for k, v in by_phase.items()
+               if (k == "5") == (tag == "f64")}
+        out["11"] = csr11[tag][key]
+        out["13"] = l13[tag].get(key, 0)
+        if tag == "f32":
+            out["14"] = l14.get(key, 0)
+        out["15"] = l15[tag].get(counted, 0)
+        return out
+
+    for tag, replaces in (("f32", "hprlp_tpu/ops/pallas_spmv.py:67"),
+                          ("f64", "hprlp_tpu/ops/pallas_spmv.py:178")):
+        a = rec["bench", tag, "A"]
+        per_phase = previous_by_phase(tag, "group_sum", "group_sum_kernel")
+        check(not any(per_phase.values()), f"a solve launched the group-sum "
+              f"pass ({tag}): {per_phase}")
+        kernels.append({
+            "name": f"spmv_tiled_block_x_{tag}", "route": "cuda",
+            "source": os.path.relpath(spmv_mod.TILED_SOURCE, HERE),
+            "replaces": replaces, "stage": "block_x",
+            "previous_design": "the tiles' route before the strip groups "
+                               "became one cluster: each strip group's "
+                               "partial y through HBM, then group_sum_kernel "
+                               "(a second launch at G > 1); the main stage's "
+                               "bitwise yardstick, timed in phases 3 and 10 "
+                               "(c), launched by no solve",
+            "launches": sum(per_phase.values()),
+            "launches_by_phase": per_phase,
+            "max_abs_err": max(r["err"] for (_, t, _), r in rec.items()
+                               if t == tag),
+            "ms": a["stages"]["block_x"], "plain_ms": a["plain_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+            "library_ms": a["library_ms"],
+            "uncut_ms": a["stages"]["block_x_uncut"],
+            "shapes": {k: {"ms": v["stages"]["block_x"],
+                           "uncut_ms": v["stages"]["block_x_uncut"]}
+                       for k, v in shapes(tag, ("stages",)).items()}})
     # The CSR kernel's launches by phase and dtype: phases 4-6 and 8 where
     # the autotune chose it, 11's solves and CLI run, 12's workers, 13's
     # stages, 15's mesh solves on the row shards; its fused halves'
@@ -3873,6 +4083,11 @@ def main():
     for i, (half, matrix, line) in enumerate((("x", "A^T", "x_update :89"),
                                               ("y", "A", "y_update :99"))):
         key = f"tiled_{half}_half"
+        prev_phase = {t: previous_by_phase(t, f"{half}_half_block_x",
+                                           f"{key}_block_x")
+                      for t in ("f32", "f64")}
+        check(not any(n for v in prev_phase.values() for n in v.values()),
+              f"a solve launched the {half}-half on block_x: {prev_phase}")
         per_phase = {t: tiled_by_phase(t, key, i) for t in ("f32", "f64")}
         kernels.append({
             "name": key, "route": "cuda",
@@ -3892,12 +4107,40 @@ def main():
             "ms": head[half]["ms"], "plain_ms": head[half]["plain_ms"],
             "bound_ms": head[half]["bound_ms"],
             "bound_by": head[half]["bound_by"], "library_ms": None,
+            "stage": spmv_mod.MAIN_STAGE,
             "cells": {c: dict(r[half], groups=r["groups"])
                       for c, r in tiled_rec.items()}})
-    kernels[-1]["chunks"] = {c: {k: v for k, v in r.items()
+        kernels.append({
+            "name": f"{key}_block_x", "route": "cuda",
+            "source": os.path.relpath(spmv_mod.TILED_SOURCE, HERE),
+            "replaces": kernels[-1]["replaces"], "stage": "block_x",
+            "previous_design": f"the {half}-half on the tiles before the "
+                               f"strip groups became one cluster: in the "
+                               f"kernel at G = 1, in group_sum_kernel after "
+                               f"the partials at G > 1; timed in phase 10 "
+                               f"(c), launched by no solve",
+            "launches": sum(sum(v.values()) for v in prev_phase.values()),
+            "launches_by_phase": prev_phase,
+            "measurement_calls": {
+                "note": "phase 10 (c)'s calls on block_x by the wrapper's "
+                        "count (eager calls, and the timing graphs' "
+                        "warm-ups and captures; replays uncounted), "
+                        "outside any solve",
+                "cells": {c: r["block_x_calls"][i]
+                          for c, r in tiled_rec.items()}},
+            "max_abs_err": kernels[-1]["max_abs_err"],
+            "ms": head[half]["block_x_ms"],
+            "plain_ms": head[half]["plain_ms"],
+            "bound_ms": head[half]["bound_ms"],
+            "bound_by": head[half]["bound_by"], "library_ms": None,
+            "uncut_ms": head[half]["block_x_uncut_ms"],
+            "cells": {c: {k: r[half][k] for k in (
+                "block_x_ms", "block_x_uncut_ms", "uncut_shape")}
+                      for c, r in tiled_rec.items()}})
+    kernels[-2]["chunks"] = {c: {k: v for k, v in r.items()
                                  if k not in ("x", "y", "epilogue_x",
                                               "epilogue_y")}
-                             for c, r in tiled_rec.items()}
+                             for c, r in tiled_rec.items()}  # tiled_y_half
     epi = {c: {h: r[f"epilogue_{h}"] for h in ("x", "y")}
            for c, r in tiled_rec.items() if "epilogue_x" in r}
     epi_head = epi["sparse_huge_f32_default"]["x"]
@@ -3937,9 +4180,10 @@ def main():
     kernels[0]["server"] = server_rec
     kernels[0]["capi"] = capi_rec
     kernels[0]["mixed"] = mixed_rec
-    kernels[2]["autotune"] = autotune_rec
-    kernels[2]["memory"] = memory_rec
-    kernels[2]["chunks_picked"] = {"4": chunk4, "6": chunk6}
+    csr32 = next(k for k in kernels if k["name"] == "csr_spmv_f32")
+    csr32["autotune"] = autotune_rec
+    csr32["memory"] = memory_rec
+    csr32["chunks_picked"] = {"4": chunk4, "6": chunk6}
     kernels += variant_records
     head = spmm_rec["f32", "A", 64]
     spmm_common = {

@@ -19,9 +19,7 @@
 // (8 B per f32 entry, as CSR's value and column index), and y is written
 // once; the multiply-add per entry is negligible beside that traffic.  A
 // fused half adds its row operands (x-half: x, last_x, c, l, u read, x_new
-// and x_hat written; y-half: y, last_y, AL, AU read, y_new written) and,
-// with G > 1, the G partials written and read (prof/timing.py::
-// tiled_half_bytes).
+// and x_hat written; y-half: y, last_y, AL, AU read, y_new written).
 // What the design does about the two costs the CSR kernel's ablations
 // found:
 // 1. The x gather (44% of the CSR kernel's time at 10.5M nnz): a gather
@@ -32,11 +30,8 @@
 //    so that strip s+1 lands while strip s is consumed.  Staging costs
 //    each block the bytes of every strip it covers, so the strips are cut
 //    into G groups and block (g, c) covers strip group g of row chunk c:
-//    it stages 1/G of x for a chunk of G times as many rows, writes its
-//    partial y, and group_sum_kernel adds the G partials in group order.
-//    In the multicast stages a cluster of C blocks (the same group, C
-//    consecutive chunks) shares each strip: each block copies 1/C of it
-//    with .multicast::cluster into all of them.
+//    it stages 1/G of x for a chunk of G times as many rows, and the G
+//    blocks of a chunk each hold a partial y of its rows.
 // 2. The value/key stream at half the HBM rate: the entries of a block
 //    and strip are one packed array per warp run, so each lane loads 16
 //    bytes of values and of keys per step (coalesced, no idle lanes but
@@ -51,27 +46,61 @@
 // and the order of every sum is fixed by the layout: two launches on the
 // same inputs give bitwise-identical y.
 //
-// Stages (template CLUSTER, for measurement; ops/spmv.py fixes the main
-// one): 0 gathers x from global memory, with the same stream and y in
-// shared memory; 1 stages each strip per block; 2, 4 and 8 share it across
-// a cluster of that many blocks by multicast.
+// The G partials of a chunk (the main stage, tiled_cluster_kernel): the G
+// blocks of row chunk c are one thread-block cluster, grid (G, C) with
+// cluster (G, 1, 1), so one instantiation serves every G from 2 to 8 (the
+// portable cluster size; ops/tiles.py MAX_GROUPS).  At G = 1 a chunk's
+// one block holds its rows' whole sums, and the main stage launches the
+// block kernel (tiled_spmv_kernel at CLUSTER = 1, as block_x does) over
+// the chunks with rows: one launch, the same bits, and 0.7-1.0 us faster
+// than a cluster of one (17% of a product at a 0.5M-nnz LP).  Block g is the
+// cluster's rank g (%cluster_ctarank) and c the cluster's index; its runs
+// are those of the layout's block g * C + c, so the layout, its runs and
+// its plain reference are the previous design's.  Each block sums its
+// strips into its own shared memory as every stage does, with block-local
+// barriers only (groups may hold different strip counts).  Then one
+// cluster barrier (arrive.release, wait.acquire), after which rank g takes
+// a contiguous 1/G share of the chunk's rows, reads each row's G partials
+// from ranks 0 .. G-1 through distributed shared memory, sums them in that
+// order (part[0], then += part[r]) and writes y or the row's half-update;
+// a second cluster barrier keeps every block's shared memory alive until
+// its peers have read it.  The sum is the previous design's in the same
+// order on the same partials, so y, x_new, x_hat and y_new are bitwise
+// what it gives, with no partials in HBM (2 G nrows values written and
+// read), no second launch, and the sum and the half's operand reads spread
+// over all G C blocks.  A cluster of G needs G free SMs in one GPC, so
+// fewer clusters of G may be resident than SMs / G: build_tiles takes that
+// count (ops/spmv.py::cluster_slots) to keep a tiling's chunks in one
+// wave.
 //
-// The epilogues (template E, instantiated for the main stage, CLUSTER = 1,
-// and SEG = kScan only): kStore writes y (or a group's partial of it);
-// kXHalf and kYHalf replace y's write by one HPR half-update of each row
-// given its sum, with csrc/hpr_half.cuh's rounding rules (each operation
-// rounded once, NaN taken as torch.clamp and torch.maximum take it), so a
-// fused half is bitwise the kStore launch followed by PyTorch's elementwise
-// ops.  With G = 1 the kernel itself writes the half-update of row row0 +
-// i in place of ys[i]; with G > 1 the blocks write their partials as
-// kStore does and group_sum_kernel<T, E> applies the half to each row's
-// sum, taken in group order as for y.  half_epilogue_kernel<T, E> is that
-// same pass at G = 1 on a given y: the column-sharded mesh's epilogue,
-// after the all-reduce of the ranks' partial products, launched under a
-// name of its own so that a profile tells it from the SpMV.  sigma (or
-// lambda * sigma) is a 0-dim device tensor and the Halpern counter is read
-// from device memory as inner + t, t baked in at launch, so a captured
-// CUDA graph replays it unchanged.
+// The previous design (stage block_x, tiled_spmv_kernel at CLUSTER = 1):
+// blocks b = g * C + c each stage their strips, write their partial y to
+// HBM, and group_sum_kernel<T, E> sums the G partials of each row in group
+// order and applies the half.  It is kept as the bitwise yardstick and
+// timed beside the main stage; no solve launches it.
+//
+// Stages (ops/spmv.py TILED_STAGES, the codes below): kGroupStage the
+// cluster route above (the main stage); 0 gathers x from global memory,
+// with the same stream and y in shared memory; 1 stages each strip per
+// block (block_x); 2, 4 and 8 share it across a cluster of that many
+// blocks (the same group, consecutive chunks: a different cluster from
+// the main stage's) by multicast, each block copying 1/C of it with
+// .multicast::cluster into all of them.  Stages 0-8 write partials and
+// launch group_sum_kernel at G > 1.
+//
+// The epilogues (template E, instantiated for the main stage and block_x,
+// SEG = kScan only): kStore writes y (or, in the previous design, a
+// group's partial of it); kXHalf and kYHalf replace y's write by one HPR
+// half-update of each row given its sum, with csrc/hpr_half.cuh's rounding
+// rules (each operation rounded once, NaN taken as torch.clamp and
+// torch.maximum take it), so a fused half is bitwise the kStore launch
+// followed by PyTorch's elementwise ops.  half_epilogue_kernel<T, E> is
+// group_sum_kernel's pass at G = 1 on a given y: the column-sharded mesh's
+// epilogue, after the all-reduce of the ranks' partial products, launched
+// under a name of its own so that a profile tells it from the SpMV.  sigma
+// (or lambda * sigma) is a 0-dim device tensor and the Halpern counter is
+// read from device memory as inner + t, t baked in at launch, so a
+// captured CUDA graph replays it unchanged.
 //
 // The segsum study (template SEG, float and stage 1 only; launched by
 // ops/spmv_variants.py::spmv_segsum, never by a solve; SEG = 0 is the
@@ -106,6 +135,7 @@
 //                 and one flush per step (wrong where a step spans more
 //                 than 16 rows; timing only)
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -120,6 +150,9 @@ constexpr int kWarps = 16;                    // ops/tiles.py WARPS
 constexpr int kThreads = kWarps * 32;
 constexpr int kDepth = 4;                     // steps in flight per warp
 constexpr int kMaxSmem = 232448;              // ops/tiles.py SMEM_BYTES
+constexpr int kMaxGroups = 8;                 // ops/tiles.py MAX_GROUPS
+constexpr int kGroupStage = -1;               // the main stage's code
+constexpr int kRowsAhead = 4;                 // a half's rows in flight
 constexpr uint32_t kSentinelRow = 0xFFFFu;    // padding entries
 
 template <typename T> struct Vec;
@@ -199,6 +232,15 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The same barrier without memory ordering: every thread of the cluster
+// has arrived, nothing more (prior stores need not be visible).
+__device__ __forceinline__ void cluster_sync_relaxed() {
+  asm volatile(
+      "barrier.cluster.arrive.relaxed.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::
           : "memory");
 }
 
@@ -704,50 +746,76 @@ __device__ __forceinline__ HalfScalars<T> half_scalars(const Half& h) {
           hprlp::halpern_f1<T>(*h.inner + h.t)};
 }
 
-// Row `row`'s half-update given its sum: x_new and x_hat, or y_new.
+// A row's operands of a half (p2: the x-half's u only).
+template <typename T>
+struct HalfRow {
+  T cur, last, p0, p1, p2;
+};
+
 template <typename T, int E>
-__device__ __forceinline__ void write_half(const Half& h, int64_t row, T sum,
-                                           const HalfScalars<T>& k) {
-  const T cur = static_cast<const T*>(h.cur)[row];
-  const T last = static_cast<const T*>(h.last)[row];
-  const T p0 = static_cast<const T*>(h.p0)[row];
-  const T p1 = static_cast<const T*>(h.p1)[row];
+__device__ __forceinline__ HalfRow<T> load_half_row(const Half& h,
+                                                    int64_t row) {
+  HalfRow<T> o;
+  o.cur = static_cast<const T*>(h.cur)[row];
+  o.last = static_cast<const T*>(h.last)[row];
+  o.p0 = static_cast<const T*>(h.p0)[row];
+  o.p1 = static_cast<const T*>(h.p1)[row];
+  o.p2 = E == kXHalf ? static_cast<const T*>(h.p2)[row] : T(0);
+  return o;
+}
+
+// Row `row`'s half-update given its sum and operands: x_new and x_hat, or
+// y_new.
+template <typename T, int E>
+__device__ __forceinline__ void store_half_row(const Half& h, int64_t row,
+                                               T sum, const HalfRow<T>& o,
+                                               const HalfScalars<T>& k) {
   if constexpr (E == kXHalf) {
     T xh;
     static_cast<T*>(h.out)[row] = hprlp::x_half_update(
-        sum, cur, last, p0, p1, static_cast<const T*>(h.p2)[row], k.s, k.f1,
-        xh);
+        sum, o.cur, o.last, o.p0, o.p1, o.p2, k.s, k.f1, xh);
     static_cast<T*>(h.hat)[row] = xh;
   } else {
     static_assert(E == kYHalf, "a half is kXHalf or kYHalf");
     static_cast<T*>(h.out)[row] =
-        hprlp::y_half_update(sum, cur, last, p0, p1, k.s, k.f1);
+        hprlp::y_half_update(sum, o.cur, o.last, o.p0, o.p1, k.s, k.f1);
   }
 }
 
-template <typename T, int CLUSTER, int SEG = kScan, int E = kStore>
-__global__ void __launch_bounds__(kThreads, 1)
-tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
-                  int max_rows, const T* __restrict__ vals,
-                  const uint32_t* __restrict__ keys,
-                  const int* __restrict__ runs,
-                  const int* __restrict__ row_start,
-                  const T* __restrict__ x, T* __restrict__ out,
-                  const SegTiles rt, const Half h) {
-  static_assert(E == kStore || (CLUSTER == 1 && SEG == kScan),
-                "the halves are fused into the main stage only");
+template <typename T, int E>
+__device__ __forceinline__ void write_half(const Half& h, int64_t row, T sum,
+                                           const HalfScalars<T>& k) {
+  store_half_row<T, E>(h, row, sum, load_half_row<T, E>(h, row), k);
+}
+
+// A block's chunk of y in shared memory once its strips are summed: ys
+// (the same offset in every block of a launch), the chunk's first row and
+// its row count.
+template <typename T>
+struct ChunkSums {
+  T* ys;
+  int row0, nrows;
+};
+
+// Block (g, c)'s sums: strip group g of row chunk c summed into its rows
+// of y in shared memory.  b is the layout's block number g * C + c, which
+// indexes the runs.  Ends after a block-local barrier: ys is complete in
+// this block.
+template <typename T, int CLUSTER, int SEG>
+__device__ __forceinline__ ChunkSums<T> block_sums(
+    unsigned char* smem, int g, int c, int b, int ncols, int W, int K,
+    int Kg, int max_rows, const T* __restrict__ vals,
+    const uint32_t* __restrict__ keys, const int* __restrict__ runs,
+    const int* __restrict__ row_start, const T* __restrict__ x,
+    const SegTiles& rt) {
   constexpr bool kStaged = CLUSTER > 0;
   // Shared memory: nbuf x strips of W entries, y of the largest chunk
   // (rounded up to 16 bytes), two mbarriers -- the same offsets in every
-  // block, as multicast needs.
-  extern __shared__ __align__(128) unsigned char smem[];
+  // block, as multicast and the cluster's sum need.
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int b = blockIdx.x;
-  const int g = b / C;  // strip group: strips g * Kg .. + nstrips
-  const int c = b % C;  // row chunk
-  const int s0 = g * Kg;
+  const int s0 = g * Kg;  // strips s0 .. s0 + nstrips - 1
   const int nstrips = max(0, min(Kg, K - s0));
   const int row0 = row_start[c];
   const int nrows_b = row_start[c + 1] - row0;
@@ -860,16 +928,136 @@ tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
       }
     }
   }
+  return {ys, row0, nrows_b};
+}
+
+// The previous design and the measurement stages: block b = g * C + c
+// (1-D grid) writes its chunk's y, or with several groups its partial of
+// it, or (G = 1 only) each row's half-update in place of its store.
+template <typename T, int CLUSTER, int SEG = kScan, int E = kStore>
+__global__ void __launch_bounds__(kThreads, 1)
+tiled_spmv_kernel(int nrows, int ncols, int W, int K, int Kg, int C,
+                  int max_rows, const T* __restrict__ vals,
+                  const uint32_t* __restrict__ keys,
+                  const int* __restrict__ runs,
+                  const int* __restrict__ row_start,
+                  const T* __restrict__ x, T* __restrict__ out,
+                  const SegTiles rt, const Half h) {
+  static_assert(E == kStore || (CLUSTER == 1 && SEG == kScan),
+                "the halves are fused into block_x and the main stage only");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.x;
+  const int g = b / C;  // strip group
+  const int c = b % C;  // row chunk
+  const ChunkSums<T> k = block_sums<T, CLUSTER, SEG>(
+      smem, g, c, b, ncols, W, K, Kg, max_rows, vals, keys, runs, row_start,
+      x, rt);
   if constexpr (E == kStore) {
-    // y of the chunk, or with several groups this group's partial of it.
-    T* dst = out + static_cast<int64_t>(g) * nrows + row0;
-    for (int i = tid; i < nrows_b; i += kThreads) dst[i] = ys[i];
-  } else {  // G = 1: each row's half-update in place of its store
-    const HalfScalars<T> k = half_scalars<T>(h);
-    for (int i = tid; i < nrows_b; i += kThreads) {
-      write_half<T, E>(h, row0 + i, ys[i], k);
+    T* dst = out + static_cast<int64_t>(g) * nrows + k.row0;
+    for (int i = threadIdx.x; i < k.nrows; i += kThreads) dst[i] = k.ys[i];
+  } else {
+    const HalfScalars<T> hs = half_scalars<T>(h);
+    for (int i = threadIdx.x; i < k.nrows; i += kThreads) {
+      write_half<T, E>(h, k.row0 + i, k.ys[i], hs);
     }
   }
+}
+
+// The main stage: grid (G, C), the G blocks of row chunk c one cluster;
+// y (or each row's half-update) from the G partials summed through
+// distributed shared memory in group order (see the note at the top).
+template <typename T, int E>
+__global__ void __launch_bounds__(kThreads, 1)
+tiled_cluster_kernel(int ncols, int W, int K, int Kg, int C, int max_rows,
+                     const T* __restrict__ vals,
+                     const uint32_t* __restrict__ keys,
+                     const int* __restrict__ runs,
+                     const int* __restrict__ row_start,
+                     const T* __restrict__ x, T* __restrict__ y,
+                     const Half h) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = static_cast<int>(gridDim.x);  // the cluster's size
+  const int g = static_cast<int>(cluster_rank());
+  const int c = static_cast<int>(blockIdx.y);
+  const ChunkSums<T> k = block_sums<T, 1, kScan>(
+      smem, g, c, g * C + c, ncols, W, K, Kg, max_rows, vals, keys, runs,
+      row_start, x, SegTiles{});
+  // Every rank's partial complete and visible to the cluster.
+  cluster_sync();
+  const T* peer[kMaxGroups];  // this block's own partial read directly
+#pragma unroll
+  for (int r = 0; r < kMaxGroups; ++r) {
+    peer[r] = r < G && r != g ? cluster.map_shared_rank(k.ys, r) : k.ys;
+  }
+  // Rank g's rows: a share of whole 16-byte vectors (V rows) from row
+  // g * share, so that each peer read is one 16-byte load.  Only rank g
+  // reads these rows of any block, so it keeps their sums in its own ys.
+  constexpr int V = Vec<T>::n;
+  using VT = typename Vec<T>::V;
+  const int share = ((k.nrows + G - 1) / G + V - 1) / V * V;
+  const int i0 = min(k.nrows, g * share);
+  const int i1 = min(k.nrows, i0 + share);
+  const int nvec = (i1 - i0) / V;
+  for (int j = static_cast<int>(threadIdx.x); j < nvec; j += kThreads) {
+    const int i = i0 + j * V;
+    // All G loads in flight, then each row's sum in group order, as
+    // group_rows takes it (part[0], then += part[r]).
+    VT part[kMaxGroups];
+#pragma unroll
+    for (int r = 0; r < kMaxGroups; ++r) {
+      if (r < G) part[r] = *reinterpret_cast<const VT*>(peer[r] + i);
+    }
+    T* sum = reinterpret_cast<T*>(&part[0]);
+#pragma unroll
+    for (int r = 1; r < kMaxGroups; ++r) {
+      if (r < G) {
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          sum[q] += reinterpret_cast<const T*>(&part[r])[q];
+        }
+      }
+    }
+    *reinterpret_cast<VT*>(k.ys + i) = part[0];
+  }
+  // The chunk's last rows, short of a whole vector (the last rank's).
+  for (int i = i0 + nvec * V + static_cast<int>(threadIdx.x); i < i1;
+       i += kThreads) {
+    T sum = peer[0][i];
+    for (int r = 1; r < G; ++r) sum += peer[r][i];
+    k.ys[i] = sum;
+  }
+  __syncthreads();  // the share's sums in ys
+  // y, or each row's half-update, one row a thread: coalesced as the
+  // group-sum pass's.  A half's operands of kRowsAhead rows a thread are
+  // loaded before any of their updates is stored (the stores may alias
+  // the operands for all the compiler knows, so it would not hoist them).
+  if constexpr (E == kStore) {
+    for (int i = i0 + static_cast<int>(threadIdx.x); i < i1; i += kThreads) {
+      y[k.row0 + i] = k.ys[i];
+    }
+  } else {
+    const HalfScalars<T> hs = half_scalars<T>(h);
+    for (int i = i0 + static_cast<int>(threadIdx.x); i < i1;
+         i += kRowsAhead * kThreads) {
+      HalfRow<T> o[kRowsAhead];
+#pragma unroll
+      for (int u = 0; u < kRowsAhead; ++u) {
+        const int r = i + u * kThreads;
+        if (r < i1) o[u] = load_half_row<T, E>(h, k.row0 + r);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsAhead; ++u) {
+        const int r = i + u * kThreads;
+        if (r < i1) store_half_row<T, E>(h, k.row0 + r, k.ys[r], o[u], hs);
+      }
+    }
+  }
+  // No block's shared memory goes while a peer still reads it: a peer
+  // arrives after its reads have returned (its stores use them), so the
+  // barrier orders nothing else and need not wait for y's stores.
+  cluster_sync_relaxed();
 }
 
 // y = the G partials summed in group order (the fixed order that keeps y
@@ -940,7 +1128,7 @@ cudaLaunchConfig_t config(int nblocks, size_t smem, cudaStream_t stream,
 }
 
 struct Args {
-  int nrows, ncols, W, K, G, Kg, C, max_rows;
+  int nrows, ncols, W, K, G, Kg, C, live, max_rows;
   const void *vals, *keys, *runs, *row_start, *x;
   void *part, *y;
   SegTiles rt;  // mm_precomp's R; null pointers for every other launch
@@ -992,6 +1180,83 @@ int launch_stage(const Args& a, cudaStream_t stream) {
   return static_cast<int>(err);
 }
 
+// The main stage's launch: grid (G, C), one cluster of the G blocks of
+// each row chunk.
+cudaLaunchConfig_t group_config(int G, int C, size_t smem,
+                                cudaStream_t stream,
+                                cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G, C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = G;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The main stage: no partials, no second pass; blocks for the first
+// `live` chunks only (the rest are empty padding, whose blocks would wait
+// for a free SM).  G > 1: a cluster per chunk; G = 1: the block kernel
+// (see the note at the top).  Clusters above the portable kMaxGroups are
+// refused here; a cluster size the card refuses fails the launch; either
+// error is returned.
+template <typename T, int E>
+int launch_group(const Args& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(1, a.W, a.Kg, a.max_rows);
+  if (a.G > kMaxGroups || smem > static_cast<size_t>(kMaxSmem) ||
+      a.live < 1 || a.live > a.C ||
+      a.live > 65535 || (E == kStore && !a.y) || !half_complete<E>(a.h)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchAttribute attr;
+  cudaError_t err;
+  if (a.G == 1) {
+    const cudaLaunchConfig_t cfg = config<T, 1>(a.live, smem, stream, &attr);
+    err = cudaLaunchKernelEx(
+        &cfg, tiled_spmv_kernel<T, 1, kScan, E>, a.nrows, a.ncols, a.W, a.K,
+        a.Kg, a.C, a.max_rows, static_cast<const T*>(a.vals),
+        static_cast<const uint32_t*>(a.keys),
+        static_cast<const int*>(a.runs),
+        static_cast<const int*>(a.row_start), static_cast<const T*>(a.x),
+        static_cast<T*>(a.y), SegTiles{}, a.h);
+  } else {
+    const cudaLaunchConfig_t cfg = group_config(a.G, a.live, smem, stream,
+                                                &attr);
+    err = cudaLaunchKernelEx(
+        &cfg, tiled_cluster_kernel<T, E>, a.ncols, a.W, a.K, a.Kg, a.C,
+        a.max_rows, static_cast<const T*>(a.vals),
+        static_cast<const uint32_t*>(a.keys),
+        static_cast<const int*>(a.runs),
+        static_cast<const int*>(a.row_start), static_cast<const T*>(a.x),
+        static_cast<T*>(a.y), a.h);
+  }
+  if (err == cudaSuccess) {
+    err = cudaGetLastError();
+  } else {
+    cudaGetLastError();  // clear a launch error that err already holds
+  }
+  return static_cast<int>(err);
+}
+
+// How many clusters of the main stage's G blocks can be resident at once
+// at the given dynamic shared memory; -error on failure (a cluster size
+// the card refuses).
+template <typename T>
+int active_group_clusters(int G, int smem) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = group_config(G, 1, smem, nullptr, &attr);
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &n, tiled_cluster_kernel<T, kStore>, &cfg);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 template <typename T, int CLUSTER>
 int active_clusters(int smem) {
   cudaLaunchAttribute attr;
@@ -1008,6 +1273,7 @@ int launch(int cluster, const Args& a, void* stream) {
   if (a.G * a.C <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cluster) {
+    case kGroupStage: return launch_group<T, kStore>(a, s);
     case 0: return launch_stage<T, 0>(a, s);
     case 1: return launch_stage<T, 1>(a, s);
     case 2: return launch_stage<T, 2>(a, s);
@@ -1017,18 +1283,22 @@ int launch(int cluster, const Args& a, void* stream) {
   }
 }
 
-// A fused half on the main stage (cluster 1, the only one instantiated
-// with the halves).
+// A fused half on the main stage or on block_x (the previous design), the
+// two stages instantiated with the halves.
 template <typename T>
 int launch_half(int epilogue, int cluster, const Args& a, void* stream) {
-  if (cluster != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((cluster != kGroupStage && cluster != 1) ||
+      (epilogue != kXHalf && epilogue != kYHalf)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (a.G * a.C <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (epilogue) {
-    case kXHalf: return launch_stage<T, 1, kScan, kXHalf>(a, s);
-    case kYHalf: return launch_stage<T, 1, kScan, kYHalf>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster == kGroupStage) {
+    return epilogue == kXHalf ? launch_group<T, kXHalf>(a, s)
+                              : launch_group<T, kYHalf>(a, s);
   }
+  return epilogue == kXHalf ? launch_stage<T, 1, kScan, kXHalf>(a, s)
+                            : launch_stage<T, 1, kScan, kYHalf>(a, s);
 }
 
 template <typename T, int E>
@@ -1055,8 +1325,9 @@ int launch_epilogue(int epilogue, int nrows, const void* y, const Half& h,
 }
 
 template <typename T>
-int max_active(int cluster, int smem) {
+int max_active(int cluster, int groups, int smem) {
   switch (cluster) {
+    case kGroupStage: return active_group_clusters<T>(groups, smem);
     case 0: return active_clusters<T, 0>(smem);
     case 1: return active_clusters<T, 1>(smem);
     case 2: return active_clusters<T, 2>(smem);
@@ -1076,6 +1347,9 @@ int set_max_smem() {
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 8>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 1, kScan, kXHalf>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<T, 1, kScan, kYHalf>),
+      reinterpret_cast<const void*>(tiled_cluster_kernel<T, kStore>),
+      reinterpret_cast<const void*>(tiled_cluster_kernel<T, kXHalf>),
+      reinterpret_cast<const void*>(tiled_cluster_kernel<T, kYHalf>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, kSegFull>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, kSegPrecomp>),
       reinterpret_cast<const void*>(tiled_spmv_kernel<float, 1, kSegHi1>),
@@ -1100,16 +1374,20 @@ int hprlp_tiled_init(void) {
 }
 
 // y = A x on the tiles; returns the launch's error code (0 on success).
-// f64: 0 for float, 1 for double; cluster: the stage (0: x from global
-// memory, 1: strips per block, 2/4/8: strips multicast to that many).
-// With G > 1 strip groups, `part` holds G * nrows partials of y.
+// f64: 0 for float, 1 for double; cluster: the stage (-1: the main stage,
+// a cluster of the G strip groups per row chunk; 0: x from global memory,
+// 1: strips per block, 2/4/8: strips multicast to that many).  C is the
+// tiles' chunk count and `live` how many of them hold rows (the rest are
+// trailing padding, which the main stage launches no cluster for).  With
+// G > 1 strip groups, stages 0-8 take G * nrows partials of y in `part`;
+// the main stage takes none (null).
 int hprlp_tiled_spmv(int f64, int cluster, int nrows, int ncols, int W,
-                     int K, int G, int Kg, int C, int max_rows,
+                     int K, int G, int Kg, int C, int live, int max_rows,
                      const void* vals, const void* keys, const void* runs,
                      const void* row_start, const void* x, void* part,
                      void* y, void* stream) {
-  const Args a{nrows, ncols, W, K, G, Kg, C, max_rows, vals, keys, runs,
-               row_start, x, part, y, {}, {}};
+  const Args a{nrows, ncols, W, K, G, Kg, C, live, max_rows, vals, keys,
+               runs, row_start, x, part, y, {}, {}};
   return f64 ? launch<double>(cluster, a, stream)
              : launch<float>(cluster, a, stream);
 }
@@ -1120,11 +1398,12 @@ int hprlp_tiled_spmv(int f64, int cluster, int nrows, int ncols, int W,
 // p0, p1 = y, last_y, AL, AU; hat and p2 unread); scal: the 0-dim sigma
 // (lambda sigma), inner: the 0-dim int32 Halpern counter at the first
 // middle iteration, t this iteration's index.  The tile arguments as for
-// hprlp_tiled_spmv at cluster 1 (the main stage; any other is refused);
-// with G > 1, `part` holds G * nrows partials.  Returns the launch's error
-// code (0 on success).
+// hprlp_tiled_spmv at cluster -1 (the main stage) or 1 (block_x, the
+// previous design, with G * nrows partials in `part` at G > 1); any other
+// stage is refused.  Returns the launch's error code (0 on success).
 int hprlp_tiled_half(int f64, int epilogue, int cluster, int nrows, int ncols,
-                     int W, int K, int G, int Kg, int C, int max_rows,
+                     int W, int K, int G, int Kg, int C, int live,
+                     int max_rows,
                      const void* vals, const void* keys, const void* runs,
                      const void* row_start, const void* x, void* part,
                      void* out, void* hat, const void* cur, const void* last,
@@ -1133,8 +1412,8 @@ int hprlp_tiled_half(int f64, int epilogue, int cluster, int nrows, int ncols,
                      void* stream) {
   const Half h{out, hat, cur, last, p0, p1, p2, scal,
                static_cast<const int*>(inner), t};
-  const Args a{nrows, ncols, W, K, G, Kg, C, max_rows, vals, keys, runs,
-               row_start, x, part, nullptr, {}, h};
+  const Args a{nrows, ncols, W, K, G, Kg, C, live, max_rows, vals, keys,
+               runs, row_start, x, part, nullptr, {}, h};
   return f64 ? launch_half<double>(epilogue, cluster, a, stream)
              : launch_half<float>(epilogue, cluster, a, stream);
 }
@@ -1167,8 +1446,8 @@ int hprlp_tiled_segsum(int variant, int nrows, int ncols, int W, int K,
                        const void* rt_ranks, const void* rt_rows,
                        const void* rt_step0, void* part, void* y,
                        void* stream) {
-  const Args a{nrows, ncols, W, K, G, Kg, C, max_rows, vals, keys, runs,
-               row_start, x, part, y,
+  const Args a{nrows, ncols, W, K, G, Kg, C, C, max_rows, vals, keys,
+               runs, row_start, x, part, y,
                {static_cast<const uint4*>(rt_ranks),
                 static_cast<const uint4*>(rt_rows),
                 static_cast<const int*>(rt_step0)},
@@ -1191,10 +1470,13 @@ int hprlp_tiled_segsum(int variant, int nrows, int ncols, int W, int K,
 }
 
 // How many clusters of a stage can be resident at once at the given
-// dynamic shared memory (0 if none fits); -error on failure.
-int hprlp_tiled_max_active_clusters(int f64, int cluster, int smem) {
-  return f64 ? max_active<double>(cluster, smem)
-             : max_active<float>(cluster, smem);
+// dynamic shared memory (0 if none fits); -error on failure.  The main
+// stage's clusters are of `groups` blocks (the tiles' G); the other
+// stages ignore it.
+int hprlp_tiled_max_active_clusters(int f64, int cluster, int groups,
+                                    int smem) {
+  return f64 ? max_active<double>(cluster, groups, smem)
+             : max_active<float>(cluster, groups, smem);
 }
 
 const char* hprlp_tiled_error_string(int code) {

@@ -6,7 +6,11 @@ column strips, f32 or f64) on the column-strip tiles of ops/tiles.py,
 whose plain version is `tiles.tiled_spmv_reference`; it is the main
 path's SpMV and replaces the four Pallas TPU kernels of
 hprlp_tpu/ops/pallas_spmv.py (lane_spmv, thin_spmv, lane_spmv_df64,
-thin_spmv_df64; see the notes at the top of the CUDA source).
+thin_spmv_df64; see the notes at the top of the CUDA source).  Its main
+stage launches the G strip-group blocks of each row chunk as one
+thread-block cluster, which sums their partials through distributed
+shared memory: one launch at any G; `cluster_slots` is the card's count
+of such clusters resident at once, which build_tiles takes on the card.
 `tiled_x_half` and `tiled_y_half` run the same kernel with the single-LP
 middle iteration's x- or y-half fused into its row write, and
 `tiled_half_epilogue` runs that half alone on a given product, as a
@@ -42,10 +46,11 @@ import re
 import shutil
 import subprocess
 import tempfile
+import types
 
 import torch
 
-from .tiles import CLUSTER, WARPS, vec_width
+from .tiles import CLUSTER, MAX_GROUPS, SMEM_BYTES, WARPS, vec_width
 
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_HERE, "csrc", "spmv_csr.cu")
@@ -446,13 +451,19 @@ csr_spmv_rowgroup.launches = 0
 
 
 TILED_SOURCE = os.path.join(_HERE, "csrc", "spmv_tiled.cu")
-# The tiled kernel's stages (csrc/spmv_tiled.cu), by the cluster size they
-# pass to it: x gathered from global memory, x strips staged per block, x
-# strips multicast to a cluster of 2, 4 or 8 blocks.  Every stage computes
-# the same y; the main path runs MAIN_STAGE.
-TILED_STAGES = {"global_x": 0, "block_x": 1, "cluster2_x": 2,
-                "cluster4_x": 4, "cluster8_x": 8}
-MAIN_STAGE = "block_x"
+# The tiled kernel's stages (csrc/spmv_tiled.cu), by the code they pass to
+# it: the G strip groups of each row chunk as one thread-block cluster that
+# sums its partials through distributed shared memory (-1, the main
+# stage); x gathered from global memory (0); x strips staged per block
+# (1, block_x, the previous design: partials through HBM and a group-sum
+# pass at G > 1); x strips multicast to a cluster of 2, 4 or 8 blocks.
+# Every stage computes the same y, and the main stage and block_x the same
+# bits; the main path runs MAIN_STAGE.
+TILED_STAGES = {"group_cluster": -1, "global_x": 0, "block_x": 1,
+                "cluster2_x": 2, "cluster4_x": 4, "cluster8_x": 8}
+MAIN_STAGE = "group_cluster"
+# The stages a fused half runs on: the main stage and the previous design.
+HALF_STAGES = (MAIN_STAGE, "block_x")
 
 
 @functools.cache
@@ -461,15 +472,15 @@ def _tiled_library(device_index: int) -> ctypes.CDLL:
     on `device_index` (once, before any launch or graph capture)."""
     lib = ctypes.CDLL(build(TILED_SOURCE))
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.hprlp_tiled_spmv.argtypes = [i] * 10 + [ptr] * 8
+    lib.hprlp_tiled_spmv.argtypes = [i] * 11 + [ptr] * 8
     lib.hprlp_tiled_spmv.restype = i
-    lib.hprlp_tiled_half.argtypes = [i] * 11 + [ptr] * 15 + [i, ptr]
+    lib.hprlp_tiled_half.argtypes = [i] * 12 + [ptr] * 15 + [i, ptr]
     lib.hprlp_tiled_half.restype = i
     lib.hprlp_tiled_half_epilogue.argtypes = [i] * 3 + [ptr] * 10 + [i, ptr]
     lib.hprlp_tiled_half_epilogue.restype = i
     lib.hprlp_tiled_segsum.argtypes = [i] * 9 + [ptr] * 11
     lib.hprlp_tiled_segsum.restype = i
-    lib.hprlp_tiled_max_active_clusters.argtypes = [i, i, i]
+    lib.hprlp_tiled_max_active_clusters.argtypes = [i, i, i, i]
     lib.hprlp_tiled_max_active_clusters.restype = i
     lib.hprlp_tiled_error_string.argtypes = [i]
     lib.hprlp_tiled_error_string.restype = ctypes.c_char_p
@@ -538,16 +549,39 @@ def _tile_args(T, x: torch.Tensor, part) -> tuple:
     """The tile arguments of hprlp_tiled_spmv and hprlp_tiled_half, from
     nrows to x and the partials."""
     return (T.nrows, T.ncols, T.strip_width, T.n_strips, T.n_groups,
-            T.group_strips, T.n_chunks, T.max_block_rows, T.vals.data_ptr(),
-            T.keys.data_ptr(), T.runs.data_ptr(), T.row_start.data_ptr(),
+            T.group_strips, T.n_chunks, T.live_chunks, T.max_block_rows,
+            T.vals.data_ptr(), T.keys.data_ptr(), T.runs.data_ptr(),
+            T.row_start.data_ptr(),
             x.data_ptr(), None if part is None else part.data_ptr())
 
 
-def _partials(T, x: torch.Tensor):
-    """Each strip group's partial y (G * nrows), summed in group order by a
-    second pass, where the tiles have G > 1 groups; else None."""
-    return (torch.empty(T.n_groups * T.nrows, dtype=x.dtype, device=x.device)
-            if T.n_groups > 1 else None)
+def _partials(T, x: torch.Tensor, stage: str):
+    """Each strip group's partial y (G * nrows), summed in group order by
+    group_sum_kernel, where the tiles have G > 1 groups and the stage is
+    not the main one (whose clusters sum them in shared memory); else
+    None.  The launch that takes them counts the group-sum pass."""
+    if T.n_groups == 1 or stage == MAIN_STAGE:
+        return None
+    return torch.empty(T.n_groups * T.nrows, dtype=x.dtype, device=x.device)
+
+
+# csrc/spmv_tiled.cu's group_sum_kernel, the second pass of every stage but
+# the main one over G > 1 strip groups (the previous design, the multicast
+# stages, the segsum study), launched inside their C entry points: each
+# wrapper adds one here after a launch that took partials.  No solve
+# launches it.
+group_sum_kernel = types.SimpleNamespace(launches=0)
+# The fused halves' launches on block_x, the previous design, apart from
+# tiled_x_half's and tiled_y_half's counts, which take every stage: no
+# solve launches them.
+tiled_x_half_block_x = types.SimpleNamespace(launches=0)
+tiled_y_half_block_x = types.SimpleNamespace(launches=0)
+BLOCK_X_HALVES = {"x": tiled_x_half_block_x, "y": tiled_y_half_block_x}
+
+
+def _launch_text(stage: str, T) -> str:
+    return (f"{stage}, G {T.n_groups} x {T.n_chunks} chunks, "
+            f"{T.smem_bytes} B shared memory")
 
 
 def _raise_tiled(lib, err: int, what: str) -> None:
@@ -566,15 +600,15 @@ def tiled_spmv(T, x: torch.Tensor, stage: str = MAIN_STAGE) -> torch.Tensor:
         return torch.zeros(T.nrows, dtype=x.dtype, device=x.device)
     lib = _tiled_lib(x)
     y = torch.empty(T.nrows, dtype=x.dtype, device=x.device)
-    part = _partials(T, x)
+    part = _partials(T, x, stage)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.hprlp_tiled_spmv(
             int(x.dtype == torch.float64), TILED_STAGES[stage],
             *_tile_args(T, x, part), y.data_ptr(), stream)
-    _raise_tiled(lib, err, f"{stage}, {T.n_blocks} blocks, {T.smem_bytes} "
-                           f"B shared memory")
+    _raise_tiled(lib, err, _launch_text(stage, T))
     tiled_spmv.launches += 1
+    group_sum_kernel.launches += part is not None
     return y
 
 
@@ -624,8 +658,12 @@ def _ptrs(out, rows, scal, inner) -> tuple:
     return tuple(ptr(v) for v in (out, hat, *rows, scal, inner))
 
 
-def _tiled_half(half: str, T, v: torch.Tensor, rows, scal, inner, t: int):
-    """One fused half on the tiles: checked, launched, its outputs."""
+def _tiled_half(half: str, T, v: torch.Tensor, rows, scal, inner, t: int,
+                stage: str):
+    """One fused half on the tiles on `stage` (HALF_STAGES): checked,
+    launched, its outputs."""
+    if stage not in HALF_STAGES:
+        raise ValueError(f"a fused half runs on {HALF_STAGES}, not {stage!r}")
     _check_cuda(v)
     check_tiled_half_layout(T, v, half, rows, scal, inner)
     out = _half_out(half, rows)
@@ -635,26 +673,32 @@ def _tiled_half(half: str, T, v: torch.Tensor, rows, scal, inner, t: int):
                          scal, inner, t)
         return out
     lib = _tiled_lib(v)
-    part = _partials(T, v)
+    part = _partials(T, v, stage)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         err = lib.hprlp_tiled_half(
             int(v.dtype == torch.float64), HALF_EPILOGUES[half],
-            TILED_STAGES[MAIN_STAGE], *_tile_args(T, v, part),
+            TILED_STAGES[stage], *_tile_args(T, v, part),
             *_ptrs(out, rows, scal, inner), t, stream)
-    _raise_tiled(lib, err, f"{half}-half, {T.n_blocks} blocks, "
-                           f"{T.smem_bytes} B shared memory")
+    _raise_tiled(lib, err, f"{half}-half, " + _launch_text(stage, T))
+    group_sum_kernel.launches += part is not None
+    if stage == "block_x":
+        BLOCK_X_HALVES[half].launches += 1
     return out
 
 
-def tiled_x_half(T, y, x, last_x, c, l, u, sigma, inner, t: int):
+def tiled_x_half(T, y, x, last_x, c, l, u, sigma, inner, t: int,
+                 stage: str = MAIN_STAGE):
     """One single-LP middle-iteration x-half on the card, fused into A^T
     y's row write on A^T's tiles T: returns (x_new, x_hat), as solver/
     chunk.py::x_half_plain computes them after tiled_spmv.  y: (m,); x,
     last_x, c, l, u: (n,); sigma: 0-dim; inner: 0-dim int32, the Halpern
-    counter at the first middle iteration; t: this iteration's index.
-    Raises on a bad argument or a refused launch."""
-    out = _tiled_half("x", T, y, (x, last_x, c, l, u), sigma, inner, t)
+    counter at the first middle iteration; t: this iteration's index;
+    stage: one of HALF_STAGES (block_x for measurements).  One launch at
+    any G on the main stage.  Raises on a bad argument or a refused
+    launch."""
+    out = _tiled_half("x", T, y, (x, last_x, c, l, u), sigma, inner, t,
+                      stage)
     tiled_x_half.launches += 1
     return out
 
@@ -662,14 +706,15 @@ def tiled_x_half(T, y, x, last_x, c, l, u, sigma, inner, t: int):
 tiled_x_half.launches = 0
 
 
-def tiled_y_half(T, x_hat, y, last_y, AL, AU, lam_sigma, inner, t: int):
+def tiled_y_half(T, x_hat, y, last_y, AL, AU, lam_sigma, inner, t: int,
+                 stage: str = MAIN_STAGE):
     """One single-LP middle-iteration y-half on the card, fused into A
     x_hat's row write on A's tiles T: returns y_new, as solver/chunk.py::
     y_half_plain computes it after tiled_spmv.  x_hat: (n,); y, last_y,
-    AL, AU: (m,); lam_sigma: 0-dim; inner, t as for tiled_x_half.  Raises
-    on a bad argument or a refused launch."""
+    AL, AU: (m,); lam_sigma: 0-dim; inner, t, stage as for tiled_x_half.
+    Raises on a bad argument or a refused launch."""
     out = _tiled_half("y", T, x_hat, (y, last_y, AL, AU), lam_sigma, inner,
-                      t)[0]
+                      t, stage)[0]
     tiled_y_half.launches += 1
     return out
 
@@ -715,11 +760,46 @@ tiled_half_epilogue.launches = 0
 
 def max_active_clusters(T, stage: str = MAIN_STAGE) -> int:
     """How many clusters of `stage` fit on the card at once at T's shared
-    memory (cudaOccupancyMaxActiveClusters)."""
+    memory (cudaOccupancyMaxActiveClusters); the main stage's are clusters
+    of T's G blocks.  Raises if the card refuses that cluster size."""
     lib = _tiled_library(torch.cuda.current_device())
-    return lib.hprlp_tiled_max_active_clusters(
-        int(T.vals.dtype == torch.float64), TILED_STAGES[stage],
+    n = lib.hprlp_tiled_max_active_clusters(
+        int(T.vals.dtype == torch.float64), TILED_STAGES[stage], T.n_groups,
         T.smem_bytes)
+    _raise_tiled(lib, max(0, -n), f"residency query, {stage}, G "
+                                  f"{T.n_groups}")
+    return n
+
+
+@functools.cache
+def _cluster_slots(device_index: int) -> dict:
+    lib = _tiled_library(device_index)
+    slots = {}
+    with torch.cuda.device(device_index):
+        for G in range(1, MAX_GROUPS + 1):
+            n = lib.hprlp_tiled_max_active_clusters(
+                0, TILED_STAGES[MAIN_STAGE], G, SMEM_BYTES)
+            _raise_tiled(lib, max(0, -n), f"residency query, G {G}")
+            if n <= 0:
+                raise RuntimeError(f"tiled SpMV: no cluster of {G} blocks "
+                                   f"with {SMEM_BYTES} B of shared memory "
+                                   f"each fits the card")
+            slots[G] = n
+    return slots
+
+
+def cluster_slots(device) -> dict | None:
+    """{G: clusters of G blocks of the main stage resident at once on
+    `device`} for G = 1 .. MAX_GROUPS, each block with a block's full
+    shared memory, as a tiling with G > 1 strip groups takes it (the
+    count build_tiles takes to keep a tiling's chunks in one wave); None
+    for a CPU device, where the tiles keep their CPU layout.  Raises if
+    the card refuses a cluster size or fits none."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return dict(_cluster_slots(device.index if device.index is not None
+                               else torch.cuda.current_device()))
 
 
 def row_of_entry(A) -> torch.Tensor:

@@ -41,9 +41,10 @@ import dataclasses
 import torch
 
 from .spmv import (CSR_BLOCK, CSR_VEC, DMA_ONLY, MERGE_ALL, NO_FLUSH,
-                   NO_GATHER, ONE_GATHER, RUN_MERGE, STORE, _tiled_library,
+                   NO_GATHER, ONE_GATHER, RUN_MERGE, STORE, _partials,
+                   _tiled_library,
                    check_tiled_args, csr_spmv_plain, csr_study,
-                   long_row_sums, plan, plan_row_sums, row_of_entry)
+                   group_sum_kernel, long_row_sums, plan, plan_row_sums, row_of_entry)
 from .tiles import (SENTINEL_ROW, SMEM_BYTES, WARPS, TiledMatrix,
                     build_tiles)
 
@@ -271,8 +272,7 @@ def spmv_segsum(A, x: torch.Tensor, variant_name: str,
     y = torch.empty(T.nrows, dtype=x.dtype, device=x.device)
     if T.nnz == 0:
         return y.zero_()
-    part = (torch.empty(T.n_groups * T.nrows, dtype=x.dtype, device=x.device)
-            if T.n_groups > 1 else None)
+    part = _partials(T, x, "block_x")  # the study runs on block_x
     lib = _tiled_library(x.device.index if x.device.index is not None
                          else torch.cuda.current_device())
     with torch.cuda.device(x.device):
@@ -288,6 +288,7 @@ def spmv_segsum(A, x: torch.Tensor, variant_name: str,
         raise RuntimeError(f"hprlp_tiled_segsum launch failed "
                            f"({variant_name}): {msg} ({err})")
     spmv_segsum.launches += 1
+    group_sum_kernel.launches += part is not None
     return y
 
 

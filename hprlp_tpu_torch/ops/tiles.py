@@ -12,12 +12,25 @@ column strip at a time and keep their rows of y there:
   or one strip covering all columns where that fits alone;
 * G strip groups of Kg consecutive strips, and row chunks of at most
   65535 rows that carry about equal nnz, padded with empty chunks to a
-  multiple of CLUSTER (the largest cluster the kernel runs); block
-  b = g * n_chunks + c takes strip group g of row chunk c, so it stages
-  1/G of x.  With G > 1 each block writes a partial y and a second pass
-  sums the G partials in group order.  By default G balances the x a
-  block stages (ncols / G) against the partial y it writes and reads
-  (2 * rows per chunk), within what shared memory allows;
+  multiple of CLUSTER (the largest cluster of the multicast stages);
+  block b = g * n_chunks + c takes strip group g of row chunk c, so it
+  stages 1/G of x.  With G > 1 each block holds a partial y of its chunk
+  in shared memory, and the kernel's main stage launches the G blocks of
+  a chunk as one thread-block cluster that sums the G partials in group
+  order through distributed shared memory: the partials never go through
+  HBM (the previous design, stage block_x, wrote them there for a second
+  pass).  By default G balances the x a block stages (ncols / G) against
+  the partials each row's sum reads (G per row, 2 * rows per chunk in the
+  model below), within what shared memory allows.  On the card
+  build_tiles takes `slots`, the clusters of each size that can be
+  resident at once (ops/spmv.py::cluster_slots): a tiling of G groups then aims at
+  slots[G] chunks, so that its clusters fill the card in one wave (a
+  chunk longer than block_rows still splits), and without it at
+  TARGET_BLOCKS / G; with slots a default G whose last group would hold
+  fewer than half the others' strips also takes one group fewer (the
+  strip-group sweep, prof/prof_tiled.py); `live_chunks` counts the chunks
+  before the padding, the only ones the main stage launches clusters
+  for;
 * within a (block, strip) each row belongs to one of WARPS warp runs, cut
   at row boundaries so that the runs carry about equal nnz; entries are
   stored by (block, warp, strip, row, column), so that one warp's runs
@@ -33,8 +46,10 @@ column strip at a time and keep their rows of y there:
   (`without_perm`), as the solve's ingest does.
 
 `build_tiles` runs on A's device with torch ops (stable sorts and
-cumsums, no loop over rows).  `strip_width`, `block_rows` and
-`strip_groups` exist so that tests and measurements can force a layout.
+cumsums, no loop over rows).  On a card it asks the card for its resident
+clusters (once per device); on the CPU it asks nothing, and tests can
+give it a table in `slots`.  `strip_width`, `block_rows`, `strip_groups`
+and `slots` exist so that tests and measurements can force a layout.
 """
 
 from __future__ import annotations
@@ -91,6 +106,7 @@ class TiledMatrix:
     group_strips: int        # Kg: strips per group (the last may have fewer)
     n_chunks: int
     max_block_rows: int      # rows of the largest chunk
+    live_chunks: int         # the chunks before the padding (with rows)
 
     @property
     def n_blocks(self) -> int:
@@ -152,10 +168,11 @@ class TiledMatrix:
 
 
 def _row_chunks(indptr: torch.Tensor, nrows: int, nnz: int, n_target: int,
-                row_cap: int) -> torch.Tensor:
-    """First row of each chunk (int64, ends with nrows): n_target cuts at
-    about equal nnz, chunks longer than row_cap split evenly, empty chunks
-    appended up to a multiple of CLUSTER."""
+                row_cap: int) -> tuple[torch.Tensor, int]:
+    """(first row of each chunk, int64, ending with nrows; the chunks
+    before the padding): n_target cuts at about equal nnz, chunks longer
+    than row_cap split evenly, empty chunks appended up to a multiple of
+    CLUSTER."""
     dev = indptr.device
     targets = torch.arange(1, n_target, device=dev) * nnz // n_target
     cuts = torch.searchsorted(indptr, targets)
@@ -175,7 +192,7 @@ def _row_chunks(indptr: torch.Tensor, nrows: int, nnz: int, n_target: int,
     n_chunks = _round_up(starts.numel(), CLUSTER)
     tail = torch.full((n_chunks - starts.numel() + 1,), nrows,
                       dtype=torch.int64, device=dev)
-    return torch.cat([starts, tail])
+    return torch.cat([starts, tail]), starts.numel()
 
 
 def _strip_width(ncols: int, max_rows: int, itemsize: int,
@@ -196,9 +213,11 @@ def _strip_width(ncols: int, max_rows: int, itemsize: int,
 
 def _default_groups(nrows: int, ncols: int, blocks: int, row_cap: int) -> int:
     """The power of two nearest below sqrt(blocks * ncols / (2 * nrows)),
-    which minimises the x a block stages (ncols / G) plus the partial y it
-    writes and reads (2 * nrows * G / blocks), with chunks of at most
-    row_cap rows and at least one chunk per group."""
+    which minimises the x a block stages (ncols / G) plus the partials of
+    its rows it writes and reads (2 * nrows * G / blocks: since the
+    cluster route, a shared-memory write and a distributed shared-memory
+    read), with chunks of at most row_cap rows and at least one chunk per
+    group."""
     best = (blocks * ncols / (2 * max(nrows, 1))) ** 0.5
     cap = min(MAX_GROUPS, blocks, blocks * row_cap // max(nrows, 1))
     g = 1
@@ -207,14 +226,35 @@ def _default_groups(nrows: int, ncols: int, blocks: int, row_cap: int) -> int:
     return g
 
 
+def _chunk_target(nnz: int, G: int, slots: dict | None) -> int:
+    """Row chunks to aim for at G groups: one block per NNZ_PER_BLOCK
+    entries, and at most one wave: TARGET_BLOCKS blocks (one per SM), or
+    with the card's `slots` the slots[G] clusters of G resident at once."""
+    blocks = max(1, -(-nnz // NNZ_PER_BLOCK))
+    if slots and G in slots:
+        return max(1, min(blocks // G, slots[G]))
+    return max(1, min(TARGET_BLOCKS, blocks) // G)
+
+
 def build_tiles(A, strip_width: int | None = None,
                 block_rows: int | None = None,
-                strip_groups: int | None = None) -> TiledMatrix:
+                strip_groups: int | None = None,
+                slots: dict | None | str = "device") -> TiledMatrix:
     """Lay CSR matrix A (CsrMatrix: int32 indptr/indices, sorted columns
-    within a row) out as column-strip tiles on A's device.  Raises if a row
-    or column index would not fit its 16 bits, or a block's strips and y
-    would not fit shared memory."""
+    within a row) out as column-strip tiles on A's device.  `slots`: {G:
+    clusters of G blocks resident at once on the card that will run the
+    tiles}; "device" (the default) takes them from A's device (ops/
+    spmv.py::cluster_slots, None on the CPU); None lays the tiles out
+    without a residency cap, as on the CPU.  Raises if a row or column
+    index would not fit its 16 bits, or a block's strips and y would not
+    fit shared memory."""
     dev = A.indptr.device
+    if isinstance(slots, str):
+        if slots != "device":
+            raise ValueError(f"slots must be a dict, None or 'device', got "
+                             f"{slots!r}")
+        from .spmv import cluster_slots  # ops/spmv.py imports this module
+        slots = cluster_slots(dev)
     nrows, ncols, nnz = A.nrows, A.ncols, A.nnz
     itemsize = A.vals.element_size()
     vec = vec_width(A.vals.dtype)
@@ -231,17 +271,32 @@ def build_tiles(A, strip_width: int | None = None,
     G = (_default_groups(nrows, ncols, blocks, row_cap)
          if strip_groups is None else int(strip_groups))
     indptr = A.indptr.to(torch.int64)
+    aim, recut = G, False  # the group count the chunks are cut for
     while True:
-        chunk_start = _row_chunks(indptr, nrows, nnz, max(1, blocks // G),
-                                  row_cap)
+        chunk_start, live = _row_chunks(indptr, nrows, nnz,
+                                        _chunk_target(nnz, aim, slots),
+                                        row_cap)
         max_rows = int((chunk_start[1:] - chunk_start[:-1]).max())
         W = _strip_width(ncols, max_rows, itemsize, strip_width)
         K = -(-ncols // W)
-        if G <= max(K, 1):
+        if G > max(K, 1):
+            G = aim = max(K, 1)  # no more groups than strips
+            continue
+        Kg = -(-K // G) if K else 1
+        G = -(-K // Kg) if K else 1  # no empty group
+        if slots is None or recut:
             break
-        G = max(K, 1)  # no more groups than strips
-    Kg = -(-K // G) if K else 1
-    G = -(-K // Kg) if K else 1  # no empty group
+        # On the card (slots): a default G whose last group holds fewer
+        # than half the others' strips takes one group fewer, since that
+        # group's block idles while its cluster's others stream; and the
+        # chunks are cut once more for the G that runs where it is not the
+        # G they were cut for, so that its clusters fill the wave (clusters
+        # of fewer blocks are no fewer: still one wave).
+        if strip_groups is None and G > 1 and 2 * (K - (G - 1) * Kg) < Kg:
+            G -= 1
+        if G == aim:
+            break
+        aim, recut = G, True
     C = chunk_start.numel() - 1
     need = smem_bytes(W, Kg, max_rows, itemsize)
     if need > SMEM_BYTES:
@@ -307,7 +362,7 @@ def build_tiles(A, strip_width: int | None = None,
                        row_start=chunk_start.to(torch.int32), perm=perm,
                        nrows=nrows, ncols=ncols, nnz=nnz, strip_width=W,
                        n_strips=K, n_groups=G, group_strips=Kg, n_chunks=C,
-                       max_block_rows=max_rows)
+                       max_block_rows=max_rows, live_chunks=live)
 
 
 def tiled_spmv_reference(T: TiledMatrix, x: torch.Tensor) -> torch.Tensor:

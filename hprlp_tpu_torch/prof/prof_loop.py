@@ -64,9 +64,11 @@ BATCHED_SIZES = {"large": lambda B: batched_lp(65536, 131072, B, seed=3),
 CHUNKS = 2
 # The most chunks one run() call replays.
 MAX_CHUNKS = 8
-# The SpMV kernels, with or without a fused half-update (csrc/spmv_tiled.cu,
-# csrc/spmv_csr.cu).
-SPMV_KERNELS = ("tiled_spmv_kernel", "group_sum_kernel", "csr_spmv_kernel")
+# The SpMV kernels, with or without a fused half-update (csrc/spmv_tiled.cu:
+# the main stage's cluster kernel, the previous design's kernel and group
+# sum; csrc/spmv_csr.cu).
+SPMV_KERNELS = ("tiled_cluster_kernel", "tiled_spmv_kernel",
+                "group_sum_kernel", "csr_spmv_kernel")
 # The SpMM kernel, with or without a fused half-update (csrc/spmm.cu).
 SPMM_KERNELS = ("csr_spmm_kernel",)
 

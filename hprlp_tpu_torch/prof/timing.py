@@ -10,8 +10,9 @@ function) and `epilogue_bound` that of the mesh's epilogue alone: the
 larger of its bytes over the HBM rate and its operations over the
 vector-unit peak (NVIDIA's data sheet; both assume the 700 W power
 limit).  `l2_rotations` sizes a set of input copies that keeps a timed
-call's inputs out of L2.  `tiled_half_bytes` is what a fused half on the tiles streams,
-padding and partials included: a figure of the layout, not a bound.
+call's inputs out of L2.  `tiled_half_bytes` is what a fused half on the
+tiles streams, padding (and on the previous design the partials)
+included: a figure of the layout, not a bound.
 `PeakRss`
 samples the host's resident set while a block runs.
 """
@@ -128,15 +129,22 @@ def half_bound(A, dtype: torch.dtype, B: int, half: str
                   2 * A.nnz * B + 12 * A.nrows * B, dtype)
 
 
-def tiled_half_bytes(T, dtype: torch.dtype, half: str) -> int:
+def tiled_half_bytes(T, dtype: torch.dtype, half: str,
+                     stage: str | None = None) -> int:
     """Bytes one fused single-LP half streams on the tiles T (A^T's for
-    the x-half): the tiles' padded value/key stream, their runs and row
-    starts, the gathered operand's strips (x once), the half's row vectors
-    read and written, with G > 1 strip groups the G partials written and
-    read, and the scalar and counter.  The layout's cost beside the
-    function's least bytes (half_bytes), which bound the half."""
+    the x-half) on `stage` (default: ops/spmv.py MAIN_STAGE): the tiles'
+    padded value/key stream, their runs and row starts, the gathered
+    operand's strips (x once), the half's row vectors read and written,
+    the scalar and counter, and on block_x (the previous design) with G >
+    1 strip groups the G partials written to HBM and read back; the main
+    stage sums them in distributed shared memory.  The layout's cost
+    beside the function's least bytes (half_bytes), which bound the
+    half."""
+    from ..ops.spmv import MAIN_STAGE
+
     v = torch.empty((), dtype=dtype).element_size()
-    partials = 2 * T.n_groups * T.nrows * v if T.n_groups > 1 else 0
+    through_hbm = T.n_groups > 1 and (stage or MAIN_STAGE) != MAIN_STAGE
+    partials = 2 * T.n_groups * T.nrows * v if through_hbm else 0
     return (T.vals.shape[0] * (v + 4)
             + (T.runs.numel() + T.row_start.numel()) * 4 + T.ncols * v
             + HALF_ROW_TENSORS[half] * T.nrows * v + partials + v + 4)

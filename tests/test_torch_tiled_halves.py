@@ -82,6 +82,24 @@ def test_fused_tiled_wrappers_refuse_cpu_tensors(wrapper):
         calls[wrapper]()
 
 
+@pytest.mark.parametrize("stage", ["group_cluster", "block_x", "global_x",
+                                   "cluster8_x"])
+@pytest.mark.parametrize("half", ["x", "y"])
+def test_fused_tiled_halves_run_on_the_main_stage_or_block_x(half, stage):
+    """A fused half runs on the main stage (its default) or on block_x,
+    the previous design kept as the yardstick; another stage is refused
+    before anything else, and the two it takes still refuse CPU tensors
+    (no fallback)."""
+    from hprlp_tpu_torch.ops.spmv import HALF_STAGES
+
+    T, v, rows, scal, inner = _small()
+    fn = tiled_x_half if half == "x" else tiled_y_half
+    args = rows if half == "x" else rows[:4]
+    match = "CUDA" if stage in HALF_STAGES else "fused half runs on"
+    with pytest.raises(ValueError, match=match):
+        fn(T, v, *args, scal, inner, 0, stage=stage)
+
+
 def _bad(case):
     """check_tiled_half_layout's arguments with one thing wrong, and the
     error it must raise."""

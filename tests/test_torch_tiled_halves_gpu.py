@@ -13,7 +13,9 @@ skip without one.  The file imports neither JAX nor the JAX package:
 Tolerances: bitwise throughout.  A fused half is the tiled kernel's row
 sums (the same kernel, the same order) followed by csrc/hpr_half.cuh's
 update, whose rounding is PyTorch's elementwise ops'; the epilogue is
-that update alone.
+that update alone; the main stage's halves (one cluster of the G
+strip-group blocks per row chunk) are block_x's (partials through HBM,
+then group_sum_kernel) on the same tiles.
 """
 
 import contextlib
@@ -26,7 +28,8 @@ import torch
 
 from hprlp_tpu_torch.ops.device_problem import host_csr, upload_problem
 from hprlp_tpu_torch.ops.sparse import spmv_backend
-from hprlp_tpu_torch.ops.spmv import (tiled_half_epilogue, tiled_spmv,
+from hprlp_tpu_torch.ops.spmv import (BLOCK_X_HALVES, group_sum_kernel,
+                                      tiled_half_epilogue, tiled_spmv,
                                       tiled_x_half, tiled_y_half)
 from hprlp_tpu_torch.ops.tiles import tiled_spmv_reference
 from hprlp_tpu_torch.parallel.sharded import shard_problem
@@ -34,7 +37,8 @@ from hprlp_tpu_torch.solver import chunk
 from hprlp_tpu_torch.solver.graph import CapturedStep
 
 from test_torch_parallel_ranks import random_problem
-from test_torch_tiles_gpu import make_case
+from test_torch_tiles_gpu import (GROUP_CASES, group_case_shape, make_case,
+                                  make_group_case)
 
 DTYPES = [torch.float32, torch.float64]
 SIGMA, LAM_SIGMA, INNER = 0.37, 1.9, 11
@@ -209,6 +213,45 @@ def test_fused_tiled_halves_equal_store_plus_plain_ops(cuda, case, dtype):
             before[0] + 1, before[1] + 1)
 
 
+@pytest.mark.parametrize("half", ["x", "y"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(GROUP_CASES) + ["uneven_groups"])
+def test_cluster_route_halves_are_bitwise_block_x(cuda, case, dtype, half):
+    """Each fused half on the main stage bitwise block_x's on the same
+    tiles at G = 1 .. 8 (uneven groups, empty padded chunks, chunks of
+    fewer rows than G), infinite bounds included: one launch a call, no
+    group-sum pass (block_x takes one at G > 1), and only block_x's call
+    counted among the halves on block_x."""
+    _, T, _ = (make_group_case(case, dtype, cuda) if case in GROUP_CASES
+               else make_case(case, dtype, cuda))
+    G = group_case_shape(T)[0]
+    o = _operands(T, dtype, cuda, infinite=True)
+    if half == "x":
+        def run(stage):
+            return tiled_x_half(T, o["v"], *_x_rows(o), o["sigma"],
+                                o["inner"], 7, stage=stage)
+        counter = tiled_x_half
+    else:
+        def run(stage):
+            return (tiled_y_half(T, o["v"], *_y_rows(o), o["lam_sigma"],
+                                 o["inner"], 7, stage=stage),)
+        counter = tiled_y_half
+    old = BLOCK_X_HALVES[half]
+
+    def counts():
+        return (counter.launches, group_sum_kernel.launches, old.launches)
+
+    before = counts()
+    got = run("group_cluster")
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 0, 0)
+    want = run("block_x")
+    assert tuple(a - b for a, b in zip(counts(), before)) == (
+        2, int(G > 1), 1)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 @pytest.mark.parametrize("half", ["x", "y"])
 def test_epilogue_equals_the_plain_update(cuda, half, dtype):
@@ -323,3 +366,6 @@ def test_tiled_halves_reject_bad_arguments(cuda):
     with pytest.raises(ValueError, match="row operands"):
         tiled_half_epilogue("x", o["x"], _y_rows(o), o["sigma"], o["inner"],
                             0)
+    with pytest.raises(ValueError, match="fused half runs on"):
+        tiled_x_half(T, o["v"], *_x_rows(o), o["sigma"], o["inner"], 0,
+                     stage="global_x")

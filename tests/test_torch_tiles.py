@@ -30,13 +30,17 @@ from hprlp_tpu_torch.ops.device_problem import (attach_tiles,
                                                 build_device_problem,
                                                 csr_from_coo)
 from hprlp_tpu_torch.ops.sparse import spmv
-from hprlp_tpu_torch.ops.spmv import (check_tiled_layout, spmv_reference,
-                                      tiled_spmv)
+from hprlp_tpu_torch.ops.spmv import (HALF_STAGES, MAIN_STAGE, TILED_STAGES,
+                                      _partials, check_tiled_layout,
+                                      cluster_slots, group_sum_kernel,
+                                      spmv_reference, tiled_spmv)
 from hprlp_tpu_torch.ops.tiles import (CLUSTER, MAX_BLOCK_ROWS, SENTINEL_ROW,
                                        SMEM_BYTES, WARPS, build_tiles,
                                        smem_bytes, tiled_spmv_reference,
                                        vec_width)
-from test_torch_tiles_gpu import CASES, make_case
+from hprlp_tpu_torch.prof.timing import tiled_half_bytes
+from test_torch_tiles_gpu import (CASES, GROUP_CASES, group_case_shape,
+                                  make_case, make_group_case)
 
 torch.set_num_threads(1)
 
@@ -49,6 +53,12 @@ def _case(name, dtype):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", sp.SparseEfficiencyWarning)
         return make_case(name, dtype, "cpu")
+
+
+def _group_case(name, dtype):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", sp.SparseEfficiencyWarning)
+        return make_group_case(name, dtype, "cpu")
 
 
 def _assert_close(y, y_ref, tol):
@@ -439,3 +449,172 @@ def test_prof_tiled_needs_a_card(capsys):
 
     assert prof_tiled.main(["--size", "bench"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+# --- the main stage: strip groups as one cluster ---------------------------
+
+def test_stage_table_names_the_cluster_route_main():
+    """The main stage is the cluster of the G strip groups (code -1 in
+    csrc/spmv_tiled.cu); block_x (code 1, the previous design) stays, and
+    the fused halves run on those two only."""
+    assert MAIN_STAGE == "group_cluster"
+    assert TILED_STAGES == {"group_cluster": -1, "global_x": 0,
+                            "block_x": 1, "cluster2_x": 2, "cluster4_x": 4,
+                            "cluster8_x": 8}
+    assert HALF_STAGES == ("group_cluster", "block_x")
+    assert cluster_slots("cpu") is None
+
+
+@pytest.mark.parametrize("stage", sorted(TILED_STAGES))
+@pytest.mark.parametrize("case", ["random", "strip_groups"])
+def test_partials_only_off_the_main_stage(case, stage):
+    """No partial y is allocated on the main stage; every other stage takes
+    G * nrows partials at G > 1, none at G = 1.  Allocating counts no
+    group-sum pass: only a launch that succeeded does."""
+    _, T, x = _case(case, torch.float32)
+    before = group_sum_kernel.launches
+    part = _partials(T, x, stage)
+    if T.n_groups == 1 or stage == MAIN_STAGE:
+        assert part is None
+    else:
+        assert part.shape == (T.n_groups * T.nrows,)
+        assert part.dtype == x.dtype
+    assert group_sum_kernel.launches == before
+    assert (T.n_groups > 1) == (case == "strip_groups")
+
+
+@pytest.mark.parametrize("half", ["x", "y"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["random", "strip_groups", "G7"])
+def test_tiled_half_bytes_count_partials_on_block_x_only(case, dtype, half):
+    """The byte model: the main stage streams no partials; block_x streams
+    2 G nrows values more at G > 1, the same at G = 1."""
+    _, T, _ = (_group_case(case, dtype) if case in GROUP_CASES
+               else _case(case, dtype))
+    v = torch.empty((), dtype=dtype).element_size()
+    main = tiled_half_bytes(T, dtype, half)
+    assert main == tiled_half_bytes(T, dtype, half, MAIN_STAGE)
+    extra = 2 * T.n_groups * T.nrows * v if T.n_groups > 1 else 0
+    assert tiled_half_bytes(T, dtype, half, "block_x") == main + extra
+    rows = 7 if half == "x" else 5
+    assert main == (T.vals.shape[0] * (v + 4) + (T.runs.numel()
+                    + T.row_start.numel()) * 4 + T.ncols * v
+                    + rows * T.nrows * v + v + 4)
+
+
+def test_group_cases_cover_the_cluster_edges():
+    """The card's cluster cases (tests/test_torch_tiles_gpu.py GROUP_CASES)
+    hold G = 1 .. 8 as asked, uneven groups (3, 5, 6, 7 among them), chunks of fewer
+    rows than G, and empty padded chunks; their plain y is the CSR one."""
+    seen = {"uneven": set(), "rows_below_G": set(), "padded": set()}
+    for name in GROUP_CASES:
+        M, T, x = _group_case(name, torch.float64)
+        G, rows, empty = group_case_shape(T)
+        assert G == GROUP_CASES[name][0], name
+        if T.n_strips % T.group_strips:
+            seen["uneven"].add(G)
+        if rows < G:
+            seen["rows_below_G"].add(G)
+        if empty:
+            seen["padded"].add(G)
+        assert torch.equal(tiled_spmv_reference(T, x), spmv_reference(M, x))
+    assert {3, 5, 6, 7} <= seen["uneven"]
+    assert seen["rows_below_G"] and len(seen["padded"]) >= 4
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_live_chunks_are_the_chunks_before_the_padding(case):
+    """live_chunks counts the chunks with rows, which come first; the rest
+    are the empty padding up to a multiple of CLUSTER."""
+    _, T, _ = _case(case, torch.float32)
+    n = (T.row_start[1:] - T.row_start[:-1]).numpy()
+    assert 1 <= T.live_chunks <= T.n_chunks
+    assert (n[:T.live_chunks] > 0).all() and (n[T.live_chunks:] == 0).all()
+    assert T.n_chunks - T.live_chunks < CLUSTER
+
+
+SLOTS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+@pytest.mark.parametrize("G", [2, 3, 5, 8])
+def test_slots_cap_the_chunks_at_the_resident_clusters(G):
+    """With the card's resident clusters (an H100's counts at full shared
+    memory; a smaller table too), a tiling of G groups takes at most
+    slots[G] chunks and G stays; its y is the CSR one; without slots the
+    layout is the CPU's (build_tiles with no argument), bitwise."""
+    M, _, x = _group_case(f"G{G}", torch.float64)
+    plain = build_tiles(M, strip_width=64, strip_groups=G)
+    again = build_tiles(M, strip_width=64, strip_groups=G, slots=None)
+    for f in ("vals", "keys", "runs", "row_start"):
+        assert torch.equal(getattr(plain, f), getattr(again, f)), f
+    for slots in (SLOTS, {g: 1 for g in SLOTS}):
+        T = build_tiles(M, strip_width=64, strip_groups=G, slots=slots)
+        assert T.n_groups == G and T.live_chunks <= slots[G]
+        assert torch.equal(tiled_spmv_reference(T, x), spmv_reference(M, x))
+    small = build_tiles(M, strip_width=64, strip_groups=G,
+                        slots={g: 1 for g in SLOTS})
+    assert small.live_chunks == 1 < plain.live_chunks
+
+
+def test_slots_cut_the_chunks_for_the_groups_that_run():
+    """Eleven strips asked into 8 groups run as 6 (two strips each): with
+    slots the chunks are cut again for 6 groups (slots[6] of them), not
+    left at slots[8]; without slots the chunk count stays the CPU's."""
+    rng = np.random.default_rng(5)
+    A = sp.random(3000, 11 * 64, density=0.05, random_state=rng).tocoo()
+    M = csr_from_coo(A.row, A.col, A.data, 3000, 11 * 64, torch.float32,
+                     "cpu")
+    slots = {g: 9 - g for g in range(1, 9)}  # 8: 1, 6: 3
+    T = build_tiles(M, strip_width=64, strip_groups=8, slots=slots)
+    assert (T.n_groups, T.group_strips) == (6, 2)
+    assert T.live_chunks == slots[6]
+    plain = build_tiles(M, strip_width=64, strip_groups=8)
+    assert plain.n_groups == 6
+    assert plain.live_chunks == max(1, -(-M.nnz // 4096) // 8)
+
+
+def test_slots_take_a_group_fewer_for_a_short_last_group():
+    """A default of 4 groups over 13 strips leaves the last group one strip
+    against the others' four: with slots the tiles take 3 groups (5, 5
+    and 3 strips); without slots, or with the groups forced, they keep
+    4."""
+    rng = np.random.default_rng(6)
+    m, n = 4096, 2048
+    A = sp.random(m, n, density=0.0625, random_state=rng).tocoo()
+    M = csr_from_coo(A.row, A.col, A.data, m, n, torch.float32, "cpu")
+    assert build_tiles(M, strip_width=160).n_groups == 4
+    T = build_tiles(M, strip_width=160, slots=SLOTS)
+    assert (T.n_strips, T.n_groups, T.group_strips) == (13, 3, 5)
+    assert T.live_chunks <= SLOTS[3]
+    assert build_tiles(M, strip_width=160, strip_groups=4,
+                       slots=SLOTS).n_groups == 4
+    x = torch.as_tensor(rng.normal(size=n)).float()
+    assert torch.equal(tiled_spmv_reference(T, x), spmv_reference(M, x))
+
+
+def test_tiles_take_the_devices_slots_by_default(monkeypatch):
+    """build_tiles with no slots asks the tiles' device for its resident
+    clusters (ops/spmv.py::cluster_slots), so that every caller on the
+    card gets tiles cut to one wave: the table the device answers lays the
+    tiles out as that table given; the CPU answers None, the uncapped
+    layout; a slots of another kind raises."""
+    from hprlp_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(6)
+    m, n = 4096, 2048
+    A = sp.random(m, n, density=0.0625, random_state=rng).tocoo()
+    M = csr_from_coo(A.row, A.col, A.data, m, n, torch.float32, "cpu")
+    uncapped = build_tiles(M, strip_width=160, slots=None)
+    assert build_tiles(M, strip_width=160).n_groups == uncapped.n_groups == 4
+    asked = []
+    monkeypatch.setattr(spmv, "cluster_slots",
+                        lambda dev: asked.append(dev) or SLOTS)
+    T = build_tiles(M, strip_width=160)
+    given = build_tiles(M, strip_width=160, slots=SLOTS)
+    assert asked == [M.indptr.device]
+    assert (T.n_groups, T.live_chunks) == (given.n_groups, given.live_chunks)
+    assert T.n_groups == 3
+    for f in ("vals", "keys", "runs", "row_start"):
+        assert torch.equal(getattr(T, f), getattr(given, f)), f
+    with pytest.raises(ValueError, match="slots"):
+        build_tiles(M, strip_width=160, slots="card")

@@ -6,10 +6,13 @@ runs on a machine that has only the port's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_tiles_gpu.py
 
-The edge cases (CASES) are shared with tests/test_torch_tiles.py, which
-checks the layout and the plain version on the CPU.  Tolerances: 1e-5 *
-max|y| in f32 and 1e-12 * max|y| in f64 -- the kernel sums each row by
-its own fixed tree, the plain version in column order.
+The edge cases (CASES, GROUP_CASES) are shared with tests/
+test_torch_tiles.py, which checks the layout and the plain version on the
+CPU.  Tolerances: 1e-5 * max|y| in f32 and 1e-12 * max|y| in f64 -- the
+kernel sums each row by its own fixed tree, the plain version in column
+order; the main stage (one cluster of the G strip-group blocks per row
+chunk) against block_x (partials through HBM, then group_sum_kernel):
+bitwise.
 """
 
 import numpy as np
@@ -20,7 +23,10 @@ import torch
 import hprlp_tpu_torch as ht
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
 from hprlp_tpu_torch.ops.sparse import spmv, with_spmv_backend
-from hprlp_tpu_torch.ops.spmv import TILED_STAGES, csr_spmv, tiled_spmv
+from hprlp_tpu_torch.ops.spmv import (MAIN_STAGE, TILED_STAGES,
+                                      cluster_slots, csr_spmv,
+                                      group_sum_kernel, max_active_clusters,
+                                      tiled_spmv)
 from hprlp_tpu_torch.ops.tiles import build_tiles, tiled_spmv_reference
 
 pytestmark = pytest.mark.gpu
@@ -93,6 +99,43 @@ def make_case(name, dtype, device):
     x = np.random.default_rng(11).normal(size=n)
     return M, build_tiles(M, **kw), torch.as_tensor(x, device=device).to(
         dtype)
+
+
+# The main stage's clusters against block_x: a matrix of 47 strips of 64
+# columns (the last one short), so that strip_groups G = 1 .. 8 each stay G
+# (ceil(47 / ceil(47 / G)) == G) with uneven groups at every G > 1, by
+# (strip_groups, block_rows): default chunks, and chunks of fewer rows
+# than G; most cases pad their chunks with empty ones.
+GROUP_STRIPS, GROUP_W = 47, 64
+GROUP_CASES = {**{f"G{G}": (G, None) for G in range(1, 9)},
+               "G7_rows_below_G": (7, 5), "G8_rows_below_G": (8, 3),
+               "G5_rows_below_G": (5, 2)}
+
+
+def make_group_case(name, dtype, device):
+    """(CsrMatrix, TiledMatrix, x) of a GROUP_CASES case: a seeded random
+    3000 x 2994 matrix (every ninth row empty), its tiles with the case's
+    strip groups and chunk rows; x from a seeded draw."""
+    G, rows = GROUP_CASES[name]
+    m, n = 3000, GROUP_STRIPS * GROUP_W - 14
+    A = _random(20 + G, m, n, 0.01).tolil()
+    A[::9] = 0
+    A = A.tocsr()
+    A.eliminate_zeros()
+    A = A.tocoo()
+    M = csr_from_coo(A.row, A.col, A.data, m, n, dtype, device)
+    kw = {"strip_width": GROUP_W, "strip_groups": G}
+    if rows is not None:
+        kw["block_rows"] = rows
+    x = np.random.default_rng(12).normal(size=n)
+    return M, build_tiles(M, **kw), torch.as_tensor(x, device=device).to(
+        dtype)
+
+
+def group_case_shape(T):
+    """(G, rows of the largest chunk, empty chunks) of a case's tiles."""
+    rs = T.row_start.cpu()
+    return T.n_groups, T.max_block_rows, int(((rs[1:] - rs[:-1]) == 0).sum())
 
 
 @pytest.fixture
@@ -179,3 +222,66 @@ def test_solve_on_the_card_goes_through_the_tiled_kernel(cuda):
     assert res.primal_obj == pytest.approx(-26.4, abs=1e-2)
     assert tiled_spmv.launches > 0
     assert csr_spmv.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(GROUP_CASES) + ["uneven_groups"])
+def test_cluster_route_is_bitwise_block_x(cuda, case, dtype):
+    """y on the main stage bitwise block_x's on the same tiles, at G = 1 ..
+    8, uneven groups, empty padded chunks and chunks of fewer rows than G;
+    one launch a call, and no group-sum pass (block_x takes one at G >
+    1)."""
+    M, T, x = (make_group_case(case, dtype, cuda) if case in GROUP_CASES
+               else make_case(case, dtype, cuda))
+    G, rows, _ = group_case_shape(T)
+    if case in GROUP_CASES:
+        want, rows_cap = GROUP_CASES[case]
+        assert G == want and (rows_cap is None or rows < G)
+    before = (tiled_spmv.launches, group_sum_kernel.launches)
+    y = tiled_spmv(T, x)
+    assert (tiled_spmv.launches - before[0],
+            group_sum_kernel.launches - before[1]) == (1, 0)
+    y_prev = tiled_spmv(T, x, "block_x")
+    assert group_sum_kernel.launches - before[1] == (G > 1)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_prev)
+    _assert_close(y, tiled_spmv_reference(T, x), TOL[dtype])
+
+
+def test_refused_cluster_launch_raises(cuda):
+    """Nine strip groups ask for a cluster of nine blocks, above the
+    portable eight: the main stage refuses the launch and the wrapper
+    raises (no fallback to block_x, which runs these tiles)."""
+    A = _random(30, 400, 9 * GROUP_W, 0.02)
+    M = csr_from_coo(A.row, A.col, A.data, 400, 9 * GROUP_W, torch.float32,
+                     cuda)
+    T = build_tiles(M, strip_width=GROUP_W, strip_groups=9)
+    x = torch.ones(T.ncols, device=cuda)
+    assert T.n_groups == 9
+    before = tiled_spmv.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tiled_spmv(T, x)
+    assert tiled_spmv.launches == before
+    _assert_close(tiled_spmv(T, x, "block_x"), tiled_spmv_reference(T, x),
+                  1e-5)
+
+
+def test_cluster_slots_keep_one_wave(cuda):
+    """cluster_slots: a positive count for every G = 1 .. 8, no larger as
+    G grows; the main stage's residency query agrees at the tiles' G; and
+    tiles built with them take at most slots[G] non-empty chunks (the
+    kernel still right on them)."""
+    slots = cluster_slots(cuda)
+    assert sorted(slots) == list(range(1, 9))
+    assert all(slots[G] > 0 for G in slots)
+    assert all(slots[G + 1] <= slots[G] for G in range(1, 8))
+    M, _, x = make_case("random", torch.float32, cuda)
+    for G in (2, 3, 5, 7):
+        T = build_tiles(M, strip_width=256, strip_groups=G, slots=slots)
+        rs = T.row_start.cpu()
+        live = int(((rs[1:] - rs[:-1]) > 0).sum())
+        assert T.n_groups == G and live <= slots[G], (G, live, slots)
+        assert max_active_clusters(T) >= slots[G]  # at no more shared memory
+        _assert_close(tiled_spmv(T, x), tiled_spmv_reference(T, x), 1e-5)
+    assert MAIN_STAGE == "group_cluster"
