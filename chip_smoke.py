@@ -1009,7 +1009,7 @@ def spmm_check(card, problem):
     from hprlp_tpu_torch.ops.spmm import (csr_spmm, csr_spmm_rowwise,
                                           spmm_grid, spmm_plan,
                                           spmm_reference)
-    from hprlp_tpu_torch.prof.timing import spmv_bound
+    from hprlp_tpu_torch.prof.timing import gather_bytes, spmv_bound
 
     def uncapped(M, X):
         """The solver's design with no L2 cap on its slices' width."""
@@ -1061,7 +1061,11 @@ def spmm_check(card, problem):
                        "plain_ms": time_ms(lambda: spmm_reference(M, X),
                                            reps=10),
                        "library_ms": time_ms(lambda: torch.sparse.mm(S, X)),
-                       "bound_ms": bound_ms, "bound_by": bound_by}
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "gather_bytes": gather_bytes(M, dtype, B)}
+                rec["l2_tbs"] = rec["gather_bytes"] / rec["ms"] * 1e-9
+                rec["prev_l2_tbs"] = rec["gather_bytes"] / rec["prev_ms"] \
+                    * 1e-9
                 records[tag, mat_name, B] = rec
                 unc = rec["uncapped_ms"]
                 phase(9, f"SpMM {tag} {mat_name} B={B} ({M.nnz} nnz, plan "
@@ -1074,7 +1078,10 @@ def spmm_check(card, problem):
                          f"{rec['prev_ms']:.5f} uncapped="
                          f"{'-' if unc is None else f'{unc:.5f}'} plain="
                          f"{rec['plain_ms']:.5f} cusparse="
-                         f"{rec['library_ms']:.5f} [{card}]")
+                         f"{rec['library_ms']:.5f}; X gathered from L2 "
+                         f"{rec['gather_bytes'] / 1e6:.1f} MB: "
+                         f"{rec['l2_tbs']:.2f} TB/s (previous "
+                         f"{rec['prev_l2_tbs']:.2f}) [{card}]")
     for tag in ("f32", "f64"):
         for B in (64, 256):
             r = records[tag, "A", B]
@@ -1097,7 +1104,8 @@ def batched_phase(card, row_sums):
     from hprlp_tpu_torch.ops.device_problem import csr_from_coo
     from hprlp_tpu_torch.ops.sparse import spmm, with_backend
     from hprlp_tpu_torch.ops.spmm import (csr_spmm, csr_spmm_rowwise,
-                                          spmm_x_half, spmm_y_half)
+                                          spmm_x_half, spmm_y_half,
+                                          spmm_y_half_previous)
     from hprlp_tpu_torch.ops.spmv import csr_spmv, tiled_spmv
     from hprlp_tpu_torch.prof import prof_loop
     from hprlp_tpu_torch.prof.problems import batched_lp
@@ -1112,12 +1120,29 @@ def batched_phase(card, row_sums):
              f"in {time.perf_counter() - t0:.2f} s")
     counted = {"csr_spmm": csr_spmm, "spmm_x_half": spmm_x_half,
                "spmm_y_half": spmm_y_half, "tiled_spmv": tiled_spmv,
-               "csr_spmv": csr_spmv, "csr_spmm_rowwise": csr_spmm_rowwise}
+               "csr_spmv": csr_spmv, "csr_spmm_rowwise": csr_spmm_rowwise,
+               "spmm_y_half_previous": spmm_y_half_previous}
     for fn in counted.values():
         fn.launches = 0
     res = hp.solve_batched(A, C, AL, AU, l, u, params=hp.Parameters(
         stop_tol=1e-4, verbose=False, time_limit=300))
     launches = {name: fn.launches for name, fn in counted.items()}
+    # The same solve with the y-half on its previous design: bitwise the
+    # same members (statuses, iterations, objectives).
+    from hprlp_tpu_torch.solver import batched as batched_mod
+    with swapped(batched_mod, spmm_y_half=spmm_y_half_previous):
+        res_prev = hp.solve_batched(A, C, AL, AU, l, u, params=hp.Parameters(
+            stop_tol=1e-4, verbose=False, time_limit=300))
+    same_prev = (res.status == res_prev.status
+                 and np.array_equal(res.iter, res_prev.iter)
+                 and np.array_equal(res.primal_obj, res_prev.primal_obj))
+    phase(9, f"batched_large with the previous y-half (spmm_y_half_previous"
+             f", {spmm_y_half_previous.launches} launches): statuses, "
+             f"per-member iterations and objectives bitwise the solve's: "
+             f"{same_prev}; solve={res_prev.solve_time:.3f}s against "
+             f"{res.solve_time:.3f}s [{card}]")
+    check(same_prev, "phase 9: batched_large's members differ with the "
+          "previous y-half")
     kkt = np.array([hp.LpProblem.from_arrays(
         A, AL[:, k], AU[:, k], l[:, k], u[:, k], C[:, k]).kkt_error(
         res.x[:, k], res.y[:, k], res.z[:, k])["kkt"] for k in range(B)])
@@ -1171,7 +1196,7 @@ def batched_phase(card, row_sums):
               f"{r['batched_obj']} against {r['primal_obj']} alone")
     for name in ("csr_spmm", "spmm_x_half", "spmm_y_half", "tiled_spmv"):
         check(launches[name] > 0, f"phase 9: {name} was never launched")
-    for name in ("csr_spmv", "csr_spmm_rowwise"):
+    for name in ("csr_spmv", "csr_spmm_rowwise", "spmm_y_half_previous"):
         check(launches[name] == 0, f"phase 9: the batched solve launched "
               f"{name} {launches[name]} times")
 
@@ -1268,10 +1293,11 @@ def fused_phase(card):
     the frozen members' iterates unchanged.  Each half timed by graph
     replay, fused and plain, beside its byte bound; the f64 chunk
     profiled.  Returns {dtype tag: record}."""
-    from hprlp_tpu_torch.ops.spmm import spmm_x_half, spmm_y_half
+    from hprlp_tpu_torch.ops.spmm import (spmm_x_half, spmm_y_half,
+                                          spmm_y_half_previous)
     from hprlp_tpu_torch.prof import prof_loop
     from hprlp_tpu_torch.prof.problems import batched_lp
-    from hprlp_tpu_torch.prof.timing import half_bound
+    from hprlp_tpu_torch.prof.timing import gather_bytes, half_bound
     from hprlp_tpu_torch.solver import batched
 
     arrays = batched_lp(65536, 131072, 64, seed=3)
@@ -1330,12 +1356,58 @@ def fused_phase(card):
             rec[half] = {"ms": time_ms(fused_fn),
                          "eager_ms": eager_ms(fused_fn),
                          "plain_ms": time_ms(plain_fn, reps=10),
-                         "bound_ms": bound_ms, "bound_by": bound_by}
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "gather_bytes": gather_bytes(
+                             lp.AT if half == "x" else lp.A, dtype, B)}
             r = rec[half]
             phase(9, f"fused {half}-half {tag} B={B}: {r['ms']:.5f} ms "
                      f"({bound_ms / r['ms']:.1%} of bound {bound_ms:.5f} "
                      f"ms, {bound_by}), eager {r['eager_ms']:.5f} ms; plain "
-                     f"ops {r['plain_ms']:.5f} ms (graph replay) [{card}]")
+                     f"ops {r['plain_ms']:.5f} ms (graph replay); X "
+                     f"gathered from L2 {r['gather_bytes'] / 1e6:.1f} MB: "
+                     f"{r['gather_bytes'] / r['ms'] * 1e-9:.2f} TB/s "
+                     f"[{card}]")
+        # The y-half's kernel (the ring) against its previous design on the
+        # same inputs: bitwise, and timed in turns (previous, ring, ring,
+        # previous) beside the bound and the L2 rate each implies.
+        y_args = (lp.A, x_hat, y, st.last_y, lp.AL, lp.AU,
+                  lam_sigma.reshape(-1), inner, active, 0)
+        y_ring = spmm_y_half(*y_args)
+        y_prev = spmm_y_half_previous(*y_args)
+        y_plain = batched.y_half_plain(lp, y, x_hat, st.last_y, lam_sigma,
+                                       inner, 0, active)
+        torch.cuda.synchronize()
+        r = rec["y"]
+        r["bitwise_previous"] = torch.equal(y_ring, y_prev)
+        # The previous design against the plain ops on the same inputs.
+        r["previous_max_abs_err"] = float((y_prev - y_plain).abs().max())
+        check(torch.equal(y_prev, y_plain), f"phase 9: the previous y-half "
+              f"({tag}) differs from the plain ops by up to "
+              f"{r['previous_max_abs_err']}")
+        r["previous_ms"] = time_ms(lambda: spmm_y_half_previous(*y_args))
+        r["ring_ms"] = time_ms(lambda: spmm_y_half(*y_args))
+        r["ring_ms_again"] = time_ms(lambda: spmm_y_half(*y_args))
+        r["previous_ms_again"] = time_ms(
+            lambda: spmm_y_half_previous(*y_args))
+        gb = r["gather_bytes"]
+        ratio = (r["ring_ms"] + r["ring_ms_again"]) / (
+            r["previous_ms"] + r["previous_ms_again"])
+        phase(9, f"y-half {tag} B={B}, same inputs: ring "
+                 f"{r['ring_ms']:.5f} / {r['ring_ms_again']:.5f} ms, "
+                 f"previous {r['previous_ms']:.5f} / "
+                 f"{r['previous_ms_again']:.5f} ms (ring/previous "
+                 f"{ratio:.3f}); bound "
+                 f"{r['bound_ms']:.5f} ms ({r['bound_by']}; ring "
+                 f"{r['bound_ms'] / r['ring_ms']:.1%}); X gathered from L2 "
+                 f"{gb / 1e6:.1f} MB: ring {gb / r['ring_ms'] * 1e-9:.2f} "
+                 f"TB/s, previous {gb / r['previous_ms'] * 1e-9:.2f} TB/s; "
+                 f"bitwise the previous: {r['bitwise_previous']}; previous "
+                 f"against the plain ops: max |diff| "
+                 f"{r['previous_max_abs_err']} [{card}]")
+        check(r["bitwise_previous"], f"phase 9: the y-half ({tag}) differs "
+              f"from its previous design by up to "
+              f"{float((y_ring - y_prev).abs().max())}")
+        del y_ring, y_prev, y_plain
         phase(9, f"fused chunk {tag}: {loop.check} iterations, members "
                  f"{frozen} frozen, fused launches x/y {fused_launches}; "
                  f"fields differing from the plain halves: {differ or 'none'}"
@@ -3906,7 +3978,8 @@ def main():
         return sum(w[kernel] for w in workers)
 
     p12 = {k: worker_sum(w32 + w64, k) for k in (
-        "csr_spmv", "csr_spmm", "spmm_x_half", "spmm_y_half")}
+        "csr_spmv", "csr_spmm", "spmm_x_half", "spmm_y_half",
+        "spmm_y_half_previous")}
     # Each phase's SpMV launches, by the backend each solve ran.
     by_phase = {"4": l4, "5": l5, "6": l6, "8": l8}
 
@@ -4207,7 +4280,8 @@ def main():
         "ms": head["ms"],
         "shapes": {f"{tag}_{mat}_B{b}": {k: r[k] for k in (
             "nnz", "ms", "prev_ms", "uncapped_ms", "plain_ms", "library_ms",
-            "bound_ms", "err", "plan", "prev_plan")}
+            "bound_ms", "err", "plan", "prev_plan", "gather_bytes", "l2_tbs",
+            "prev_l2_tbs")}
             for (tag, mat, b), r in spmm_rec.items()},
         "batched": batched_record})
     kernels.append({
@@ -4240,6 +4314,29 @@ def main():
     kernels[-1]["chunks"] = {t: {k: v for k, v in r.items()
                                  if k not in ("x", "y")}
                              for t, r in fused_rec.items()}
+    y32, y64 = fused_rec["f32"]["y"], fused_rec["f64"]["y"]
+    kernels[-1]["previous_ms"] = y32["previous_ms"]
+    prev_by_phase = {"9": l9["spmm_y_half_previous"],
+                     "12": p12["spmm_y_half_previous"],
+                     "15": l15["f32"]["spmm_y_half_previous"]}
+    check(not any(prev_by_phase.values()), f"the solves of phases 9, 12 "
+          f"and 15 launched the previous y-half: {prev_by_phase}")
+    kernels.append({
+        "name": "spmm_y_half_previous", "route": "cuda",
+        "source": os.path.relpath(spmm_mod.SOURCE, HERE),
+        "replaces": "hprlp_tpu/solver/batched.py:85",
+        "previous_design": "the y-half on the product kernel's epilogue "
+                           "(register gathers, operands read after them), "
+                           "succeeded by the ring kernel; timed in phase "
+                           "9 (d) only, bitwise equal",
+        "launches": sum(prev_by_phase.values()),
+        "launches_by_phase": prev_by_phase,
+        "max_abs_err": max(fused_rec[t]["y"]["previous_max_abs_err"]
+                           for t in fused_rec),
+        "ms": y32["previous_ms"],
+        "plain_ms": y32["plain_ms"], "bound_ms": y32["bound_ms"],
+        "bound_by": y32["bound_by"], "library_ms": None,
+        "f64": {"ms": y64["previous_ms"], "bound_ms": y64["bound_ms"]}})
     phase(16, f"the smoke took {time.perf_counter() - T_START:.1f} s "
               f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -69,8 +69,9 @@ MAX_CHUNKS = 8
 # sum; csrc/spmv_csr.cu).
 SPMV_KERNELS = ("tiled_cluster_kernel", "tiled_spmv_kernel",
                 "group_sum_kernel", "csr_spmv_kernel")
-# The SpMM kernel, with or without a fused half-update (csrc/spmm.cu).
-SPMM_KERNELS = ("csr_spmm_kernel",)
+# The SpMM kernels of csrc/spmm.cu: the product, with or without the
+# fused x-half, and the y-half's ring kernel.
+SPMM_KERNELS = ("csr_spmm_kernel", "spmm_y_ring_kernel")
 
 
 class Loop:

@@ -9,10 +9,12 @@ spmv_csr.cu, and the tiles' fused halves, csrc/spmv_tiled.cu: the same
 function) and `epilogue_bound` that of the mesh's epilogue alone: the
 larger of its bytes over the HBM rate and its operations over the
 vector-unit peak (NVIDIA's data sheet; both assume the 700 W power
-limit).  `l2_rotations` sizes a set of input copies that keeps a timed
-call's inputs out of L2.  `tiled_half_bytes` is what a fused half on the
-tiles streams, padding (and on the previous design the partials)
-included: a figure of the layout, not a bound.
+limit).  `gather_bytes` is what the batched SpMM and its fused halves
+gather from L2, X's row for every entry.  `l2_rotations` sizes a set of
+input copies that keeps a timed call's inputs out of L2.
+`tiled_half_bytes` is what a fused half on the tiles streams, padding
+(and on the previous design the partials) included: a figure of the
+layout, not a bound.
 `PeakRss`
 samples the host's resident set while a block runs.
 """
@@ -87,6 +89,16 @@ def spmv_bytes(A, dtype: torch.dtype, B: int = 1) -> int:
     v = torch.empty((), dtype=dtype).element_size()
     return (A.nnz * (v + 4) + (A.nrows + 1) * 4
             + B * (A.ncols + A.nrows) * v)
+
+
+def gather_bytes(A, dtype: torch.dtype, B: int) -> int:
+    """Bytes the SpMM kernels of csrc/spmm.cu gather from L2 for one
+    Y = A X with X of B columns: every stored entry's row of X, B values
+    (nnz * B * itemsize, summed over the column slices).  The layout's
+    cost, printed beside the function's least bytes (spmv_bytes,
+    half_bytes), which bound it; divided by a kernel's time it is the L2
+    rate that kernel implies."""
+    return A.nnz * B * torch.empty((), dtype=dtype).element_size()
 
 
 def _bound(nbytes: int, ops: int, dtype: torch.dtype) -> tuple[float, str]:

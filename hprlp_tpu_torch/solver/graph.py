@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from ..ops.sparse import all_gather_rows, all_reduce_sum
-from ..ops.spmm import csr_spmm, csr_spmm_rowwise, spmm_x_half, spmm_y_half
+from ..ops.spmm import (csr_spmm, csr_spmm_rowwise, spmm_x_half, spmm_y_half,
+                        spmm_y_half_previous)
 from ..ops.spmv import (csr_spmv, csr_spmv_rowgroup, group_sum_kernel,
                         spmv_x_half, spmv_y_half, tiled_half_epilogue,
                         tiled_spmv, tiled_x_half, tiled_x_half_block_x,
@@ -47,15 +48,18 @@ from ..ops.spmv import (csr_spmv, csr_spmv_rowgroup, group_sum_kernel,
 
 # Every kernel wrapper on a solve path that counts its launches, the
 # previous designs, which no solve path may launch (the row-group CSR
-# kernel, the rowwise SpMM, the tiles' group-sum pass and their fused
-# halves on block_x), and the sharded SpMV's collectives: the column
-# shards' all-reduce, the row shards' all-gather.
+# kernel, the rowwise SpMM, the batched y-half on the product kernel, the
+# tiles' group-sum pass and their fused halves on block_x), and the
+# sharded SpMV's collectives: the column shards' all-reduce, the row
+# shards' all-gather.
 COUNTED = {"tiled_spmv": tiled_spmv, "tiled_x_half": tiled_x_half,
            "tiled_y_half": tiled_y_half,
            "tiled_half_epilogue": tiled_half_epilogue, "csr_spmv": csr_spmv,
            "spmv_x_half": spmv_x_half, "spmv_y_half": spmv_y_half,
            "csr_spmm": csr_spmm, "spmm_x_half": spmm_x_half,
-           "spmm_y_half": spmm_y_half, "csr_spmm_rowwise": csr_spmm_rowwise,
+           "spmm_y_half": spmm_y_half,
+           "spmm_y_half_previous": spmm_y_half_previous,
+           "csr_spmm_rowwise": csr_spmm_rowwise,
            "csr_spmv_rowgroup": csr_spmv_rowgroup,
            "group_sum_kernel": group_sum_kernel,
            "tiled_x_half_block_x": tiled_x_half_block_x,

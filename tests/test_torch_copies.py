@@ -289,7 +289,8 @@ def test_import_leaves_out_jax_triton_and_the_jax_package():
             "hprlp_tpu_torch.prof.prof_kernel_variants, "
             "hprlp_tpu_torch.ops.spmm, hprlp_tpu_torch.solver.batched, "
             "hprlp_tpu_torch.solver.batched_device_loop, "
-            "hprlp_tpu_torch.prof.prof_loop, hprlp_tpu_torch.server, "
+            "hprlp_tpu_torch.prof.prof_loop, "
+            "hprlp_tpu_torch.prof.prof_ynew_store, hprlp_tpu_torch.server, "
             "hprlp_tpu_torch.capi, hprlp_tpu_torch.solver.refine, "
             "hprlp_tpu_torch._malloc, hprlp_tpu_torch.prof.share_ingest; "
             "bad = [m for m in ('jax', 'triton', 'hprlp_tpu') "

@@ -321,7 +321,8 @@ def test_pipe_session(verbose, libraries):
                                   "tiled_half_epilogue": 0, "csr_spmv": 0,
                                   "spmv_x_half": 0, "spmv_y_half": 0,
                                   "csr_spmm": 0, "spmm_x_half": 0,
-                                  "spmm_y_half": 0}
+                                  "spmm_y_half": 0,
+                                  "spmm_y_half_previous": 0}
     finally:
         if p.poll() is None:
             p.kill()

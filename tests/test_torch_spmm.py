@@ -8,6 +8,9 @@ Tolerances: 1e-5 * max|Y| in f32 and 1e-13 * max|Y| in f64 -- the
 summation order differs between CSR rows, ELL buckets and scipy.
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -21,7 +24,8 @@ from hprlp_tpu.problem import LpProblem as JaxLpProblem
 from hprlp_tpu_torch.ops import sparse
 from hprlp_tpu_torch.ops import spmm as spmm_mod
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
-from hprlp_tpu_torch.ops.spmm import csr_spmm, spmm_plan, spmm_reference
+from hprlp_tpu_torch.ops.spmm import (csr_spmm, spmm_grid, spmm_plan,
+                                      spmm_reference)
 
 # The tensors here are small: one intra-op thread keeps this test worker
 # from competing with the suite's other workers for cores.
@@ -304,7 +308,7 @@ def test_fused_wrappers_refuse_cpu_tensors_and_bad_arguments(monkeypatch):
             check(**kw)
 
 
-@pytest.mark.parametrize("half", ["x", "y"])
+@pytest.mark.parametrize("half", ["x", "y", "y_previous"])
 def test_failed_build_of_the_fused_halves_raises(monkeypatch, half):
     """A fused half whose kernel does not build raises from its wrapper,
     and its launch count stays."""
@@ -315,7 +319,8 @@ def test_failed_build_of_the_fused_halves_raises(monkeypatch, half):
     monkeypatch.setattr(spmm_mod, "check_half_args", lambda *a: None)
     spmm_mod._library.cache_clear()
     M, y, x, last_x, c, l, u, sigma, inner, active, t = _half_inputs()
-    fn = spmm_mod.spmm_x_half if half == "x" else spmm_mod.spmm_y_half
+    fn = {"x": spmm_mod.spmm_x_half, "y": spmm_mod.spmm_y_half,
+          "y_previous": spmm_mod.spmm_y_half_previous}[half]
     args = ((M, y, x, last_x, c, l, u, sigma, inner, active, t)
             if half == "x" else (M, x, y, y, y, y, sigma, inner, active, t))
     before = fn.launches
@@ -325,3 +330,235 @@ def test_failed_build_of_the_fused_halves_raises(monkeypatch, half):
     finally:
         spmm_mod._library.cache_clear()
     assert fn.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The y-half's ring kernel (csrc/spmm.cu spmm_y_ring_kernel): its plan.
+
+RING_BATCHES = [1, 2, 3, 4, 8, 64, 256]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("ncols", [16, 131072, 524288])
+@pytest.mark.parametrize("B", RING_BATCHES)
+def test_ring_plan_fits_and_keeps_the_products_slices(B, ncols, itemsize):
+    """For every alignment: the product's groups, loads, slices and grid
+    (so the slices cover B, each slice's window of X stays within
+    L2_BUDGET unless one lane is already wider, and the grid covers the
+    rows once, a row a group), and a block's shared memory within the
+    H100's 232,448 bytes."""
+    nrows = 65536
+    for address in (0, itemsize, 8, 16):
+        plan = spmm_mod.ring_plan(nrows, ncols, B, itemsize, address)
+        assert (plan.G, plan.V, plan.n_slices) == spmm_plan(
+            B, itemsize, address, ncols)
+        assert plan.n_slices * plan.G * plan.V >= B \
+            > (plan.n_slices - 1) * plan.G * plan.V
+        assert ncols * plan.G * plan.V * itemsize <= spmm_mod.L2_BUDGET \
+            or plan.G == 1
+        assert plan.smem_bytes == spmm_mod.ring_smem_bytes(
+            plan.V, itemsize) <= 232_448
+        rows = spmm_mod.BLOCK // plan.G
+        assert plan.grid_x * rows >= nrows > (plan.grid_x - 1) * rows
+        assert (plan.grid_x, plan.n_slices) == spmm_grid(nrows, plan.G,
+                                                         plan.n_slices)
+
+
+@pytest.mark.parametrize("itemsize, want", [
+    (4, (16, 4, 1, 4096, 47104)),
+    (8, (16, 2, 2, 4096, 65536))])
+def test_ring_plan_at_batched_large(itemsize, want):
+    """batched_large (65,536 x 131,072, B = 64): one f32 slice of 64
+    columns or two f64 slices of 32, 46 or 64 KB of shared memory a
+    block."""
+    assert tuple(spmm_mod.ring_plan(65536, 131072, 64, itemsize, 0)) == want
+
+
+def test_ring_plan_is_cached():
+    plan = spmm_mod.ring_plan
+    a = plan(65536, 131072, 64, 4, 0)
+    assert plan(65536, 131072, 64, 4, 0) is a
+    assert plan(65536, 131072, 64, 4, 4).V == 1
+
+
+@pytest.mark.parametrize("itemsize, V", [(4, 1), (4, 2), (4, 4), (8, 1),
+                                         (8, 2)])
+def test_every_ring_instance_fits_shared_memory(itemsize, V):
+    """Each instance the y-half launches takes at most the H100's 232,448
+    bytes of shared memory a block (the source asserts it when it
+    compiles), and its ring holds at least two slots a lane."""
+    assert spmm_mod.ring_smem_bytes(V, itemsize) <= 232_448
+    assert 2 * spmm_mod.RING_BATCH[itemsize] >= 2
+
+
+def test_ring_constants_match_the_source():
+    """ops/spmm.py mirrors csrc/spmm.cu's batch per value type, its block
+    and its shared-memory formula, which the source checks against the
+    H100's cap."""
+    import re
+
+    src = open(spmm_mod.SOURCE).read()
+    for T, itemsize in (("float", 4), ("double", 8)):
+        m = re.search(r"struct Ring<%s> \{\s*static constexpr int kBatch = "
+                      r"(\d+)" % T, src)
+        assert int(m.group(1)) == spmm_mod.RING_BATCH[itemsize]
+    assert int(re.search(r"kRingMaxSmem = (\d+);", src).group(1)) == 232_448
+    assert "static_assert(smem <= kRingMaxSmem" in src
+    assert "kBlock * (2 * Ring<T>::kBatch * (V + 1) + 4 * V)" in src
+    assert int(re.search(r"kBlock = (\d+);", src).group(1)) \
+        == spmm_mod.BLOCK
+
+
+def test_ynew_store_probe_changes_only_the_store(monkeypatch, tmp_path):
+    """prof/prof_ynew_store.py times csrc/spmm.cu as it is against a copy
+    whose ring kernel stores y_new plainly: the copy differs in that one
+    statement, keeps the headers beside it, and both are built."""
+    from hprlp_tpu_torch.prof import prof_ynew_store as probe
+
+    built = []
+    monkeypatch.setattr(probe, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(probe, "build", lambda path, ptxas_log: (
+        built.append(path), ptxas_log.append("log")))
+    forms = probe.build_forms()
+    assert forms["evict_first"] == (spmm_mod.SOURCE, "log")
+    plain = forms["plain"][0]
+    assert sorted(built) == sorted([spmm_mod.SOURCE, plain])
+    assert (tmp_path / "ynew_store" / "hpr_half.cuh").exists()
+    src = open(spmm_mod.SOURCE).read().splitlines()
+    copy = open(plain).read().splitlines()
+    assert len(src) == len(copy)
+    diff = [(a.strip(), b.strip()) for a, b in zip(src, copy) if a != b]
+    assert diff == [(probe.EVICT, probe.PLAIN)]
+
+
+def _y_inputs(dtype=torch.float32, device="cpu"):
+    M, y, x, last_x, c, l, u, sigma, inner, active, t = _half_inputs(
+        dtype=dtype, device=device)
+    # M (6 x 4) as A: x_hat is y's (4, B) and y is x's (6, B).
+    return (M, y, x, x.clone(), x.clone(), x.clone(), sigma, inner, active,
+            t)
+
+
+@pytest.mark.parametrize("wrapper", ["spmm_y_half", "spmm_y_half_previous"])
+def test_y_half_wrappers_refuse_cpu_tensors_and_bad_arguments(monkeypatch,
+                                                              wrapper):
+    """Neither y-half falls back to plain PyTorch: a CPU tensor raises, and
+    past the device check (stood in for here) so does a bad argument,
+    before any build or launch."""
+    fn = getattr(spmm_mod, wrapper)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*_y_inputs())
+    monkeypatch.setattr(spmm_mod, "check_csr_matrix", lambda A, X: None)
+
+    def no_library():
+        raise AssertionError("launched past a bad argument")
+
+    monkeypatch.setattr(spmm_mod, "_library", no_library)
+    before = fn.launches
+    args = _y_inputs()
+    for i, bad, err in ((2, args[2][:2], ValueError),
+                        (4, args[4].double(), TypeError),
+                        (6, args[6][:2], ValueError),
+                        (7, args[7].long(), TypeError),
+                        (8, args[8].int(), TypeError)):
+        bad_args = list(args)
+        bad_args[i] = bad
+        with pytest.raises(err):
+            fn(*bad_args)
+    assert fn.launches == before
+
+
+class _FakeRingLib:
+    """csrc/spmm.cu's library as the ring wrapper calls it, recording the
+    device current at each set-up and launch."""
+
+    def __init__(self, current, init_err=0):
+        self.current, self.init_err = current, init_err
+        self.inits, self.launches = [], []
+
+    def hprlp_spmm_ring_init(self):
+        self.inits.append(self.current[0])
+        return self.init_err
+
+    def hprlp_spmm_y_ring(self, *args):
+        self.launches.append(self.current[0])
+        return 0
+
+    def hprlp_spmm_error_string(self, err):
+        return b"invalid argument"
+
+
+def _fake_devices(monkeypatch, lib):
+    """Stand in torch.cuda's device switch, current device and stream with
+    lib.current, so that the wrapper's device handling runs on the CPU."""
+    current = lib.current
+
+    @contextlib.contextmanager
+    def device(index):
+        saved, current[0] = current[0], index
+        try:
+            yield
+        finally:
+            current[0] = saved
+
+    monkeypatch.setattr(spmm_mod, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    return device
+
+
+def test_a_failed_ring_setup_raises(monkeypatch):
+    """The ring kernel's shared-memory set-up on a device raises when the
+    library reports an error, and nothing is cached: the next call tries
+    again."""
+    lib = _FakeRingLib([0], init_err=1)
+    _fake_devices(monkeypatch, lib)
+    spmm_mod._ring_ready.cache_clear()
+    try:
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match="ring kernel could not "
+                                                   "be set up"):
+                spmm_mod._ring_ready(0)
+    finally:
+        spmm_mod._ring_ready.cache_clear()
+    assert lib.inits == [0, 0]
+
+
+def test_ring_setup_is_made_once_for_each_device(monkeypatch):
+    """The shared-memory attributes belong to a device's context, so the
+    ring wrapper sets them up on the device it launches on, inside its
+    device guard, once for each device index: a launch on device 1 from a
+    process whose current device is 0 sets up device 1 first."""
+    lib = _FakeRingLib([0])
+    device = _fake_devices(monkeypatch, lib)
+    target = [0]
+    monkeypatch.setattr(spmm_mod, "_device_guard",
+                        lambda dev: device(target[0]))
+    M, x_hat, y, last_y, AL, AU, lam, inner, active, t = _y_inputs()
+    spmm_mod._ring_ready.cache_clear()
+    try:
+        for index in (1, 0, 1, 0, 1):
+            target[0] = index
+            spmm_mod._ring_launch(M, x_hat, torch.empty_like(y), y, last_y,
+                                  AL, AU, lam, inner, active, t)
+    finally:
+        spmm_mod._ring_ready.cache_clear()
+    assert lib.inits == [1, 0]
+    assert lib.launches == [1, 0, 1, 0, 1]
+    assert lib.current == [0]
+
+
+def test_new_counters_start_at_zero():
+    """The previous y-half counts its launches apart, from 0, in the
+    solver's counted wrappers and the server's report; no CPU test
+    launches it."""
+    from hprlp_tpu_torch import server
+    from hprlp_tpu_torch.solver import graph
+
+    assert spmm_mod.spmm_y_half_previous.launches == 0
+    assert graph.COUNTED["spmm_y_half_previous"] \
+        is spmm_mod.spmm_y_half_previous
+    assert graph.COUNTED["spmm_y_half"] is spmm_mod.spmm_y_half
+    assert server.launch_counts()["spmm_y_half_previous"] == 0
