@@ -122,8 +122,10 @@ never the previous designs:
                  f32 and f64: one 150-iteration run_chunk through the
                  single-LP halves fused into the CSR kernel, one through
                  the plain halves and the fused chunk's graph replay,
-                 bitwise equal; each half timed fused and plain, beside
-                 its byte bound; (c) the halves fused into the tiled SpMV
+                 bitwise equal; then at sparse_large f32 and f64 and
+                 assignment_problem(128) f32 each half alone bitwise its
+                 plain version, timed fused and plain beside its byte
+                 bound; (c) the halves fused into the tiled SpMV
                  at sparse_large and sparse_huge, f32 and f64, on the
                  default tiles and on tiles of another strip-group count
                  (G = 1 against G > 1): each half alone bitwise the
@@ -2665,8 +2667,11 @@ def fused_spmv_phase(card, problem):
     f64: one 150-iteration run_chunk through the fused halves, one through
     the plain halves (the kernel's store, then the plain ops) and the fused
     chunk's CUDA-graph replay, every state tensor and metric bitwise
-    equal; each half alone timed by graph replay, fused and plain, beside
-    its byte bound.  Returns {dtype tag: record}."""
+    equal.  Then at sparse_large f32 and f64 and assignment_problem(128)
+    f32 (whose "mixed" solves take "gather" in phase 13) each half alone
+    bitwise its plain version (0 differing entries) and timed by graph
+    replay, fused and plain, beside its byte bound.  Returns {cell:
+    record}: "f32" and "f64" sparse_large's, "assignment128_f32"."""
     from hprlp_tpu_torch.ops.spmv import spmv_x_half, spmv_y_half
     from hprlp_tpu_torch.prof import prof_loop
     from hprlp_tpu_torch.prof.timing import half_bound
@@ -2675,70 +2680,92 @@ def fused_spmv_phase(card, problem):
 
     differ = chunk_differ
     records = {}
-    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
-        loop = prof_loop.Loop(problem, dtype, graph=False, backend="gather")
+    for cell, prob, dtype, tag in (
+            ("f32", problem, torch.float32, "f32"),
+            ("f64", problem, torch.float64, "f64"),
+            ("assignment128_f32", assignment_problem(128), torch.float32,
+             "f32")):
+        loop = prof_loop.Loop(prob, dtype, graph=False, backend="gather")
         loop.run(1)
         lp, st, sigma = loop.lp, loop.state, loop.sigma
-        args = (lp, loop.scal, st, sigma, loop.lam,
-                torch.tensor(False, device="cuda"), loop.check)
-        spmv_x_half.launches = spmv_y_half.launches = 0
-        fused = chunk.run_chunk(*args)
-        fused_launches = (spmv_x_half.launches, spmv_y_half.launches)
-        with swapped(chunk, x_half=chunk.x_half_plain,
-                     y_half=chunk.y_half_plain):
-            plain = chunk.run_chunk(*args)
-        step = CapturedStep(lambda: chunk.run_chunk(*args), counts={})
-        step.replay()
-        torch.cuda.synchronize()
-        vs_plain, vs_graph = differ(fused, plain), differ(fused, step.out)
-        max_diff = max(float((getattr(fused[0], k) - getattr(plain[0], k))
-                             .abs().max()) for k in ("x", "y"))
+        rec = {}
+        if cell in ("f32", "f64"):
+            args = (lp, loop.scal, st, sigma, loop.lam,
+                    torch.tensor(False, device="cuda"), loop.check)
+            spmv_x_half.launches = spmv_y_half.launches = 0
+            fused = chunk.run_chunk(*args)
+            fused_launches = (spmv_x_half.launches, spmv_y_half.launches)
+            with swapped(chunk, x_half=chunk.x_half_plain,
+                         y_half=chunk.y_half_plain):
+                plain = chunk.run_chunk(*args)
+            step = CapturedStep(lambda: chunk.run_chunk(*args), counts={})
+            step.replay()
+            torch.cuda.synchronize()
+            vs_plain, vs_graph = differ(fused, plain), differ(fused, step.out)
+            max_diff = max(float((getattr(fused[0], k)
+                                  - getattr(plain[0], k)).abs().max())
+                           for k in ("x", "y"))
+            rec = {"fused_launches": fused_launches,
+                   "differ_plain": vs_plain, "differ_graph": vs_graph,
+                   "max_abs_err": max_diff}
+            phase(10, f"fused chunk {tag} (sparse_large, gather): "
+                      f"{loop.check} iterations, fused launches x/y "
+                      f"{fused_launches}; fields differing from the plain "
+                      f"halves: {vs_plain or 'none'}; from the graph's "
+                      f"replay: {vs_graph or 'none'} [{card}]")
+            middle = loop.check - 2
+            del fused, plain, step
+            check(fused_launches == (middle, middle), f"phase 10: the fused "
+                  f"chunk launched the halves {fused_launches} times, not "
+                  f"{middle} each")
+            check(not vs_plain, f"phase 10: fused and plain chunks differ "
+                  f"({tag}) in {vs_plain}")
+            check(not vs_graph, f"phase 10: the fused chunk's replay differs "
+                  f"from its eager run ({tag}) in {vs_graph}")
 
         lam_sigma = loop.lam * sigma
 
         def h():  # the first middle iteration's counter, factors unmade
             return chunk.Halpern(st.inner, 0, dtype)
 
-        x_hat = chunk.x_half(lp, st.x, st.y, st.last_x, sigma, h())[1]
+        x_hat = chunk.x_half_plain(lp, st.x, st.y, st.last_x, sigma, h())[1]
         halves = {
             "x": (lambda: chunk.x_half(lp, st.x, st.y, st.last_x, sigma,
                                        h()),
                   lambda: chunk.x_half_plain(lp, st.x, st.y, st.last_x,
                                              sigma, h()),
                   half_bound(lp.AT, dtype, 1, "x")),
-            "y": (lambda: chunk.y_half(lp, st.y, x_hat, st.last_y,
-                                       lam_sigma, h()),
-                  lambda: chunk.y_half_plain(lp, st.y, x_hat, st.last_y,
-                                             lam_sigma, h()),
+            "y": (lambda: (chunk.y_half(lp, st.y, x_hat, st.last_y,
+                                        lam_sigma, h()),),
+                  lambda: (chunk.y_half_plain(lp, st.y, x_hat, st.last_y,
+                                              lam_sigma, h()),),
                   half_bound(lp.A, dtype, 1, "y"))}
-        rec = {"fused_launches": fused_launches, "differ_plain": vs_plain,
-               "differ_graph": vs_graph, "max_abs_err": max_diff}
+        errs = []
         for half, (fused_fn, plain_fn, (bound_ms, bound_by)) in \
                 halves.items():
+            new, ref = fused_fn(), plain_fn()
+            torch.cuda.synchronize()
+            differ_n = sum(int((a != b).sum()) for a, b in zip(new, ref))
+            errs.append(max(float((a - b).abs().max())
+                            for a, b in zip(new, ref)))
+            del new, ref
             rec[half] = {"ms": time_ms(fused_fn),
                          "eager_ms": eager_ms(fused_fn),
                          "plain_ms": time_ms(plain_fn, reps=10),
-                         "bound_ms": bound_ms, "bound_by": bound_by}
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "differ": differ_n}
             r = rec[half]
-            phase(10, f"fused single-LP {half}-half {tag} (sparse_large): "
+            phase(10, f"fused single-LP {half}-half {cell} (gather): "
                       f"{r['ms']:.5f} ms ({bound_ms / r['ms']:.1%} of bound "
                       f"{bound_ms:.5f} ms, {bound_by}), eager "
                       f"{r['eager_ms']:.5f} ms; its SpMV and plain ops "
-                      f"{r['plain_ms']:.5f} ms (graph replay) [{card}]")
-        phase(10, f"fused chunk {tag} (sparse_large, gather): {loop.check} "
-                  f"iterations, fused launches x/y {fused_launches}; fields "
-                  f"differing from the plain halves: {vs_plain or 'none'}; "
-                  f"from the graph's replay: {vs_graph or 'none'} [{card}]")
-        records[tag] = rec
-        middle = loop.check - 2
-        del loop, fused, plain, step
-        check(fused_launches == (middle, middle), f"phase 10: the fused "
-              f"chunk launched the halves {fused_launches} times, not "
-              f"{middle} each")
-        check(not vs_plain, f"phase 10: fused and plain chunks differ "
-              f"({tag}) in {vs_plain}")
-        check(not vs_graph, f"phase 10: the fused chunk's replay differs "
-              f"from its eager run ({tag}) in {vs_graph}")
+                      f"{r['plain_ms']:.5f} ms (graph replay); entries "
+                      f"differing from the plain half {differ_n} [{card}]")
+            check(differ_n == 0, f"phase 10: the fused {half}-half differs "
+                  f"from its plain version ({cell}) in {differ_n} entries")
+        rec["max_abs_err"] = max([rec.get("max_abs_err", 0.0)] + errs)
+        records[cell] = rec
+        del loop
     return records
 
 
@@ -4125,7 +4152,9 @@ def main():
             "replaces": "hprlp_tpu/solver/chunk.py:" + (
                 "72" if half == "x" else "81"),
             "note": f"the single-LP middle iteration's {half}-half fused "
-                    f"into the CSR kernel over {matrix}'s rows (plain: "
+                    f"into the CSR kernel over {matrix}'s rows "
+                    f"(csr_spmv_half_kernel, each row's operands read "
+                    f"before the stream; plain: "
                     f"hprlp_tpu_torch/solver/chunk.py {line}); no Pallas "
                     f"kernel in the JAX package (XLA fuses it); "
                     f"sparse_large f32, plain_ms the kernel's store and "
@@ -4137,10 +4166,12 @@ def main():
                                for r in single_fused.values()),
             "ms": r32["ms"], "plain_ms": r32["plain_ms"],
             "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
-            "library_ms": None, "f64": r64})
+            "library_ms": None, "f64": r64,
+            "assignment128_f32": single_fused["assignment128_f32"][half]})
     kernels[-1]["chunks"] = {t: {k: v for k, v in r.items()
                                  if k not in ("x", "y")}
-                             for t, r in single_fused.items()}
+                             for t, r in single_fused.items()
+                             if t in ("f32", "f64")}
 
     def tiled_by_phase(tag, key, i):
         """A tiled half's launches by phase: the solves' (gather_by_phase),

@@ -50,7 +50,10 @@
 // solver/chunk.py::_x_half and _y_half compute it with PyTorch's
 // elementwise kernels after the kStore launch (csrc/hpr_half.cuh: each
 // operation rounded once, NaN taken as torch.clamp and torch.maximum take
-// it), the streamed operands read after the gather.  sigma
+// it).  A half runs as csr_spmv_half_kernel, the same body held to the
+// store's blocks an SM, and reads its row's streamed operands, sigma and
+// the Halpern factor with the row's entry range before the stream, so
+// that their loads fly under the gather (row_ops).  sigma
 // (or lambda * sigma) is a 0-dim device tensor and the Halpern counter is
 // read from device memory as inner + t, t the middle iteration's index,
 // baked in at launch, so a captured CUDA graph replays it unchanged; fact1
@@ -302,28 +305,49 @@ __device__ __forceinline__ T row_sum(const T* prod, int rb, int re,
   }
 }
 
-// The row write: y, or one half-update of row `row` given its sum.
+// A half-update's operands of one row (cur, last, p0, p1 and the x-half's
+// p2), sigma and the Halpern factor f1; empty for the other epilogues.
+template <typename T>
+struct RowOps {
+  T x, last, p0, p1, p2, s, f1;
+};
+
 template <typename T, int E>
-__device__ __forceinline__ void write_row(const Args& a, int row, T acc) {
+__device__ __forceinline__ RowOps<T> row_ops(const Args& a, int row) {
+  RowOps<T> o{};
+  if constexpr (E == kXHalf || E == kYHalf) {
+    o.x = static_cast<const T*>(a.cur)[row];
+    o.last = static_cast<const T*>(a.last)[row];
+    o.p0 = static_cast<const T*>(a.p0)[row];
+    o.p1 = static_cast<const T*>(a.p1)[row];
+    if constexpr (E == kXHalf) o.p2 = static_cast<const T*>(a.p2)[row];
+    o.s = *static_cast<const T*>(a.scal);
+    o.f1 = halpern_f1<T>(*a.inner + a.t);
+  }
+  return o;
+}
+
+// The row write: y, or one half-update of row `row` given its sum and its
+// operands `o` (row_ops).
+template <typename T, int E>
+__device__ __forceinline__ void write_row(const Args& a, int row, T acc,
+                                          const RowOps<T>& o) {
   if constexpr (E != kXHalf && E != kYHalf) {
     static_cast<T*>(a.out)[row] = acc;
+  } else if constexpr (E == kXHalf) {
+    T xh;
+    static_cast<T*>(a.out)[row] = x_half_update(acc, o.x, o.last, o.p0, o.p1,
+                                                o.p2, o.s, o.f1, xh);
+    static_cast<T*>(a.hat)[row] = xh;
   } else {
-    const T x = static_cast<const T*>(a.cur)[row];
-    const T last = static_cast<const T*>(a.last)[row];
-    const T p0 = static_cast<const T*>(a.p0)[row];
-    const T p1 = static_cast<const T*>(a.p1)[row];
-    const T s = *static_cast<const T*>(a.scal);
-    const T f1 = halpern_f1<T>(*a.inner + a.t);
-    if constexpr (E == kXHalf) {
-      T xh;
-      static_cast<T*>(a.out)[row] = x_half_update(
-          acc, x, last, p0, p1, static_cast<const T*>(a.p2)[row], s, f1, xh);
-      static_cast<T*>(a.hat)[row] = xh;
-    } else {
-      static_cast<T*>(a.out)[row] = y_half_update(acc, x, last, p0, p1, s,
-                                                  f1);
-    }
+    static_cast<T*>(a.out)[row] = y_half_update(acc, o.x, o.last, o.p0, o.p1,
+                                                o.s, o.f1);
   }
+}
+
+template <typename T, int E>
+__device__ __forceinline__ void write_row(const Args& a, int row, T acc) {
+  write_row<T, E>(a, row, acc, row_ops<T, E>(a, row));
 }
 
 // The flush study's warp segments: a warp's 32 consecutive vectors (128
@@ -557,9 +581,10 @@ __device__ __forceinline__ void merge_stream(const Args& a, T* prod, int r0,
   }
 }
 
-template <typename T, int E, int NACC = 1>
-__global__ void __launch_bounds__(kBlock)
-csr_spmv_kernel(const Args a) {
+// One row block of the plan (blockIdx.x): the stream, the gather, the row
+// sums and the epilogue's row write.
+template <typename T, int E, int NACC>
+__device__ __forceinline__ void spmv_rows(const Args& a) {
   // Products at their offset from the block's first vector: fewer than
   // 2 * kCap entries, plus up to kVec - 1 before the block's first entry.
   __shared__ __align__(16) T prod[2 * kCap<T> + 2 * kVec];
@@ -619,11 +644,14 @@ csr_spmv_kernel(const Args a) {
     return;
   }
 
-  // This thread's first row's entry range, read before the stream.
+  // This thread's first row's entry range, and a half's operands of it,
+  // read before the stream: their loads fly under the gather.
   int rb = 0, re = 0;
+  RowOps<T> ops{};
   if (row < r1) {
     rb = a.indptr[row];
     re = a.indptr[row + 1];
+    ops = row_ops<T, E>(a, row);
   }
   for (int64_t q = q0 + tid; q < q1; q += 2 * kBlock) {
     const bool two = q + kBlock < q1;
@@ -643,17 +671,32 @@ csr_spmv_kernel(const Args a) {
     if (r != row) {
       rb = a.indptr[r];
       re = a.indptr[r + 1];
+      ops = row_ops<T, E>(a, r);
     }
-    write_row<T, E>(a, r, row_sum<T, NACC>(prod, rb, re, base));
+    write_row<T, E>(a, r, row_sum<T, NACC>(prod, rb, re, base), ops);
   }
+}
+
+template <typename T, int E, int NACC = 1>
+__global__ void __launch_bounds__(kBlock) csr_spmv_kernel(const Args a) {
+  spmv_rows<T, E, NACC>(a);
+}
+
+// The fused halves hold a row's operands in registers through the stream;
+// they are held to the blocks an SM the store keeps (f32 5, at most 48
+// registers a thread; f64 4, at most 64).
+template <typename T, int E>
+__global__ void __launch_bounds__(kBlock, sizeof(T) == 4 ? 5 : 4)
+csr_spmv_half_kernel(const Args a) {
+  spmv_rows<T, E, 1>(a);
 }
 
 template <typename T>
 int launch(int epilogue, int nblocks, const Args& a, cudaStream_t s) {
   switch (epilogue) {
     case kStore: csr_spmv_kernel<T, kStore><<<nblocks, kBlock, 0, s>>>(a); break;
-    case kXHalf: csr_spmv_kernel<T, kXHalf><<<nblocks, kBlock, 0, s>>>(a); break;
-    case kYHalf: csr_spmv_kernel<T, kYHalf><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kXHalf: csr_spmv_half_kernel<T, kXHalf><<<nblocks, kBlock, 0, s>>>(a); break;
+    case kYHalf: csr_spmv_half_kernel<T, kYHalf><<<nblocks, kBlock, 0, s>>>(a); break;
     case kNoGather: csr_spmv_kernel<T, kNoGather><<<nblocks, kBlock, 0, s>>>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -66,9 +66,10 @@ CHUNKS = 2
 MAX_CHUNKS = 8
 # The SpMV kernels, with or without a fused half-update (csrc/spmv_tiled.cu:
 # the main stage's cluster kernel, the previous design's kernel and group
-# sum; csrc/spmv_csr.cu).
+# sum; csrc/spmv_csr.cu: the product and the fused halves).
 SPMV_KERNELS = ("tiled_cluster_kernel", "tiled_spmv_kernel",
-                "group_sum_kernel", "csr_spmv_kernel")
+                "group_sum_kernel", "csr_spmv_kernel",
+                "csr_spmv_half_kernel")
 # The SpMM kernels of csrc/spmm.cu: the product, with or without the
 # fused x-half, and the y-half's ring kernel.
 SPMM_KERNELS = ("csr_spmm_kernel", "spmm_y_ring_kernel")

@@ -11,6 +11,8 @@ JAX's gather SpMV, 1e-12 * max(1, max|y|) in f64 (the sums run in other
 orders); the half dispatch bitwise.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -22,6 +24,7 @@ from hprlp_tpu.ops.sparse import spmv as jax_spmv
 from hprlp_tpu.ops.sparse import to_coo
 from hprlp_tpu.problem import LpProblem as JaxLpProblem
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
+from hprlp_tpu_torch.ops import spmv as spmv_mod
 from hprlp_tpu_torch.ops.sparse import spmv_backend, with_spmv_backend
 from hprlp_tpu_torch.ops.spmv import (CSR_BLOCK, RowBlocks, csr_cap,
                                       check_blocks, csr_spmv,
@@ -195,6 +198,101 @@ def test_wrappers_refuse_cpu_tensors_and_a_missing_plan():
                                        big.vals])[1:])
     with pytest.raises(ValueError, match="16-byte"):
         check_blocks(shifted, torch.ones(big.ncols, dtype=F64))
+
+
+def _half_args(half, dtype=F64):
+    """A plan-carrying matrix (A^T for the x-half, A for the y-half), its
+    gathered operand, its rows {name: tensor} in HALF_ROWS' order, scal
+    and inner, all valid and on the CPU."""
+    A = CASES["random"]()
+    M = with_spmv_backend(_port(A.T.tocsr() if half == "x" else A, dtype),
+                          "gather")
+    rng = np.random.default_rng(21)
+
+    def vec(n):
+        return torch.as_tensor(rng.normal(size=n)).to(dtype)
+
+    rows = {k: vec(M.nrows) for k in spmv_mod.HALF_ROWS[half]}
+    return (M, vec(M.ncols), rows, torch.tensor(0.5, dtype=dtype),
+            torch.tensor(3, dtype=torch.int32))
+
+
+HALF_FAULTS = {
+    "valid": (None, None),
+    "row_shape": (ValueError, "contiguous of shape"),
+    "row_strided": (ValueError, "contiguous of shape"),
+    "row_dtype": (TypeError, "must be torch.float64"),
+    "operand_shape": (ValueError, "contiguous of shape"),
+    "operand_dtype": (TypeError, "matrix values"),
+    "scal_shape": (ValueError, "scal"),
+    "scal_dtype": (TypeError, "scal"),
+    "inner_dtype": (TypeError, "int32"),
+    "no_plan": (ValueError, "row-block plan"),
+    "wrong_cap": (ValueError, "windows of"),
+    "misaligned": (ValueError, "16-byte"),
+}
+
+
+@pytest.mark.parametrize("half", ["x", "y"])
+@pytest.mark.parametrize("fault", sorted(HALF_FAULTS))
+def test_half_checks_past_the_device(monkeypatch, half, fault):
+    """The fused halves' checks beyond the device's type (stood in for
+    here, as the card would pass it), each fault alone: the rows, scal and
+    inner against the gathered operand and A's rows, the operand against
+    A's columns, and the plan (its presence, its windows, 16-byte aligned
+    entry arrays)."""
+    monkeypatch.setattr(spmv_mod, "_check_cuda", lambda x: None)
+    M, v, rows, scal, inner = _half_args(half)
+    first = spmv_mod.HALF_ROWS[half][1]
+    if fault == "row_shape":
+        rows[first] = rows[first][1:]
+    elif fault == "row_strided":
+        rows[first] = torch.stack([rows[first]] * 2, 1)[:, 0]
+    elif fault == "row_dtype":
+        rows[first] = rows[first].float()
+    elif fault == "operand_shape":
+        v = torch.cat([v, v])
+    elif fault == "operand_dtype":
+        v = v.float()
+    elif fault == "scal_shape":
+        scal = scal.reshape(1)
+    elif fault == "scal_dtype":
+        scal = scal.float()
+    elif fault == "inner_dtype":
+        inner = inner.long()
+    elif fault == "no_plan":
+        M = dataclasses.replace(M, blocks=None)
+    elif fault == "wrong_cap":
+        M = dataclasses.replace(M, blocks=row_blocks(M, cap=512))
+    elif fault == "misaligned":
+        M = M.with_vals(torch.cat([torch.zeros(1, dtype=F64), M.vals])[1:])
+    error, match = HALF_FAULTS[fault]
+    if error is None:
+        spmv_mod.check_half_args(M, v, rows, scal, inner)
+        return
+    with pytest.raises(error, match=match):
+        spmv_mod.check_half_args(M, v, rows, scal, inner)
+
+
+@pytest.mark.parametrize("half", ["x", "y"])
+def test_failed_build_of_the_fused_halves_raises(monkeypatch, half):
+    """A fused half whose kernel does not build raises from its wrapper,
+    runs nothing in its place, and its launch count stays."""
+    def no_build(source=None, ptxas_log=None):
+        raise RuntimeError("nvcc failed (1): stand-in")
+
+    monkeypatch.setattr(spmv_mod, "build", no_build)
+    monkeypatch.setattr(spmv_mod, "check_half_args", lambda *a: None)
+    spmv_mod._library.cache_clear()
+    M, v, rows, scal, inner = _half_args(half)
+    fn = spmv_x_half if half == "x" else spmv_y_half
+    before = fn.launches
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fn(M, v, *rows.values(), scal, inner, 0)
+    finally:
+        spmv_mod._library.cache_clear()
+    assert fn.launches == before
 
 
 def test_library_path_covers_included_headers(tmp_path):

@@ -23,8 +23,8 @@ import torch
 from hprlp_tpu_torch.ops.device_problem import csr_from_coo
 from hprlp_tpu_torch.ops.sparse import with_spmv_backend
 from hprlp_tpu_torch.ops.spmv import (csr_cap, csr_spmv, csr_spmv_plain,
-                                      spmv_reference, spmv_x_half,
-                                      spmv_y_half)
+                                      row_blocks, spmv_reference,
+                                      spmv_x_half, spmv_y_half)
 from hprlp_tpu_torch.ops.spmv_variants import (segsum_onehot_plain,
                                                segsum_tiles, spmv_segsum)
 from hprlp_tpu_torch.solver import chunk
@@ -113,7 +113,8 @@ def _bench():
 
 
 def _matrix(case, dtype, device):
-    A = _bench() if case == "bench" else CASES[case]()
+    cases = {**CASES, **MORE_HALF_CASES}
+    A = _bench() if case == "bench" else cases[case]()
     C = A.tocoo()
     M = csr_from_coo(C.row, C.col, C.data, A.shape[0], A.shape[1], dtype,
                      device)
@@ -169,7 +170,8 @@ def _half_operands(M, MT, dtype, device):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 @pytest.mark.parametrize("case", ["random", "skewed", "long_rows",
-                                  "dense_row", "empty_rows"])
+                                  "dense_row", "empty_rows", "one_long_row",
+                                  "unaligned", "many_blocks"])
 def test_fused_halves_equal_store_plus_plain_ops(cuda, case, dtype):
     """spmv_x_half / spmv_y_half bitwise the kernel's store followed by the
     plain ops of solver/chunk.py (x_half_plain and y_half_plain on an LP
@@ -261,6 +263,101 @@ def test_fused_halves_reject_bad_arguments(cuda):
     with pytest.raises(TypeError):
         spmv_y_half(M, o["x"], o["y"], o["last_y"], o["AL"], o["AU"],
                     o["lam_sigma"].double(), o["inner"], 0)
+
+
+# More plans for the fused halves: one long row's block alone, windows
+# that start at every offset of a vector, and a plan of several waves of
+# row blocks (also cut into a rank's row shard).
+
+def _one_long_row():
+    """One row of 3 * CSR_CAP + 5 entries and nothing else: a plan of one
+    long row's block."""
+    n = 3 * CSR_CAP + 5
+    return sp.csr_matrix((np.linspace(-2.0, 2.0, n), (np.zeros(n, int),
+                                                      np.arange(n))),
+                         shape=(1, n))
+
+
+def _unaligned():
+    """Row lengths 1, 2, 3, 5, 7 in turn, so row blocks' windows start at
+    every offset within a 16-byte vector, and nnz % 4 == 3: the arrays'
+    last vector is partial."""
+    rng = np.random.default_rng(13)
+    lengths = np.resize([1, 2, 3, 5, 7], 2400)
+    lengths[-1] += 3 - int(lengths.sum()) % 4
+    rows = np.repeat(np.arange(lengths.size), lengths)
+    cols = np.arange(rows.size) * 37 % 1500  # distinct within a row
+    A = sp.coo_matrix((rng.normal(size=rows.size), (rows, cols)),
+                      shape=(lengths.size, 1500)).tocsr()
+    assert A.nnz % 4 == 3
+    return A
+
+
+def _many_blocks():
+    """300,000 rows of 3-6 entries and four rows longer than CSR_CAP among
+    them: several waves of row blocks on an H100, long rows' blocks among
+    them."""
+    rng = np.random.default_rng(17)
+    m, n = 300_000, 20_000
+    lengths = rng.integers(3, 7, size=m)
+    for r in (5, 77_777, 150_001, 299_998):
+        lengths[r] = 2 * CSR_CAP + 11 + r % 7
+    rows = np.repeat(np.arange(m), lengths)
+    cols = rng.integers(0, n, size=rows.size)
+    A = sp.coo_matrix((rng.normal(size=rows.size), (rows, cols)),
+                      shape=(m, n)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
+MORE_HALF_CASES = {"one_long_row": _one_long_row, "unaligned": _unaligned,
+                   "many_blocks": _many_blocks}
+
+
+def _row_slice(M, r0, r1):
+    """Rows [r0, r1) of M as a rank of a row-sharded mesh holds them: its
+    own arrays (copied, 16-byte aligned) and its own plan."""
+    import dataclasses
+
+    e0, e1 = int(M.indptr[r0]), int(M.indptr[r1])
+    S = dataclasses.replace(
+        M, indptr=(M.indptr[r0:r1 + 1] - e0).contiguous(),
+        indices=M.indices[e0:e1].clone(), vals=M.vals[e0:e1].clone(),
+        nrows=r1 - r0, blocks=None, tiles=None, dense=None)
+    return dataclasses.replace(S, blocks=row_blocks(S))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_fused_halves_on_a_row_shard(cuda, dtype):
+    """spmv_x_half / spmv_y_half over a rank's rows [r0, r1) of A^T and A,
+    as matrices of their own with their own plans and the row operands
+    views at r0, bitwise the plain halves on the same rows, at t = 0 and
+    5, one launch each."""
+    from hprlp_tpu_torch.ops.device_problem import LpDevice
+
+    M = _matrix("many_blocks", dtype, cuda)
+    MT = with_spmv_backend(_transpose(M), "gather")
+    o = _half_operands(M, MT, dtype, cuda)
+    x_hat = _x(M.ncols, dtype, cuda, seed=3)
+    xs, ys = slice(6_001, 13_333), slice(100_003, 211_117)
+    M, MT = _row_slice(M, ys.start, ys.stop), _row_slice(MT, xs.start,
+                                                        xs.stop)
+    xr = tuple(o[k][xs] for k in ("x", "last_x", "c", "l", "u"))
+    yr = tuple(o[k][ys] for k in ("y", "last_y", "AL", "AU"))
+    lp = LpDevice(A=M, AT=MT, AL=yr[2], AU=yr[3], c=xr[2], l=xr[3],
+                  u=xr[4])
+    for t in (0, 5):
+        h = chunk.Halpern(o["inner"], t, dtype)
+        before = (spmv_x_half.launches, spmv_y_half.launches)
+        x_new, x_h = spmv_x_half(MT, o["y"], *xr, o["sigma"], o["inner"], t)
+        y_new = spmv_y_half(M, x_hat, *yr, o["lam_sigma"], o["inner"], t)
+        xp, xhp = chunk.x_half_plain(lp, xr[0], o["y"], xr[1], o["sigma"], h)
+        yp = chunk.y_half_plain(lp, yr[0], x_hat, yr[1], o["lam_sigma"], h)
+        torch.cuda.synchronize()
+        assert (spmv_x_half.launches, spmv_y_half.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(x_new, xp) and torch.equal(x_h, xhp), t
+        assert torch.equal(y_new, yp), t
 
 
 @pytest.mark.parametrize("case", ["bench", "random", "empty_rows",
