@@ -2792,10 +2792,15 @@ def tiled_halves_phase(card, problems):
     On the default tiles the mesh's epilogue too, on the
     kernel's products: bitwise its plain version, timed with its inputs out
     of L2 (rotated copies) beside its plain version, timed so, and its
-    bound, and in L2.  Returns {cell: record}."""
+    bound, and in L2, with its plan (grid, block, passes), the kernel's
+    registers and the floor of an empty launch on that grid.  Returns
+    {cell: record}."""
     import dataclasses
 
-    from hprlp_tpu_torch.ops.spmv import (MAIN_STAGE, group_sum_kernel,
+    from hprlp_tpu_torch.ops.spmv import (MAIN_STAGE, empty_launch,
+                                          epilogue_kernel_info,
+                                          epilogue_launch_plan,
+                                          group_sum_kernel,
                                           max_active_clusters, spmv_x_half,
                                           spmv_y_half, tiled_half_epilogue,
                                           tiled_spmv, tiled_x_half,
@@ -3032,6 +3037,11 @@ def tiled_halves_phase(card, problems):
                             s1, *r1 = next(turn)
                             return plain_fn(s1, r1)
 
+                        # The launch's plan (blocks, threads, passes), the
+                        # kernel's registers and the floor: an empty
+                        # kernel on the same grid, graph-replayed.
+                        P = epilogue_launch_plan(half, s_)
+                        info = epilogue_kernel_info(s_.device, dtype, half)
                         rec[f"epilogue_{half}"] = r = {
                             "ulps": e_ulps, "max_abs_err": max(
                                 float((a - b).abs().max())
@@ -3041,17 +3051,26 @@ def tiled_halves_phase(card, problems):
                             "l2_resident_ms": time_ms(
                                 lambda: tiled_half_epilogue(
                                     half, s_, rows, scal, st.inner, 0)),
+                            "floor_ms": time_ms(lambda: empty_launch(
+                                s_.device, P.grid, P.threads)),
+                            "plan": dataclasses.asdict(P), **info,
                             "rotated_copies": k,
                             "bound_ms": bound_ms, "bound_by": bound_by}
                         del copies, turn
                         phase(10, f"(c) {cell} the mesh's {half}-half "
-                                  f"epilogue alone ({s_.numel()} rows): "
-                                  f"{e_ulps} ulps from its plain version; "
-                                  f"{r['ms']:.5f} ms with its inputs out of "
-                                  f"L2 ({k} copies; {bound_ms / r['ms']:.1%}"
-                                  f" of bound {bound_ms:.5f} ms, {bound_by})"
-                                  f", plain {r['plain_ms']:.5f} ms; in L2 "
-                                  f"{r['l2_resident_ms']:.5f} ms [{card}]")
+                                  f"epilogue alone ({s_.numel()} rows; "
+                                  f"{P.grid} blocks of {P.threads}, "
+                                  f"{P.passes} passes, {info['registers']} "
+                                  f"registers, {info['blocks_per_sm']} "
+                                  f"blocks an SM): {e_ulps} ulps from its "
+                                  f"plain version; {r['ms']:.5f} ms with its"
+                                  f" inputs out of L2 ({k} copies; "
+                                  f"{bound_ms / r['ms']:.1%} of bound "
+                                  f"{bound_ms:.5f} ms, {bound_by}), plain "
+                                  f"{r['plain_ms']:.5f} ms; in L2 "
+                                  f"{r['l2_resident_ms']:.5f} ms; an empty "
+                                  f"launch on its grid {r['floor_ms']:.5f} "
+                                  f"ms [{card}]")
                         check(e_ulps == 0, f"phase 10 (c): {cell}: the "
                               f"{half}-half epilogue is {e_ulps} ulps from "
                               f"its plain version")
@@ -4257,7 +4276,9 @@ def main():
         "also_replaces": "hprlp_tpu/solver/chunk.py:81",
         "note": "a column-sharded mesh's middle-iteration half after the "
                 "all-reduce of the partial products: half_epilogue_kernel "
-                "(group_sum_kernel's pass at G = 1 with the half's update); "
+                "(one row a thread, its loads before the scalars', one "
+                "wave; each cell's plan, registers and empty-launch floor "
+                "in its record); "
                 "headline the x-half at sparse_huge f32's n rows with its "
                 "inputs out of L2 (rotated copies), plain_ms solver/"
                 "chunk.py::x_update timed so; launches: phase 15's mesh "

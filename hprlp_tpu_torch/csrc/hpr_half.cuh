@@ -57,13 +57,18 @@ __device__ __forceinline__ T halpern_f1(int k) {
 }
 
 // x-half: z = x + sigma (A^T y - c); x_bar = clamp(z, l, u);
-// x_hat = 2 x_bar - x; returns x_new = f2 x_hat + f1 last_x.
+// x_hat = 2 x_bar - x; returns x_new = f2 x_hat + f1 last_x.  clamp takes
+// a NaN as torch.clamp's tensor bounds do on the card: z's, else l's,
+// else u's.
 template <typename T>
 __device__ __forceinline__ T x_half_update(T aty, T x, T last, T c, T l,
                                            T u, T sigma, T f1, T& x_hat) {
   const T f2 = sub_rn(T(1), f1);
   const T z = add_rn(x, mul_rn(sigma, sub_rn(aty, c)));
-  const T xb = z != z ? z : min_t(max_t(z, l), u);
+  const T xb = z != z   ? z
+               : l != l ? l
+               : u != u ? u
+                        : min_t(max_t(z, l), u);
   x_hat = sub_rn(mul_rn(T(2), xb), x);
   return add_rn(mul_rn(f2, x_hat), mul_rn(f1, last));
 }

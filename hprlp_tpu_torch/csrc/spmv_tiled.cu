@@ -94,13 +94,26 @@
 // half-update of each row given its sum, with csrc/hpr_half.cuh's rounding
 // rules (each operation rounded once, NaN taken as torch.clamp and
 // torch.maximum take it), so a fused half is bitwise the kStore launch
-// followed by PyTorch's elementwise ops.  half_epilogue_kernel<T, E> is
-// group_sum_kernel's pass at G = 1 on a given y: the column-sharded mesh's
-// epilogue, after the all-reduce of the ranks' partial products, launched
-// under a name of its own so that a profile tells it from the SpMV.  sigma
-// (or lambda * sigma) is a 0-dim device tensor and the Halpern counter is
-// read from device memory as inner + t, t baked in at launch, so a
-// captured CUDA graph replays it unchanged.
+// followed by PyTorch's elementwise ops.  sigma (or lambda * sigma) is a
+// 0-dim device tensor and the Halpern counter is read from device memory
+// as inner + t, t baked in at launch, so a captured CUDA graph replays it
+// unchanged.
+//
+// half_epilogue_kernel<T, E> is the column-sharded mesh's epilogue: the
+// same half-update of each row given its all-reduced product, with no SpMV
+// around it (it was group_sum_kernel's pass at G = 1).  What bounds it:
+// bytes (the product and 4-5 operands read, 1-2 rows written, ~12
+// operations a row), and at a mesh's sizes (0.5-34 MB) the launch and one
+// round trip to memory as much.  So every load of a thread's row is in
+// flight before anything waits: the scalars (sigma, and the Halpern
+// counter whose f1 takes a division) are read after the row's loads are
+// issued, not ahead of them; the grid is sized to the rows and capped at
+// one wave of resident blocks (the occupancy query, read once a device),
+// beyond which threads stride, each next row's loads issued as soon as
+// the row before is stored; the product, read once, is loaded evict-first.
+// 16-byte accesses of 2-4 rows and 2-4 vectors a thread were measured and
+// lost to one row a thread (PERF.md section 6).  ops/spmv.py::
+// epilogue_plan sizes the grid.
 //
 // The segsum study (template SEG, float and stage 1 only; launched by
 // ops/spmv_variants.py::spmv_segsum, never by a solve; SEG = 0 is the
@@ -1088,13 +1101,41 @@ group_sum_kernel(int G, int nrows, const T* __restrict__ part,
   group_rows<T, E>(G, nrows, part, y, h);
 }
 
-// The column-sharded mesh's epilogue: group_rows at G = 1 on the
-// all-reduced y (see the note at the top).
+// The column-sharded mesh's epilogue (see the note at the top): one row a
+// thread, threads striding over the rows past one wave of blocks.  Each
+// thread's first row's loads go out before the scalars are read, so that
+// sigma's and the Halpern counter's loads and f1's division run under
+// them rather than ahead of them, and each next row's after the row before
+// is stored.  The summed product, consumed once, is loaded evict-first
+// (ld.global.cs); the operands, read every iteration, and the stores take
+// the default policy.
+constexpr int kEpiThreads = 256;
+
 template <typename T, int E>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kEpiThreads)
 half_epilogue_kernel(int nrows, const T* __restrict__ y, const Half h) {
-  group_rows<T, E>(1, nrows, y, nullptr, h);
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  T s{};
+  HalfRow<T> o{};
+  if (i < nrows) {
+    s = __ldcs(y + i);
+    o = load_half_row<T, E>(h, i);
+  }
+  const HalfScalars<T> k = half_scalars<T>(h);
+  while (i < nrows) {
+    store_half_row<T, E>(h, i, s, o, k);
+    i += step;
+    if (i < nrows) {
+      s = __ldcs(y + i);
+      o = load_half_row<T, E>(h, i);
+    }
+  }
 }
+
+// Launched by no solve: an empty kernel on an epilogue's grid, whose
+// graph-replayed time is the floor of any launch there.
+__global__ void empty_kernel() {}
 
 // Blocks of 256 threads for a pass over n rows: one per 256 rows, at most
 // 8 per SM.
@@ -1301,25 +1342,34 @@ int launch_half(int epilogue, int cluster, const Args& a, void* stream) {
                             : launch_stage<T, 1, kScan, kYHalf>(a, s);
 }
 
+template <typename T>
+const void* epilogue_kernel(int epilogue) {
+  switch (epilogue) {
+    case kXHalf: return reinterpret_cast<const void*>(&half_epilogue_kernel<T, kXHalf>);
+    case kYHalf: return reinterpret_cast<const void*>(&half_epilogue_kernel<T, kYHalf>);
+    default: return nullptr;
+  }
+}
+
 template <typename T, int E>
-int launch_epilogue(int nrows, const void* y, const Half& h,
+int launch_epilogue(int nrows, int grid, const void* y, const Half& h,
                     cudaStream_t stream) {
-  if (!y || !half_complete<E>(h)) {
+  if (!y || !half_complete<E>(h) || grid <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  half_epilogue_kernel<T, E><<<row_pass_grid(nrows), 256, 0, stream>>>(
+  half_epilogue_kernel<T, E><<<grid, kEpiThreads, 0, stream>>>(
       nrows, static_cast<const T*>(y), h);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_epilogue(int epilogue, int nrows, const void* y, const Half& h,
-                    void* stream) {
+int launch_epilogue(int epilogue, int nrows, int grid, const void* y,
+                    const Half& h, void* stream) {
   if (nrows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epilogue) {
-    case kXHalf: return launch_epilogue<T, kXHalf>(nrows, y, h, s);
-    case kYHalf: return launch_epilogue<T, kYHalf>(nrows, y, h, s);
+    case kXHalf: return launch_epilogue<T, kXHalf>(nrows, grid, y, h, s);
+    case kYHalf: return launch_epilogue<T, kYHalf>(nrows, grid, y, h, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1420,17 +1470,42 @@ int hprlp_tiled_half(int f64, int epilogue, int cluster, int nrows, int ncols,
 
 // The column-sharded mesh's epilogue: the half-update of each of nrows rows
 // given its sum y[row] (the all-reduced partial products), the operands as
-// for hprlp_tiled_half.  Returns the launch's error code (0 on success).
-int hprlp_tiled_half_epilogue(int f64, int epilogue, int nrows, const void* y,
-                              void* out, void* hat, const void* cur,
-                              const void* last, const void* p0,
-                              const void* p1, const void* p2,
+// for hprlp_tiled_half, on `grid` blocks of 256 threads (ops/spmv.py::
+// epilogue_plan).  Returns the launch's error code (0 on success).
+int hprlp_tiled_half_epilogue(int f64, int epilogue, int nrows, int grid,
+                              const void* y, void* out, void* hat,
+                              const void* cur, const void* last,
+                              const void* p0, const void* p1, const void* p2,
                               const void* scal, const void* inner, int t,
                               void* stream) {
   const Half h{out, hat, cur, last, p0, p1, p2, scal,
                static_cast<const int*>(inner), t};
-  return f64 ? launch_epilogue<double>(epilogue, nrows, y, h, stream)
-             : launch_epilogue<float>(epilogue, nrows, y, h, stream);
+  return f64 ? launch_epilogue<double>(epilogue, nrows, grid, y, h, stream)
+             : launch_epilogue<float>(epilogue, nrows, grid, y, h, stream);
+}
+
+// The epilogue's registers a thread and resident blocks an SM on the
+// current device, in out[0], out[1].  Returns an error code (0 on success).
+int hprlp_tiled_epilogue_info(int f64, int epilogue, int* out) {
+  const void* fn = f64 ? epilogue_kernel<double>(epilogue)
+                       : epilogue_kernel<float>(epilogue);
+  if (!fn || !out) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], fn, kEpiThreads, 0));
+}
+
+// The empty kernel on `grid` blocks of `threads` (the launch floor of a
+// plan's grid; no solve launches it).  Returns the launch's error code.
+int hprlp_tiled_empty_launch(int grid, int threads, void* stream) {
+  if (grid <= 0 || threads <= 0 || threads > 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  empty_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One variant of the segsum study (float, strips staged per block):

@@ -476,8 +476,12 @@ def _tiled_library(device_index: int) -> ctypes.CDLL:
     lib.hprlp_tiled_spmv.restype = i
     lib.hprlp_tiled_half.argtypes = [i] * 12 + [ptr] * 15 + [i, ptr]
     lib.hprlp_tiled_half.restype = i
-    lib.hprlp_tiled_half_epilogue.argtypes = [i] * 3 + [ptr] * 10 + [i, ptr]
+    lib.hprlp_tiled_half_epilogue.argtypes = [i] * 4 + [ptr] * 10 + [i, ptr]
     lib.hprlp_tiled_half_epilogue.restype = i
+    lib.hprlp_tiled_epilogue_info.argtypes = [i, i, ptr]
+    lib.hprlp_tiled_epilogue_info.restype = i
+    lib.hprlp_tiled_empty_launch.argtypes = [i, i, ptr]
+    lib.hprlp_tiled_empty_launch.restype = i
     lib.hprlp_tiled_segsum.argtypes = [i] * 9 + [ptr] * 11
     lib.hprlp_tiled_segsum.restype = i
     lib.hprlp_tiled_max_active_clusters.argtypes = [i, i, i, i]
@@ -540,9 +544,15 @@ def check_tiled_layout(T, x: torch.Tensor) -> None:
                          f"the cluster size {CLUSTER}")
 
 
+def _index(device) -> int:
+    """A CUDA device's index (the current device's for a bare "cuda")."""
+    device = torch.device(device)
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
 def _tiled_lib(x: torch.Tensor) -> ctypes.CDLL:
-    return _tiled_library(x.device.index if x.device.index is not None
-                          else torch.cuda.current_device())
+    return _tiled_library(_index(x.device))
 
 
 def _tile_args(T, x: torch.Tensor, part) -> tuple:
@@ -722,15 +732,85 @@ def tiled_y_half(T, x_hat, y, last_y, AL, AU, lam_sigma, inner, t: int,
 tiled_y_half.launches = 0
 
 
+EPI_THREADS = 256  # csrc/spmv_tiled.cu kEpiThreads
+
+
+@dataclasses.dataclass(frozen=True)
+class EpiloguePlan:
+    """How half_epilogue_kernel covers its rows: `grid` blocks of
+    `threads`, each thread one row a pass over `passes` passes."""
+    threads: int
+    grid: int
+    passes: int
+
+
+def epilogue_plan(n: int, sms: int, blocks_per_sm: int) -> EpiloguePlan:
+    """The mesh's epilogue over n rows: one row a thread, the grid sized to
+    the rows and capped at one wave (sms x blocks_per_sm resident blocks),
+    beyond which threads stride.  Pure: the card's figures come in as
+    arguments."""
+    if n < 0 or sms <= 0:
+        raise ValueError(f"no epilogue plan for {n} rows on {sms} SMs")
+    if blocks_per_sm <= 0:
+        raise RuntimeError("no block of the epilogue fits an SM")
+    grid = max(1, min(-(-n // EPI_THREADS), sms * blocks_per_sm))
+    return EpiloguePlan(EPI_THREADS, grid, -(-n // (EPI_THREADS * grid)))
+
+
+@functools.cache
+def _epilogue_info(device_index: int, f64: int, half: str) -> tuple:
+    lib = _tiled_library(device_index)
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device_index):
+        err = lib.hprlp_tiled_epilogue_info(f64, HALF_EPILOGUES[half], out)
+    _raise_tiled(lib, err, f"{half}-half epilogue, attributes")
+    return out[0], out[1]
+
+
+def epilogue_kernel_info(device, dtype: torch.dtype, half: str) -> dict:
+    """The epilogue's registers a thread (cudaFuncGetAttributes) and
+    resident blocks an SM on `device`
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), read once a device."""
+    regs, blocks = _epilogue_info(_index(device),
+                                  int(dtype == torch.float64), half)
+    return {"registers": regs, "blocks_per_sm": blocks}
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def epilogue_launch_plan(half: str, s: torch.Tensor) -> EpiloguePlan:
+    """epilogue_plan for a launch on s's card: s's rows, the card's SMs and
+    the kernel's resident blocks."""
+    index = _index(s.device)
+    return epilogue_plan(s.numel(), _sm_count(index), _epilogue_info(
+        index, int(s.dtype == torch.float64), half)[1])
+
+
 def _epilogue_launch(half: str, s: torch.Tensor, out, rows, scal, inner,
                      t: int) -> None:
     lib = _tiled_lib(s)
+    P = epilogue_launch_plan(half, s)
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream(s.device).cuda_stream
         err = lib.hprlp_tiled_half_epilogue(
             int(s.dtype == torch.float64), HALF_EPILOGUES[half], s.numel(),
-            s.data_ptr(), *_ptrs(out, rows, scal, inner), t, stream)
-    _raise_tiled(lib, err, f"{half}-half epilogue, {s.numel()} rows")
+            P.grid, s.data_ptr(), *_ptrs(out, rows, scal, inner), t, stream)
+    _raise_tiled(lib, err, f"{half}-half epilogue, {s.numel()} rows, {P}")
+
+
+def empty_launch(device, grid: int, threads: int) -> None:
+    """One launch of csrc/spmv_tiled.cu's empty kernel on `grid` blocks of
+    `threads`: the floor that a launch on that grid costs (a measurement;
+    no solve launches it)."""
+    index = _index(device)
+    lib = _tiled_library(index)
+    with torch.cuda.device(index):
+        err = lib.hprlp_tiled_empty_launch(
+            grid, threads, torch.cuda.current_stream(index).cuda_stream)
+    _raise_tiled(lib, err, f"empty launch, {grid} x {threads}")
 
 
 def tiled_half_epilogue(half: str, s: torch.Tensor, rows, scal, inner,
@@ -742,7 +822,7 @@ def tiled_half_epilogue(half: str, s: torch.Tensor, rows, scal, inner,
     y, last_y, AL, AU); scal: sigma or lambda sigma; inner, t as for
     tiled_x_half.  Returns (x_new, x_hat) or y_new, as solver/chunk.py::
     x_update / y_update compute them from s.  Raises on a bad argument or
-    a refused launch."""
+    a refused launch.  The launch's grid is epilogue_launch_plan's."""
     _check_cuda(s)
     if s.dtype not in (torch.float32, torch.float64) or s.dim() != 1 \
             or not s.is_contiguous():

@@ -292,7 +292,9 @@ def test_import_leaves_out_jax_triton_and_the_jax_package():
             "hprlp_tpu_torch.prof.prof_loop, "
             "hprlp_tpu_torch.prof.prof_ynew_store, hprlp_tpu_torch.server, "
             "hprlp_tpu_torch.capi, hprlp_tpu_torch.solver.refine, "
-            "hprlp_tpu_torch._malloc, hprlp_tpu_torch.prof.share_ingest; "
+            "hprlp_tpu_torch._malloc, hprlp_tpu_torch.prof.share_ingest, "
+            "hprlp_tpu_torch.prof.prof_epilogue, "
+            "hprlp_tpu_torch.prof.prof_mixed; "
             "bad = [m for m in ('jax', 'triton', 'hprlp_tpu') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -283,3 +283,68 @@ def test_two_ranks_halves_on_column_shards_are_bitwise(two_ranks, rank,
     whole = halves(_with_tiles(shard_lp()))
     for a, b, what in zip(got[route], whole, ("x_new", "x_hat", "y_new")):
         _close(a, b, 1e-12, what)
+
+
+# --- the mesh's epilogue: its launch plan -----------------------------------
+
+SMS = 132  # the H100's SMs
+
+
+def _covered(P, n):
+    """How many times the kernel's index arithmetic (csrc/spmv_tiled.cu
+    half_epilogue_kernel: row i = block * threads + thread, then strides
+    of grid * threads) writes each of n rows under plan P."""
+    tid = np.arange(P.grid * P.threads)
+    rows = [tid + p * P.grid * P.threads for p in range(P.passes + 1)]
+    rows = np.concatenate(rows)
+    return np.bincount(rows[rows < n], minlength=n)
+
+
+@pytest.mark.parametrize("blocks_per_sm", [8, 5, 1])
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 70001, 65536, 131072,
+                               262144, 524288, 1056 * 256 - 1, 1056 * 256,
+                               1056 * 256 + 1, 3145728])
+def test_epilogue_plan_covers_every_row_once(n, blocks_per_sm):
+    """ops/spmv.py::epilogue_plan: blocks of 256, the grid sized to the
+    rows and capped at one wave, the passes that cover the rest; the
+    kernel's index arithmetic on that plan writes every row exactly
+    once."""
+    from hprlp_tpu_torch.ops.spmv import EPI_THREADS, epilogue_plan
+
+    P = epilogue_plan(n, SMS, blocks_per_sm)
+    assert P.threads == EPI_THREADS == 256
+    assert 1 <= P.grid <= SMS * blocks_per_sm
+    assert P.grid == max(1, min(-(-n // 256), SMS * blocks_per_sm))
+    assert (P.passes - 1) * P.grid * 256 < n <= P.passes * P.grid * 256 \
+        or n == P.passes == 0
+    assert np.array_equal(_covered(P, n), np.ones(n, dtype=np.int64))
+
+
+@pytest.mark.parametrize("cell", [
+    # (rows, blocks an SM): (grid, passes)
+    ((65536, 8), (256, 1)),     # sparse_large y
+    ((131072, 8), (512, 1)),    # sparse_large x
+    ((262144, 8), (1024, 1)),   # sparse_huge y
+    ((524288, 8), (1056, 2)),   # sparse_huge x: one wave, then a stride
+    ((524288, 6), (792, 3)),    # the same at 6 blocks an SM
+    ((3145728, 8), (1056, 12)),  # the banded giant's x
+], ids=["large_y", "large_x", "huge_y", "huge_x", "huge_x_6", "giant_x"])
+def test_epilogue_plan_at_the_mesh_sizes(cell):
+    """The plan's grid at the sizes a mesh's epilogue runs: one block a
+    256 rows up to one wave of resident blocks."""
+    from hprlp_tpu_torch.ops.spmv import epilogue_plan
+
+    (n, per_sm), want = cell
+    P = epilogue_plan(n, SMS, per_sm)
+    assert (P.grid, P.passes) == want
+
+
+def test_epilogue_plan_refuses_what_the_kernel_does_not_take():
+    from hprlp_tpu_torch.ops.spmv import epilogue_plan
+
+    with pytest.raises(ValueError, match="plan"):
+        epilogue_plan(-1, SMS, 8)
+    with pytest.raises(ValueError, match="plan"):
+        epilogue_plan(10, 0, 8)
+    with pytest.raises(RuntimeError, match="fits"):
+        epilogue_plan(10, SMS, 0)

@@ -28,7 +28,8 @@ import torch
 
 from hprlp_tpu_torch.ops.device_problem import host_csr, upload_problem
 from hprlp_tpu_torch.ops.sparse import spmv_backend
-from hprlp_tpu_torch.ops.spmv import (BLOCK_X_HALVES, group_sum_kernel,
+from hprlp_tpu_torch.ops.spmv import (BLOCK_X_HALVES, epilogue_launch_plan,
+                                      group_sum_kernel,
                                       tiled_half_epilogue, tiled_spmv,
                                       tiled_x_half, tiled_y_half)
 from hprlp_tpu_torch.ops.tiles import tiled_spmv_reference
@@ -252,27 +253,118 @@ def test_cluster_route_halves_are_bitwise_block_x(cuda, case, dtype, half):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+# The epilogue's cases (length, storage offset of the product, of the row
+# operands): n of 1, 255, 257 and one wave of blocks +- 1 (1056 blocks of
+# 256 at 8 an SM on an H100: some threads take a second row), views 1-3
+# elements into their storage, a product and operands at offsets that
+# disagree modulo 16 bytes, and sparse_large's and sparse_huge's row
+# counts (A's m, A^T's n).
+EPILOGUE_CASES = {
+    "n1": (1, 0, 0), "n255": (255, 0, 0), "n257": (257, 0, 0),
+    "wave_less_1": (1056 * 256 - 1, 0, 0),
+    "wave_plus_1": (1056 * 256 + 1, 0, 0),
+    "offset1": (70001, 1, 1), "offset2": (70001, 2, 2),
+    "offset3": (70001, 3, 3), "offsets_disagree": (70001, 1, 0),
+    "sparse_large_m": (65536, 0, 0), "sparse_large_n": (131072, 0, 0),
+    "sparse_huge_m": (262144, 0, 0), "sparse_huge_n": (524288, 0, 0),
+}
+
+
+def epilogue_operands(half, n, s_off, r_off, dtype, device, special=False):
+    """The summed product s and the half's rows, n each, as views s_off and
+    r_off elements into their storage; `special`: NaN and +-inf in s and
+    in the bounds besides the infinite bounds of free rows."""
+    rng = np.random.default_rng(n + 7 * s_off + 11 * r_off)
+
+    def vec(off, scale=1.0):
+        t = torch.empty(n + off, dtype=dtype, device=device)[off:]
+        t.copy_(torch.as_tensor(rng.normal(size=n) * scale))
+        return t
+
+    s = vec(s_off, 3.0)
+    x, last, c = vec(r_off), vec(r_off), vec(r_off)
+    lo, hi = vec(r_off), vec(r_off)
+    hi.copy_(lo + torch.abs(hi))
+    lo[::3], hi[::5] = -np.inf, np.inf
+    if special:
+        s[1::7], s[2::11], s[3::13] = np.nan, np.inf, -np.inf
+        lo[4::17], hi[5::19] = np.nan, np.nan
+        hi[6::23], lo[7::29] = -np.inf, np.inf
+    if half == "x":
+        return s, (x, last, c, lo, hi)
+    return s, (x, last, lo, hi)
+
+
+@pytest.mark.parametrize("special", [False, True], ids=["finite", "nan_inf"])
+@pytest.mark.parametrize("case", sorted(EPILOGUE_CASES) + ["tiles"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 @pytest.mark.parametrize("half", ["x", "y"])
-def test_epilogue_equals_the_plain_update(cuda, half, dtype):
+def test_epilogue_equals_the_plain_update(cuda, half, dtype, case, special):
     """tiled_half_epilogue on a given summed product bitwise its plain
-    version, infinite bounds included; one launch, counted apart from the
-    fused halves."""
-    _, T, _ = make_case("random", dtype, cuda)
-    o = _operands(T, dtype, cuda, infinite=True)
-    s = torch.as_tensor(np.random.default_rng(5).normal(size=T.nrows) * 3,
-                        device=cuda).to(dtype)
-    rows, scal = ((_x_rows(o), o["sigma"]) if half == "x"
-                  else (_y_rows(o), o["lam_sigma"]))
+    version, infinite bounds included, and NaN and +-inf in the product and
+    the bounds where `special`: at every EPILOGUE_CASES length and offset
+    (and the tiles case's rows), so a part block, threads that stride past
+    one wave, views into storage and sparse_large's and huge's sizes; one
+    launch on the plan's grid, counted apart from the fused halves."""
+    if case == "tiles":
+        _, T, _ = make_case("random", dtype, cuda)
+        o = _operands(T, dtype, cuda, infinite=True)
+        s = torch.as_tensor(np.random.default_rng(5).normal(size=T.nrows)
+                            * 3, device=cuda).to(dtype)
+        rows, scal = ((_x_rows(o), o["sigma"]) if half == "x"
+                      else (_y_rows(o), o["lam_sigma"]))
+        if special:
+            s[::9] = np.nan
+            rows[-1][1::4] = np.nan
+        inner = o["inner"]
+    else:
+        n, s_off, r_off = EPILOGUE_CASES[case]
+        s, rows = epilogue_operands(half, n, s_off, r_off, dtype, cuda,
+                                    special)
+        scal = torch.tensor(0.73 if half == "x" else 2.9, dtype=dtype,
+                            device=cuda)
+        inner = torch.tensor(5, dtype=torch.int32, device=cuda)
     before = (tiled_half_epilogue.launches, tiled_x_half.launches,
               tiled_y_half.launches)
-    got = tiled_half_epilogue(half, s, rows, scal, o["inner"], 9)
-    want = plain_epilogue(half, s, rows, scal, o["inner"], 9)
+    got = tiled_half_epilogue(half, s, rows, scal, inner, 9)
+    want = plain_epilogue(half, s, rows, scal, inner, 9)
     torch.cuda.synchronize()
     got, want = ((got, want) if half == "x" else ((got,), (want,)))
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    P = epilogue_launch_plan(half, s)
+    assert P.grid * P.threads * P.passes >= s.numel()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert torch.equal(a.view(_bits(dtype)), b.view(_bits(dtype)))
     assert (tiled_half_epilogue.launches, tiled_x_half.launches,
             tiled_y_half.launches) == (before[0] + 1, *before[1:])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("half", ["x", "y"])
+def test_epilogue_plan_reads_the_card_once(cuda, half, dtype):
+    """The epilogue's registers and resident blocks come from the card
+    (cudaFuncGetAttributes, the occupancy query), the plan's grid is one
+    wave at most, and an empty launch on that grid runs; a grid of no
+    blocks is refused."""
+    from hprlp_tpu_torch.ops.spmv import (EPI_THREADS, empty_launch,
+                                          epilogue_kernel_info)
+
+    info = epilogue_kernel_info(cuda, dtype, half)
+    assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 1
+    assert epilogue_kernel_info(cuda, dtype, half) == info
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    s = torch.zeros(10 ** 7, dtype=dtype, device=cuda)
+    P = epilogue_launch_plan(half, s)
+    assert P.threads == EPI_THREADS
+    assert P.grid == sms * info["blocks_per_sm"] and P.passes >= 2
+    empty_launch(cuda, P.grid, P.threads)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="empty launch"):
+        empty_launch(cuda, 0, P.threads)
+
+
+def _bits(dtype):
+    return torch.int32 if dtype == torch.float32 else torch.int64
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
