@@ -12,12 +12,12 @@ rank solves what it decided (solve_with_presolve).
 from __future__ import annotations
 
 import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 
+from . import spans
 from .io.mps import read_mps
 from .parallel import distributed
 from .params import Parameters
@@ -57,7 +57,11 @@ class Model:
     @classmethod
     def from_arrays(cls, A, AL, AU, l, u, c, obj_constant: float = 0.0
                     ) -> "Model":
-        return cls(LpProblem.from_arrays(A, AL, AU, l, u, c, obj_constant))
+        """The problem in CSR with its bounds normalised and checked
+        (LpProblem.from_arrays), in the span "checks"."""
+        with spans.span("checks"):
+            return cls(LpProblem.from_arrays(A, AL, AU, l, u, c,
+                                             obj_constant))
 
     @classmethod
     def from_mps(cls, path: str, **kw) -> "Model":
@@ -74,10 +78,12 @@ class Model:
         """Solve; x0/y0 warm-start in the original space.  With presolve
         on, the point is projected onto the reduced problem through the
         row/column maps.  device: a torch device, None for
-        cuda:{parameters.device_number}."""
-        res = solve_with_presolve(self._problem, parameters, x0=x0, y0=y0,
-                                  device=device)
-        return _apply_sense(res, self._problem.objective_sense)
+        cuda:{parameters.device_number}.  The call's root span is "solve"
+        (spans.py) where no span is open."""
+        with spans.root("solve"):
+            res = solve_with_presolve(self._problem, parameters, x0=x0,
+                                      y0=y0, device=device)
+            return _apply_sense(res, self._problem.objective_sense)
 
     def __enter__(self):
         return self
@@ -89,16 +95,18 @@ class Model:
 def _presolve(ps, problem: LpProblem, budget: float):
     """presolve_problem behind the reference's error boundary: a failure of
     any kind degrades to the unreduced model with a warning.  Returns
-    (status, reduced, handle, seconds)."""
-    t0 = time.perf_counter()
-    try:
-        status, reduced, handle = ps.presolve_problem(problem,
-                                                      max_time=budget)
-    except Exception as e:  # error boundary: degrade to the full model
-        print(f"[presolve] failed ({e}); solving the original model",
-              file=sys.stderr)
-        status, reduced, handle = "UNAVAILABLE", None, None
-    return status, reduced, handle, time.perf_counter() - t0
+    (status, reduced, handle, seconds): the seconds of its span
+    "presolve", which in the giant regime's overlap runs in a worker
+    thread, outside the call's tree."""
+    with spans.span("presolve") as pre:
+        try:
+            status, reduced, handle = ps.presolve_problem(problem,
+                                                          max_time=budget)
+        except Exception as e:  # error boundary: degrade to the full model
+            print(f"[presolve] failed ({e}); solving the original model",
+                  file=sys.stderr)
+            status, reduced, handle = "UNAVAILABLE", None, None
+    return status, reduced, handle, pre.seconds
 
 
 def solve_with_presolve(problem: LpProblem,
@@ -302,15 +310,20 @@ def _launch_mesh(problem, params, x0, y0, device) -> Results:
 
 def solve(A, AL, AU, l, u, c, parameters: Optional[Parameters] = None,
           obj_constant: float = 0.0, device=None) -> Results:
-    """One-shot solve from arrays (parity: hprlp.solve)."""
-    return Model.from_arrays(A, AL, AU, l, u, c, obj_constant).solve(
-        parameters, device=device)
+    """One-shot solve from arrays (parity: hprlp.solve), under the root
+    span "solve" where no span is open."""
+    with spans.root("solve"):
+        return Model.from_arrays(A, AL, AU, l, u, c, obj_constant).solve(
+            parameters, device=device)
 
 
 def solve_mps(path: str, parameters: Optional[Parameters] = None,
               device=None, **reader_kw) -> Results:
-    """One-shot solve from an MPS file (parity: hprlp.solve_mps)."""
-    return Model.from_mps(path, **reader_kw).solve(parameters, device=device)
+    """One-shot solve from an MPS file (parity: hprlp.solve_mps), under
+    the root span "solve" where no span is open."""
+    with spans.root("solve"):
+        return Model.from_mps(path, **reader_kw).solve(parameters,
+                                                       device=device)
 
 
 def _apply_sense(res: Results, sense: int) -> Results:

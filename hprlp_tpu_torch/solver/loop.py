@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from .. import spans
 from .._malloc import preheat
 from ..ops.device_problem import (LpDevice, attach_blocks, canonical_csr,
                                   default_vectors, host_csr, padded_size,
@@ -174,9 +175,10 @@ def build_ingest(problem: LpProblem, params: Parameters, device=None):
     (distributed.mesh_device).  In the giant regime the host allocator is
     preheated first (_malloc.preheat, a no-op unless tune_malloc ran).
     Returns (lp, maps, scal, seconds): seconds of the stages above, each
-    ended by a device sync, and "wall".  Raises on any failure, and for
+    ended by a device sync, and "wall", read off the spans "ingest.host",
+    "ingest.upload", "ingest.scaling", "ingest.layout" and their parent
+    "ingest" (spans.py).  Raises on any failure, and for
     precision="mixed"; no caller tries another route."""
-    t0 = time.perf_counter()
     params.validate()
     if params.precision == "mixed":
         raise ValueError("precision='mixed' solves in stages, each with its "
@@ -184,43 +186,49 @@ def build_ingest(problem: LpProblem, params: Parameters, device=None):
     if params.mesh_shape:
         device = mesh_rank_device(params, device)
         return build_share_ingest(problem, params, device,
-                                  distributed.rank(), params.mesh_shape,
-                                  t0=t0)
+                                  distributed.rank(), params.mesh_shape)
     device = resolve_device(params, device)
     giant = giant_regime(problem, params)
-    if giant:
-        preheat(min(problem.nnz * PREHEAT_B_PER_NNZ, PREHEAT_MAX))
+    with spans.span("ingest") as whole:
+        with spans.span("ingest.host") as host:
+            if giant:
+                preheat(min(problem.nnz * PREHEAT_B_PER_NNZ, PREHEAT_MAX))
+            A, AT = host_csr(problem)
+        with spans.span("ingest.upload") as upload:
+            lp, maps = upload_problem(problem, A, AT,
+                                      dtype=resolve_dtype(params, device),
+                                      device=device)
+            del A, AT
+            _sync(device)
+        with spans.span("ingest.scaling") as scaling:
+            lp, scal = scale_problem(lp, use_cr=params.use_CR_scaling,
+                                     use_ruiz=params.use_Ruiz_scaling,
+                                     use_pc=params.use_Pock_Chambolle_scaling,
+                                     use_bc=params.use_bc_scaling)
+            _sync(device)
+        with spans.span("ingest.layout") as layout:
+            if params.spmv_backend in ("auto", "gather") and not giant:
+                lp = attach_blocks(lp)
+            if params.spmv_backend in ("auto", "lane"):
+                # Nothing retiles these tiles, so they keep no CSR order
+                # (perm).
+                for name in ("A", "AT"):
+                    M = getattr(lp, name)
+                    M = M.with_tiles(build_tiles(M).without_perm())
+                    lp = dataclasses.replace(
+                        lp, **{name: M.tiles_only() if giant else M})
+                    del M
+            _sync(device)
+    return lp, maps, scal, _stage_seconds(whole, host, upload, scaling,
+                                          layout)
 
-    def synced() -> float:
-        _sync(device)
-        return time.perf_counter()
 
-    A, AT = host_csr(problem)
-    t1 = time.perf_counter()
-    lp, maps = upload_problem(problem, A, AT,
-                              dtype=resolve_dtype(params, device),
-                              device=device)
-    del A, AT
-    t2 = synced()
-    lp, scal = scale_problem(lp, use_cr=params.use_CR_scaling,
-                             use_ruiz=params.use_Ruiz_scaling,
-                             use_pc=params.use_Pock_Chambolle_scaling,
-                             use_bc=params.use_bc_scaling)
-    t3 = synced()
-    if params.spmv_backend in ("auto", "gather") and not giant:
-        lp = attach_blocks(lp)
-    if params.spmv_backend in ("auto", "lane"):
-        # Nothing retiles these tiles, so they keep no CSR order (perm).
-        for name in ("A", "AT"):
-            M = getattr(lp, name)
-            M = M.with_tiles(build_tiles(M).without_perm())
-            lp = dataclasses.replace(
-                lp, **{name: M.tiles_only() if giant else M})
-            del M
-    t4 = synced()
-    return lp, maps, scal, {"host": t1 - t0, "upload": t2 - t1,
-                            "scaling": t3 - t2, "layout": t4 - t3,
-                            "wall": t4 - t0}
+def _stage_seconds(whole, *stages) -> dict:
+    """The ingest's seconds: each stage's, by its span's name less
+    "ingest.", and the whole's as "wall"."""
+    out = {s.name.removeprefix("ingest."): s.seconds for s in stages}
+    out["wall"] = whole.seconds
+    return out
 
 
 def share_forms(nnz: int, problem: LpProblem, params: Parameters,
@@ -240,7 +248,7 @@ def share_forms(nnz: int, problem: LpProblem, params: Parameters,
 
 
 def build_share_ingest(problem: LpProblem, params: Parameters, device,
-                       rank: int, world: int, group=None, t0=None):
+                       rank: int, world: int, group=None):
     """build_ingest for rank `rank` of a mesh of `world` ranks in `group`
     (None: the default group) on `device`, which holds only the rank's
     share (parallel/sharded.py) in the forms share_forms names:
@@ -263,67 +271,66 @@ def build_share_ingest(problem: LpProblem, params: Parameters, device,
     for the share.  After the call build_share_ingest.record holds
     {"rows", "cols", "entries", "exchanges", "forms"}.  Returns as
     build_ingest; raises on any failure."""
-    t0 = time.perf_counter() if t0 is None else t0
     build_share_ingest.record = None
     dtype = resolve_dtype(params, device)
-
-    def synced() -> float:
-        _sync(device)
-        return time.perf_counter()
-
-    A = canonical_csr(problem)
-    m_pad, n_pad = padded_size(problem.m), padded_size(problem.n)
-    row_cuts, col_cuts, entries = share_cuts(A, m_pad, n_pad, rank, world)
-    rows, cols = row_cuts[rank:rank + 2], col_cuts[rank:rank + 2]
-    forms = share_forms(A.nnz, problem, params, device)
-    if giant_regime(problem, params):
-        # The share holds each of its entries in two forms, as the one-card
-        # ingest holds A and A^T.
-        preheat(min(entries * PREHEAT_B_PER_NNZ // 2, PREHEAT_MAX))
-    share = host_share(A, m_pad, n_pad, rows, cols,
-                       col_forms="cols" in forms)
-    del A
-    t1 = time.perf_counter()
-    vectors, maps = default_vectors(problem, dtype, device)
-    A_rows, AT_rows = upload_rows(share, dtype, device)
-    lp = LpDevice(A=A_rows, AT=AT_rows, **vectors)
-    del A_rows, AT_rows, vectors
-    share.a_rows = share.at_rows = None
-    t2 = synced()
-    scaling = ScalingShare(a0=share.rows[0], at0=share.cols[0], m=m_pad,
-                           n=n_pad, group=group)
-    lp, scal = scale_problem(lp, use_cr=params.use_CR_scaling,
-                             use_ruiz=params.use_Ruiz_scaling,
-                             use_pc=params.use_Pock_Chambolle_scaling,
-                             use_bc=params.use_bc_scaling, share=scaling)
-    t3 = synced()
-    A_sh = AT_sh = None
-    if "rows" in forms:
-        A_sh, AT_sh = rows_from_share(
-            lp.A, lp.AT, row_cuts, col_cuts, rank,
-            "gather" if params.spmv_backend == "auto"
-            else params.spmv_backend, group)
-    lp = dataclasses.replace(lp, A=None, AT=None)
-    if "cols" in forms:
-        A_col, AT_col = shard_from_share(share, scaling.passes, dtype,
-                                         device, group)
-        if A_sh is None:
-            A_sh, AT_sh = A_col, AT_col
-        else:  # both forms: the autotune keeps one
-            A_sh = dataclasses.replace(A_sh, tiles=A_col.tiles,
-                                       shard=A_col.shard)
-            AT_sh = dataclasses.replace(AT_sh, tiles=AT_col.tiles,
-                                        shard=AT_col.shard)
-        del A_col, AT_col
-    lp = dataclasses.replace(lp, A=A_sh, AT=AT_sh)
-    del A_sh, AT_sh, scaling.passes[:]
-    t4 = synced()
+    with spans.span("ingest") as whole:
+        with spans.span("ingest.host") as host:
+            A = canonical_csr(problem)
+            m_pad, n_pad = padded_size(problem.m), padded_size(problem.n)
+            row_cuts, col_cuts, entries = share_cuts(A, m_pad, n_pad, rank,
+                                                     world)
+            rows, cols = row_cuts[rank:rank + 2], col_cuts[rank:rank + 2]
+            forms = share_forms(A.nnz, problem, params, device)
+            if giant_regime(problem, params):
+                # The share holds each of its entries in two forms, as the
+                # one-card ingest holds A and A^T.
+                preheat(min(entries * PREHEAT_B_PER_NNZ // 2, PREHEAT_MAX))
+            share = host_share(A, m_pad, n_pad, rows, cols,
+                               col_forms="cols" in forms)
+            del A
+        with spans.span("ingest.upload") as upload:
+            vectors, maps = default_vectors(problem, dtype, device)
+            A_rows, AT_rows = upload_rows(share, dtype, device)
+            lp = LpDevice(A=A_rows, AT=AT_rows, **vectors)
+            del A_rows, AT_rows, vectors
+            share.a_rows = share.at_rows = None
+            _sync(device)
+        with spans.span("ingest.scaling") as scaling_span:
+            scaling = ScalingShare(a0=share.rows[0], at0=share.cols[0],
+                                   m=m_pad, n=n_pad, group=group)
+            lp, scal = scale_problem(
+                lp, use_cr=params.use_CR_scaling,
+                use_ruiz=params.use_Ruiz_scaling,
+                use_pc=params.use_Pock_Chambolle_scaling,
+                use_bc=params.use_bc_scaling, share=scaling)
+            _sync(device)
+        with spans.span("ingest.layout") as layout:
+            A_sh = AT_sh = None
+            if "rows" in forms:
+                A_sh, AT_sh = rows_from_share(
+                    lp.A, lp.AT, row_cuts, col_cuts, rank,
+                    "gather" if params.spmv_backend == "auto"
+                    else params.spmv_backend, group)
+            lp = dataclasses.replace(lp, A=None, AT=None)
+            if "cols" in forms:
+                A_col, AT_col = shard_from_share(share, scaling.passes, dtype,
+                                                 device, group)
+                if A_sh is None:
+                    A_sh, AT_sh = A_col, AT_col
+                else:  # both forms: the autotune keeps one
+                    A_sh = dataclasses.replace(A_sh, tiles=A_col.tiles,
+                                               shard=A_col.shard)
+                    AT_sh = dataclasses.replace(AT_sh, tiles=AT_col.tiles,
+                                                shard=AT_col.shard)
+                del A_col, AT_col
+            lp = dataclasses.replace(lp, A=A_sh, AT=AT_sh)
+            del A_sh, AT_sh, scaling.passes[:]
+            _sync(device)
     build_share_ingest.record = {
         "rows": share.rows, "cols": share.cols, "entries": entries,
         "exchanges": scaling.exchanges, "forms": forms}
-    return lp, maps, scal, {"host": t1 - t0, "upload": t2 - t1,
-                            "scaling": t3 - t2, "layout": t4 - t3,
-                            "wall": t4 - t0}
+    return lp, maps, scal, _stage_seconds(whole, host, upload, scaling_span,
+                                          layout)
 
 build_share_ingest.record = None
 
@@ -364,7 +371,19 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     same Results, whose times are the ranks' maxima.  Only rank 0 prints.
     Without a group it launches N ranks (_launch_mesh) and returns rank
     0's Results.
+
+    The call's spans (spans.py), under the root "solve" where no span is
+    open: "ingest" (its stages), "autotune", "power", on the card
+    "capture", "loop" (the algorithm clock: Results.time) and "finish"
+    (the unscale and the download).
     """
+    with spans.root("solve"):
+        return _solve_problem(problem, params, x0, y0, sigma0, device,
+                              _ingest)
+
+
+def _solve_problem(problem, params, x0, y0, sigma0, device, _ingest):
+    """solve_problem's body, inside its root span."""
     params = params or Parameters()
     params.validate()
     mesh = bool(params.mesh_shape)
@@ -429,21 +448,26 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     # on the chosen backend (reference autotuner analogue, src/
     # main_iterate.cu:517-595).  Probes run 20 iterations with a
     # placeholder lambda_max: every candidate sees the same value.
-    t_tune = time.perf_counter()
-    if params.spmv_backend == "auto":
-        probe_args = (scal, state, scalar(sigma), scalar(4.0),
-                      torch.tensor(False, device=device),
-                      min(20, params.check_iter))
-        lp = autotune_backends(lp, probe_args,
-                               verbose=params.autotune_verbose)
-    elif params.spmv_backend in ("gather", "dense"):
-        lp = set_spmv_backend(lp, params.spmv_backend)
-    out.autotune_time = time.perf_counter() - t_tune
+    with spans.span("autotune") as tune:
+        if params.spmv_backend == "auto":
+            probe_args = (scal, state, scalar(sigma), scalar(4.0),
+                          torch.tensor(False, device=device),
+                          min(20, params.check_iter))
+            lp = autotune_backends(lp, probe_args,
+                                   verbose=params.autotune_verbose)
+        elif params.spmv_backend in ("gather", "dense"):
+            lp = set_spmv_backend(lp, params.spmv_backend)
+    out.autotune_time = tune.seconds
+    tune.attrs["choice"] = spmv_backend(lp.A)
+    record = getattr(autotune_backends, "record", None)
+    if params.spmv_backend == "auto" and record:
+        tune.attrs["probe_ms"] = {k: v * 1e3
+                                  for k, v in record["seconds"].items()}
 
-    t_pm = time.perf_counter()
-    # Floor guards the degenerate all-zero-A case (zero-constraint LPs).
-    lambda_max = max(float(power_method(lp)) * 1.01, 1e-12)
-    out.power_time = time.perf_counter() - t_pm
+    with spans.span("power") as pm:
+        # Floor guards the degenerate all-zero-A case (zero-constraint LPs).
+        lambda_max = max(float(power_method(lp)) * 1.01, 1e-12)
+    out.power_time = pm.seconds
     log(f"ESTIMATING MAXIMUM EIGENVALUE time = {out.power_time:.2f} seconds")
 
     obj_constant = maps.obj_constant
@@ -462,38 +486,15 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
     # captures its graphs in setup, src/HPRLP.cu:99-114).
     graph = None
     if device.type == "cuda":
-        graph = capture_superchunk(lp, scal, state, rd, sigma_dev, lam_dev,
-                                   metrics_prev, obj_c_dev, params.stop_tol,
-                                   check, stall_patience)
-        solve_problem.capture_time = graph.capture_s
-        log(f"CUDA graph capture time = {graph.capture_s:.2f} seconds")
-
-    # --- algorithm clock starts here, after the power method ---
-    _sync(device)
-    t_alg = time.perf_counter()
-
-    def elapsed():
-        return time.perf_counter() - t_alg
-
-    def over_time():
-        t = elapsed()
-        if mesh:  # every rank stops on the same chunk
-            t = distributed.all_ranks_max([t], device)[0]
-        return t > params.time_limit
-
-    first = {1e-4: True, 1e-6: True, 1e-8: True}
-    stall_events = 0
-    it = 0
-    log(" iter     errRp        errRd         p_obj            d_obj"
-        "          gap         sigma       time")
-
-    def host_res(m_host, at_it):
-        return _derive_residuals(m_host, scal_host, obj_constant, at_it == 0)
+        with spans.span("capture") as cap:
+            graph = capture_superchunk(lp, scal, state, rd, sigma_dev,
+                                       lam_dev, metrics_prev, obj_c_dev,
+                                       params.stop_tol, check,
+                                       stall_patience)
+        solve_problem.capture_time = cap.seconds
+        log(f"CUDA graph capture time = {cap.seconds:.2f} seconds")
 
     def finish(status, at_it, res, sigma_val, restarts):
-        # The card may still run the replay queued behind the last chunk
-        # read (graph.StepGraph.run's lookahead): the point is ready after.
-        _sync(device)
         out.status = status
         out.spmv_backend = spmv_backend(lp.A)
         out.iter = at_it
@@ -501,7 +502,7 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
         out.residuals = res.kkt
         out.primal_obj = res.primal_obj
         out.dual_obj = res.dual_obj
-        out.time = elapsed()
+        out.time = clock.seconds
         out.restarts = restarts
         out.stall_recoveries = stall_events
         out.sigma_final = float(sigma_val)
@@ -526,6 +527,13 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
             f"Residual: {out.residuals:.2e}\n")
         return out
 
+    first = {1e-4: True, 1e-6: True, 1e-8: True}
+    stall_events = 0
+    it = 0
+
+    def host_res(m_host, at_it):
+        return _derive_residuals(m_host, scal_host, obj_constant, at_it == 0)
+
     def milestones(res, at_it, at_time):
         for tol, (attr_i, attr_t) in ((1e-4, ("iter4", "time4")),
                                       (1e-6, ("iter6", "time6")),
@@ -536,61 +544,84 @@ def solve_problem(problem: LpProblem, params: Parameters | None = None,
                 first[tol] = False
                 log(f"Residual < {tol:.0e} at iter = {at_it}")
 
-    m0 = {k: float(v) for k, v in metrics_prev.items()}
-    res = host_res(m0, 0)
-    log(f"{0:5d}    {res.err_Rp:.2e}    {res.err_Rd:.2e}    "
-        f"{res.primal_obj:+.6e}    {res.dual_obj:+.6e}    "
-        f"{res.rel_gap:.2e}    {sigma:.2e}      {elapsed():.2f}")
-    milestones(res, 0, elapsed())
-    if res.kkt < params.stop_tol:
-        return finish("OPTIMAL", 0, res, sigma, 0)
+    # --- algorithm clock starts here, after the power method ---
+    _sync(device)
+    with spans.span("loop") as clock:
+        t_alg = clock.start
 
-    restarts = 0
-    best_kkt = res.kkt
-    best_kkt_it = 0
-    while True:
-        # Chunks per call: one when verbose (per-checkpoint printing), else
-        # up to 128; time limits are checked between calls.
-        n_chunks = 1 if params.verbose else 128
-        n_chunks = max(1, min(n_chunks,
-                              (params.max_iter - it + check - 1) // check))
+        def elapsed():
+            return time.perf_counter() - t_alg
 
-        t_disp = time.perf_counter()
-        (state, rd, sigma_dev, lam_dev, metrics_prev, stacked, k_done,
-         best_pt) = run_superchunk(lp, scal, state, rd, sigma_dev, lam_dev,
-                                   metrics_prev, it, obj_c_dev,
-                                   params.stop_tol, n_chunks, check,
-                                   stall_patience, best_pt, graph)
-        t_done = time.perf_counter()
+        def over_time():
+            t = elapsed()
+            if mesh:  # every rank stops on the same chunk
+                t = distributed.all_ranks_max([t], device)[0]
+            return t > params.time_limit
 
-        for k in range(k_done):
-            it += check
-            # Time attribution within the call: linear interpolation.
-            t_k = (t_disp - t_alg) + (t_done - t_disp) * (k + 1) / k_done
-            m_k = {key: stacked[key][k] for key in stacked}
-            res = host_res(m_k, it)
-            sigma = float(stacked["sigma"][k])
-            restarts += int(stacked["flag"][k])
-            stall_events += int(stacked["stall"][k])
-            milestones(res, it, t_k)
-            if params.verbose and (it % _print_step(it) == 0
-                                   or res.kkt < params.stop_tol):
-                log(f"{it:5d}    {res.err_Rp:.2e}    {res.err_Rd:.2e}    "
-                    f"{res.primal_obj:+.6e}    {res.dual_obj:+.6e}    "
-                    f"{res.rel_gap:.2e}    {sigma:.2e}      {t_k:.2f}")
+        log(" iter     errRp        errRd         p_obj            d_obj"
+            "          gap         sigma       time")
+        m0 = {k: float(v) for k, v in metrics_prev.items()}
+        res = host_res(m0, 0)
+        log(f"{0:5d}    {res.err_Rp:.2e}    {res.err_Rd:.2e}    "
+            f"{res.primal_obj:+.6e}    {res.dual_obj:+.6e}    "
+            f"{res.rel_gap:.2e}    {sigma:.2e}      {elapsed():.2f}")
+        milestones(res, 0, elapsed())
+        outcome = (("OPTIMAL", 0, res, sigma, 0)
+                   if res.kkt < params.stop_tol else None)
+        restarts = 0
+        best_kkt = res.kkt
+        best_kkt_it = 0
+        while outcome is None:
+            # Chunks per call: one when verbose (per-checkpoint printing),
+            # else up to 128; time limits are checked between calls.
+            n_chunks = 1 if params.verbose else 128
+            n_chunks = max(1, min(n_chunks, (params.max_iter - it + check
+                                             - 1) // check))
 
-        # Stopping uses the LAST chunk's state (what `state` holds).
-        if res.kkt < params.stop_tol:
-            return finish("OPTIMAL", it, res, sigma, restarts)
-        if it >= params.max_iter:
-            return finish("ITER_LIMIT", it, res, sigma, restarts)
-        if over_time():
-            return finish("TIME_LIMIT", it, res, sigma, restarts)
-        if params.stall_window is not None:
-            if res.kkt < 0.9 * best_kkt:
-                best_kkt, best_kkt_it = res.kkt, it
-            elif it - best_kkt_it > params.stall_window:
-                return finish("STALLED", it, res, sigma, restarts)
+            t_disp = time.perf_counter()
+            (state, rd, sigma_dev, lam_dev, metrics_prev, stacked, k_done,
+             best_pt) = run_superchunk(lp, scal, state, rd, sigma_dev,
+                                       lam_dev, metrics_prev, it, obj_c_dev,
+                                       params.stop_tol, n_chunks, check,
+                                       stall_patience, best_pt, graph)
+            t_done = time.perf_counter()
+
+            for k in range(k_done):
+                it += check
+                # Time attribution within the call: linear interpolation.
+                t_k = ((t_disp - t_alg)
+                       + (t_done - t_disp) * (k + 1) / k_done)
+                m_k = {key: stacked[key][k] for key in stacked}
+                res = host_res(m_k, it)
+                sigma = float(stacked["sigma"][k])
+                restarts += int(stacked["flag"][k])
+                stall_events += int(stacked["stall"][k])
+                milestones(res, it, t_k)
+                if params.verbose and (it % _print_step(it) == 0
+                                       or res.kkt < params.stop_tol):
+                    log(f"{it:5d}    {res.err_Rp:.2e}    "
+                        f"{res.err_Rd:.2e}    {res.primal_obj:+.6e}    "
+                        f"{res.dual_obj:+.6e}    {res.rel_gap:.2e}    "
+                        f"{sigma:.2e}      {t_k:.2f}")
+
+            # Stopping uses the LAST chunk's state (what `state` holds).
+            if res.kkt < params.stop_tol:
+                outcome = ("OPTIMAL", it, res, sigma, restarts)
+            elif it >= params.max_iter:
+                outcome = ("ITER_LIMIT", it, res, sigma, restarts)
+            elif over_time():
+                outcome = ("TIME_LIMIT", it, res, sigma, restarts)
+            elif params.stall_window is not None:
+                if res.kkt < 0.9 * best_kkt:
+                    best_kkt, best_kkt_it = res.kkt, it
+                elif it - best_kkt_it > params.stall_window:
+                    outcome = ("STALLED", it, res, sigma, restarts)
+
+        # The card may still run the replay queued behind the last chunk
+        # read (graph.StepGraph.run's lookahead): the point is ready after.
+        _sync(device)
+    with spans.span("finish"):
+        return finish(*outcome)
 
 
 solve_problem.capture_time = None
