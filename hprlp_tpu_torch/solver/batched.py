@@ -12,8 +12,9 @@ members are frozen with an active mask.
 
 Differences from the single-LP path, matching the reference:
   * presolve is not applied (reference :953-955);
-  * scaling runs on A only (CR/Ruiz/PC), b/c scaling per member on the host
-    (reference :975-992);
+  * scaling runs on A only (CR/Ruiz/PC), b/c scaling per member, on the
+    device in float64 (reference :975-992), as is the final unscale: the
+    (rows, B) vectors cross the host boundary once each way;
   * one shared lambda_max from the scaled A (reference :994-1001), from the
     power method on the tiled SpMV (csrc/spmv_tiled.cu), as in
     solver/loop.py.
@@ -325,8 +326,9 @@ def _probe_dense(lp, row_norm_d, col_norm_d, state, sigma, lam, log):
 
 @dataclasses.dataclass(frozen=True)
 class BatchedSetup:
-    """A batched solve's device problem and its host-side scaling: what
-    solve_batched builds before the power method."""
+    """A batched solve's device problem and its scaling, the per-member
+    scales and norms downloaded: what solve_batched builds before the
+    power method."""
 
     lp: BatchedLpDevice
     lp0: LpDevice  # the scaled A and A^T with their SpMV tiles
@@ -344,24 +346,14 @@ class BatchedSetup:
 
 def setup_batched(A, C, AL, AU, l, u, params: Parameters, device,
                   dtype) -> BatchedSetup:
-    """Layout and upload, matrix scaling on the device, per-member vector
-    scaling on the host.  C, AL, AU, l, u: validated float64 arrays.  The
-    matrix's work is the span "ingest.matrix" (it ends on the download of
-    the scaling's norms), the vectors' the span "ingest.vectors"."""
+    """Layout and upload, matrix scaling on the device, then the
+    per-member vectors' layout and scaling on the device too, in float64.
+    C, AL, AU, l, u: validated float64 arrays, each uploaded once as it
+    is.  The matrix's work is the span "ingest.matrix" (it ends on a
+    sync), the vectors' the span "ingest.vectors" (attrs: h2d_bytes, the
+    bytes it uploads; it ends on the download of the 6 x B norms)."""
     B = C.shape[1]
-
-    def scatter(arr_2d, pos, size, fill):
-        out_h = np.full((size, B), fill)
-        out_h[pos, :] = arr_2d
-        return out_h
-
-    def bnorm(ALm, AUm):
-        return np.linalg.norm(
-            np.maximum(np.where(np.isinf(ALm), 0.0, np.abs(ALm)),
-                       np.where(np.isinf(AUm), 0.0, np.abs(AUm))), axis=0)
-
-    def dev(arr):
-        return torch.as_tensor(arr, device=device).to(dtype)
+    f64 = torch.float64
 
     with spans.span("ingest.matrix"):
         # Shared-A layout: build_device_problem of the single LP with the
@@ -391,49 +383,113 @@ def setup_batched(A, C, AL, AU, l, u, params: Parameters, device,
         elif want == "lane":
             print("[solve_batched] no lane SpMM lowering; the batched "
                   "backends are gather/dense (autotuned)", file=sys.stderr)
-        row_norm = row_norm_d.cpu().numpy().astype(np.float64)
-        col_norm = col_norm_d.cpu().numpy().astype(np.float64)
+        _sync(device)
 
-    with spans.span("ingest.vectors"):
-        # Per-member vector scaling on the host (reference :810-864):
-        # row/col norms, then per-member b/c scales.
-        AL_p = scatter(AL, maps.row_pos, m_pad, -np.inf)
-        AU_p = scatter(AU, maps.row_pos, m_pad, np.inf)
-        C_p = scatter(C, maps.col_pos, n_pad, 0.0)
-        l_p = scatter(l, maps.col_pos, n_pad, 0.0)
-        u_p = scatter(u, maps.col_pos, n_pad, 0.0)
+    with spans.span("ingest.vectors") as vec:
+        # Per-member vector scaling (reference :810-864): row/col norms,
+        # then per-member b/c scales, on the device in float64, each
+        # (rows, B) array alive only until its solve-dtype copy is made.
+        h2d = 0
+
+        def upload(arr):
+            nonlocal h2d
+            arr = np.ascontiguousarray(arr)
+            h2d += arr.nbytes
+            return torch.as_tensor(arr, device=device)
+
+        def padded(arr, pos, size, fill):
+            out = torch.full((size, B), fill, dtype=f64, device=device)
+            return out.index_copy_(0, pos, upload(arr))
+
+        def bnorm(ALm, AUm):
+            return torch.linalg.vector_norm(torch.maximum(
+                torch.where(torch.isinf(ALm), 0.0, ALm.abs()),
+                torch.where(torch.isinf(AUm), 0.0, AUm.abs())), dim=0)
+
+        row_pos, col_pos = upload(maps.row_pos), upload(maps.col_pos)
+        row_norm = row_norm_d.to(f64)[:, None]
+        col_norm = col_norm_d.to(f64)[:, None]
+        bc = params.use_bc_scaling
 
         # Original-space residual denominators come from the PRE-scaling
         # vectors (parity: single-LP scale_problem and the reference's
         # batched path, src/batched_solver.cu:817-819).
+        AL_p = padded(AL, row_pos, m_pad, -np.inf)
+        AU_p = padded(AU, row_pos, m_pad, np.inf)
         norm_b_org = 1.0 + bnorm(AL_p, AU_p)
-        norm_c_org = 1.0 + np.linalg.norm(C_p, axis=0)
-
-        AL_p /= row_norm[:, None]
-        AU_p /= row_norm[:, None]
-        C_p /= col_norm[:, None]
-        l_p *= col_norm[:, None]
-        u_p *= col_norm[:, None]
-
-        if params.use_bc_scaling:
-            b_scale = 1.0 + bnorm(AL_p, AU_p)
-            c_scale = 1.0 + np.linalg.norm(C_p, axis=0)
+        AL_p /= row_norm
+        AU_p /= row_norm
+        b_scale = (1.0 + bnorm(AL_p, AU_p) if bc
+                   else torch.ones(B, dtype=f64, device=device))
+        if bc:
             AL_p /= b_scale
             AU_p /= b_scale
-            l_p /= b_scale
-            u_p /= b_scale
-            C_p /= c_scale
-        else:
-            b_scale = np.ones(B)
-            c_scale = np.ones(B)
+        norm_b = bnorm(AL_p, AU_p)
+        AL_d, AU_d = AL_p.to(dtype), AU_p.to(dtype)
+        del AL_p, AU_p
 
-        lp = BatchedLpDevice(A=A_s, AT=AT_s, AL=dev(AL_p), AU=dev(AU_p),
-                             c=dev(C_p), l=dev(l_p), u=dev(u_p))
-        return BatchedSetup(
-            lp=lp, lp0=lp0, maps=maps, row_norm=row_norm_d,
-            col_norm=col_norm_d, b_scale=b_scale, c_scale=c_scale,
-            norm_b=bnorm(AL_p, AU_p), norm_c=np.linalg.norm(C_p, axis=0),
-            norm_b_org=norm_b_org, norm_c_org=norm_c_org, dense_ok=dense_ok)
+        C_p = padded(C, col_pos, n_pad, 0.0)
+        norm_c_org = 1.0 + torch.linalg.vector_norm(C_p, dim=0)
+        C_p /= col_norm
+        c_scale = (1.0 + torch.linalg.vector_norm(C_p, dim=0) if bc
+                   else torch.ones(B, dtype=f64, device=device))
+        if bc:
+            C_p /= c_scale
+        norm_c = torch.linalg.vector_norm(C_p, dim=0)
+        c_d = C_p.to(dtype)
+        del C_p
+
+        def bound(arr):
+            v = padded(arr, col_pos, n_pad, 0.0)
+            v *= col_norm
+            if bc:
+                v /= b_scale
+            return v.to(dtype)
+
+        l_d, u_d = bound(l), bound(u)
+        norms = torch.stack([b_scale, c_scale, norm_b, norm_c, norm_b_org,
+                             norm_c_org]).cpu().numpy()
+        vec.attrs["h2d_bytes"] = h2d
+
+    lp = BatchedLpDevice(A=A_s, AT=AT_s, AL=AL_d, AU=AU_d, c=c_d, l=l_d,
+                         u=u_d)
+    return BatchedSetup(
+        lp=lp, lp0=lp0, maps=maps, row_norm=row_norm_d, col_norm=col_norm_d,
+        **dict(zip(("b_scale", "c_scale", "norm_b", "norm_c", "norm_b_org",
+                    "norm_c_org"), norms)), dense_ok=dense_ok)
+
+
+def unscale_solution(state: BatchedState, b_scale, c_scale, row_norm,
+                     col_norm, maps: HostMaps) -> tuple:
+    """The members' solutions in the caller's space (reference :887-935),
+    on the state's device in float64: x = b_scale x_bar / col_norm, y =
+    c_scale y_bar / row_norm, z = c_scale z_bar * col_norm, each then the
+    caller's rows as a (B, rows) tensor, downloaded into a new host array
+    whose transpose is returned: (rows, B), F-contiguous.  b_scale,
+    c_scale: (B,) float64 arrays; row_norm, col_norm: the device norms.
+    Returns (x, y, z, the bytes downloaded); one (rows, B) float64
+    transient at a time besides the (B, rows) one."""
+    device = state.x_bar.device
+    d2h = 0
+
+    def final(v, scale, norm, mul, pos):
+        nonlocal d2h
+        w = torch.mul(v, torch.as_tensor(scale, device=device)[None, :])
+        norm = norm.to(torch.float64)[:, None]
+        if mul:
+            w.mul_(norm)
+        else:
+            w.div_(norm)
+        w = w.T.index_select(1, torch.as_tensor(pos, device=device))
+        out = np.empty(w.shape)
+        torch.from_numpy(out).copy_(w)
+        d2h += out.nbytes
+        return out.T
+
+    x = final(state.x_bar, b_scale, col_norm, False, maps.col_pos)
+    y = final(state.y_bar, c_scale, row_norm, False, maps.row_pos)
+    z = final(state.z_bar, c_scale, col_norm, True, maps.col_pos)
+    return x, y, z, d2h
 
 
 def initial_sigma(su: BatchedSetup) -> np.ndarray:
@@ -476,9 +532,9 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
     The call's spans (spans.py), under the root "solve_batched" where no
     span is open: "checks" (the inputs' conversion and checks), "ingest"
     (BatchedResults.setup_time; its parts "ingest.matrix" and
-    "ingest.vectors"), "power", on the card "probe" (its attrs the
-    probe's record) and "capture", "loop" (solve_time) and "finish" (the
-    unscale and the download).
+    "ingest.vectors", attrs h2d_bytes), "power", on the card "probe" (its
+    attrs the probe's record) and "capture", "loop" (solve_time) and
+    "finish" (the unscale, the gather and the download; attrs d2h_bytes).
     """
     with spans.root("solve_batched"):
         params = params or Parameters()
@@ -562,8 +618,6 @@ def _solve_batched(A, C, AL, AU, l, u, obj_constants, params: Parameters,
         su = setup_batched(A, C, AL, AU, l, u, params, device, dtype)
         lp, maps = su.lp, su.maps
         row_norm_d, col_norm_d = su.row_norm, su.col_norm
-        row_norm = row_norm_d.cpu().numpy().astype(np.float64)
-        col_norm = col_norm_d.cpu().numpy().astype(np.float64)
         b_scale, c_scale = su.b_scale, su.c_scale
         norm_b_org, norm_c_org = su.norm_b_org, su.norm_c_org
         _sync(device)
@@ -632,15 +686,8 @@ def _solve_batched(A, C, AL, AU, l, u, obj_constants, params: Parameters,
         out.gap = final_gap
         out.primal_obj = final_pobj
         out.status = list(status)
-        # Un-scale solutions (reference :887-935).
-        x_s, y_s, z_s = (v.cpu().numpy().astype(np.float64)
-                         for v in (state.x_bar, state.y_bar, state.z_bar))
-        x = (b_scale[None, :] * x_s / col_norm[:, None])[maps.col_pos, :]
-        y = (c_scale[None, :] * y_s / row_norm[:, None])[maps.row_pos, :]
-        z = (c_scale[None, :] * z_s * col_norm[:, None])[maps.col_pos, :]
-        out.x = np.asfortranarray(x)
-        out.y = np.asfortranarray(y)
-        out.z = np.asfortranarray(z)
+        out.x, out.y, out.z, fin.attrs["d2h_bytes"] = unscale_solution(
+            state, b_scale, c_scale, row_norm_d, col_norm_d, maps)
         return out
 
     n_quiet = 1 if params.verbose else 32
@@ -737,7 +784,7 @@ def _solve_batched(A, C, AL, AU, l, u, obj_constants, params: Parameters,
                 f"{elapsed():.2f}s")
         _sync(device)
 
-    with spans.span("finish"):
+    with spans.span("finish") as fin:
         return finish()
 
 

@@ -3,7 +3,8 @@ batched_device_loop.py) against the JAX package's, on the CPU in f64: one
 chunk from the same state, the per-member decisions, and whole solves on
 the cases of tests/test_batched.py; then the port's own rules (frozen
 members, host/device reconciliation, options, the dense probe, no
-fallback from a failing kernel)."""
+fallback from a failing kernel); the per-member vectors' ingest and
+unscale on the device against the NumPy formulas they replaced."""
 
 from __future__ import annotations
 
@@ -28,12 +29,13 @@ import hprlp_tpu_torch as ht
 from hprlp_tpu_torch import convert
 from hprlp_tpu_torch.ops import sparse
 from hprlp_tpu_torch.ops import spmm as spmm_mod
-from hprlp_tpu_torch.ops.device_problem import csr_from_coo
+from hprlp_tpu_torch.ops.device_problem import HostMaps, csr_from_coo
 from hprlp_tpu_torch.solver import batched as tb
 from hprlp_tpu_torch.solver import batched_device_loop as tbl
 from hprlp_tpu_torch.solver import device_loop as tloop
 
 from conftest import random_lp as jax_random_lp
+from test_torch_batched_gpu import unscale_numpy, vectors_numpy
 from test_torch_chunk import SCAL_HOST, _scal_np, random_metrics
 
 # The tensors here are small: one intra-op thread keeps this test worker
@@ -596,3 +598,103 @@ def test_failing_fused_kernel_raises_and_does_not_fall_back(pair,
                                  torch.as_tensor(ACTIVE), 5)
     finally:
         spmm_mod._library.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# The per-member vectors on the device: ingest and unscale
+# ---------------------------------------------------------------------------
+
+def _member_vectors(rng, m, n, B):
+    """Seeded (n, B) C, l, u and (m, B) AL, AU with infinite bounds in
+    places."""
+    AL = np.where(rng.random((m, B)) < 0.2, -np.inf, rng.normal(size=(m, B)))
+    AU = np.where(rng.random((m, B)) < 0.2, np.inf,
+                  np.maximum(AL, 0.0) + rng.uniform(0.0, 2.0, (m, B)))
+    l = np.where(rng.random((n, B)) < 0.2, -np.inf, rng.normal(size=(n, B)))
+    u = np.where(rng.random((n, B)) < 0.2, np.inf,
+                 np.maximum(l, 0.0) + rng.uniform(0.0, 3.0, (n, B)))
+    return rng.normal(size=(n, B)) * 10.0, AL, AU, l, u
+
+
+@pytest.mark.parametrize("bc, dtype", [(True, F64), (False, F64),
+                                       (False, torch.float32)])
+def test_setup_batched_vectors_match_numpy(bc, dtype):
+    """setup_batched's padded scaled vectors and norms against the host
+    formula they replaced, on the same matrix norms: 45 x 70 padded to 64
+    x 96; exact where no norm enters, else within 1e-14; the infinities
+    in place; the norms NumPy (B,) float64."""
+    rng = np.random.default_rng(11)
+    m, n, Bm = 45, 70, 4
+    A = sp.random(m, n, density=0.2, random_state=rng,
+                  data_rvs=lambda k: rng.normal(size=k) * 5.0).tocsr()
+    vecs = _member_vectors(rng, m, n, Bm)
+    su = tb.setup_batched(A, *vecs, quiet(use_bc_scaling=bc),
+                          torch.device("cpu"), dtype)
+    assert (su.lp0.m, su.lp0.n) == (64, 96)
+    want, norms = vectors_numpy(
+        *vecs, su.row_norm.numpy().astype(np.float64),
+        su.col_norm.numpy().astype(np.float64), su.maps, 64, 96, bc)
+    for name, ref in want.items():
+        got = getattr(su.lp, name)
+        assert got.dtype == dtype, name
+        got = got.numpy()
+        ref = ref.astype(got.dtype)
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(ref), name)
+        np.testing.assert_array_equal(got[np.isinf(got)],
+                                      ref[np.isinf(ref)], name)
+        if bc:
+            np.testing.assert_allclose(got, ref, rtol=1e-14, atol=0.0,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(got, ref, name)
+    assert np.isneginf(su.lp.AL.numpy()[m:]).all()
+    assert np.isposinf(su.lp.AU.numpy()[m:]).all()
+    for name, ref in norms.items():
+        got = getattr(su, name)
+        assert isinstance(got, np.ndarray) and got.dtype == np.float64
+        assert got.shape == (Bm,), name
+        np.testing.assert_allclose(got, ref, rtol=1e-14, atol=0.0,
+                                   err_msg=name)
+    if not bc:
+        assert (su.b_scale == 1.0).all() and (su.c_scale == 1.0).all()
+    np.testing.assert_allclose(
+        tb.initial_sigma(su),
+        tb.initial_sigma(dataclasses.replace(su, **norms)), rtol=1e-14,
+        atol=0.0)
+
+
+@pytest.mark.parametrize("permuted", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_unscale_solution_is_numpys_bitwise(permuted, dtype):
+    """x, y, z from a random state bitwise the host unscale they replaced:
+    45 x 70 in a 64 x 96 padded space, at the first positions or at
+    scattered ones, b_scale and c_scale away from 1; float64, (rows, B),
+    F-contiguous."""
+    rng = np.random.default_rng(3 + permuted)
+    m, n, m_pad, n_pad, Bm = 45, 70, 64, 96, 4
+    if permuted:
+        row_pos = rng.permutation(m_pad)[:m]
+        col_pos = rng.permutation(n_pad)[:n]
+    else:
+        row_pos, col_pos = np.arange(m), np.arange(n)
+    maps = HostMaps(row_pos=row_pos, col_pos=col_pos, m_orig=m, n_orig=n,
+                    obj_constant=0.0, objective_sense=1)
+    rows = {"x": n_pad, "last_x": n_pad, "x_bar": n_pad, "z_bar": n_pad,
+            "y": m_pad, "last_y": m_pad, "y_bar": m_pad, "y_obj": m_pad}
+    state = tb.BatchedState(
+        **{k: torch.as_tensor(rng.normal(size=(r, Bm)) * 100.0).to(dtype)
+           for k, r in rows.items()},
+        inner=torch.zeros(Bm, dtype=torch.int32))
+    b_scale, c_scale = rng.uniform(1.5, 40.0, (2, Bm))
+    row_norm = torch.as_tensor(np.exp(rng.normal(size=m_pad))).to(dtype)
+    col_norm = torch.as_tensor(np.exp(rng.normal(size=n_pad))).to(dtype)
+    *got, d2h = tb.unscale_solution(state, b_scale, c_scale, row_norm,
+                                    col_norm, maps)
+    want = unscale_numpy(state.x_bar.numpy(), state.y_bar.numpy(),
+                         state.z_bar.numpy(), b_scale, c_scale,
+                         row_norm.numpy(), col_norm.numpy(), maps)
+    for v, ref, r in zip(got, want, (n, m, n)):
+        assert v.dtype == np.float64 and v.shape == (r, Bm)
+        assert v.flags.f_contiguous
+        np.testing.assert_array_equal(v, ref)
+    assert d2h == 8 * Bm * (2 * n + m)

@@ -1,5 +1,9 @@
 """The fused batched halves (csrc/spmm.cu, ops/spmm.py::spmm_x_half and
-spmm_y_half) and the deterministic row sums of the scaling on the card.
+spmm_y_half), the deterministic row sums of the scaling and the batched
+solve's device-side vectors (solver/batched.py::setup_batched,
+unscale_solution) on the card.  The NumPy ingest and unscale kept here
+(vectors_numpy, setup_batched_numpy, unscale_numpy) are the CPU tests'
+references too (tests/test_torch_batched.py).
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one.  The file imports neither JAX nor the JAX package:
@@ -11,17 +15,27 @@ as PyTorch's elementwise kernels do, on the same SpMM sums.
 """
 
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
 
+import hprlp_tpu_torch as ht
+from hprlp_tpu_torch import spans
+from hprlp_tpu_torch.constants import DENSE_BYTES_LIMIT_BATCHED
 from hprlp_tpu_torch.ops import sparse
-from hprlp_tpu_torch.ops.device_problem import csr_from_coo
+from hprlp_tpu_torch.ops.device_problem import (attach_tiles,
+                                                build_device_problem,
+                                                csr_from_coo)
 from hprlp_tpu_torch.ops.spmm import csr_spmm, spmm_x_half, spmm_y_half
+from hprlp_tpu_torch.ops.tiles import build_tiles
+from hprlp_tpu_torch.problem import LpProblem
 from hprlp_tpu_torch.solver import batched as tb
 from hprlp_tpu_torch.solver.scaling import scale_matrix
+
+from test_torch_spans_gpu import _assignment
 
 pytestmark = pytest.mark.gpu
 
@@ -192,3 +206,163 @@ def test_row_sums_on_the_card(cuda, dtype):
     assert float((got.double() - want).abs().max()) <= tol * max(
         1.0, float(want.abs().max()))
     assert float(got[5]) == 0.0  # the empty row
+
+
+# ---------------------------------------------------------------------------
+# The per-member vectors' ingest and unscale, against NumPy's
+# ---------------------------------------------------------------------------
+
+def vectors_numpy(C, AL, AU, l, u, row_norm, col_norm, maps, m_pad, n_pad,
+                  use_bc):
+    """The per-member vectors' layout and scaling on the host in float64,
+    as setup_batched computed them before they moved to the device:
+    row_norm, col_norm are float64 arrays.  Returns the padded scaled AL,
+    AU, c, l, u and the six (B,) norms."""
+    B = C.shape[1]
+
+    def scatter(arr_2d, pos, size, fill):
+        out_h = np.full((size, B), fill)
+        out_h[pos, :] = arr_2d
+        return out_h
+
+    def bnorm(ALm, AUm):
+        return np.linalg.norm(
+            np.maximum(np.where(np.isinf(ALm), 0.0, np.abs(ALm)),
+                       np.where(np.isinf(AUm), 0.0, np.abs(AUm))), axis=0)
+
+    AL_p = scatter(AL, maps.row_pos, m_pad, -np.inf)
+    AU_p = scatter(AU, maps.row_pos, m_pad, np.inf)
+    C_p = scatter(C, maps.col_pos, n_pad, 0.0)
+    l_p = scatter(l, maps.col_pos, n_pad, 0.0)
+    u_p = scatter(u, maps.col_pos, n_pad, 0.0)
+    norm_b_org = 1.0 + bnorm(AL_p, AU_p)
+    norm_c_org = 1.0 + np.linalg.norm(C_p, axis=0)
+    AL_p /= row_norm[:, None]
+    AU_p /= row_norm[:, None]
+    C_p /= col_norm[:, None]
+    l_p *= col_norm[:, None]
+    u_p *= col_norm[:, None]
+    if use_bc:
+        b_scale = 1.0 + bnorm(AL_p, AU_p)
+        c_scale = 1.0 + np.linalg.norm(C_p, axis=0)
+        AL_p /= b_scale
+        AU_p /= b_scale
+        l_p /= b_scale
+        u_p /= b_scale
+        C_p /= c_scale
+    else:
+        b_scale = np.ones(B)
+        c_scale = np.ones(B)
+    vecs = {"AL": AL_p, "AU": AU_p, "c": C_p, "l": l_p, "u": u_p}
+    norms = {"b_scale": b_scale, "c_scale": c_scale,
+             "norm_b": bnorm(AL_p, AU_p),
+             "norm_c": np.linalg.norm(C_p, axis=0),
+             "norm_b_org": norm_b_org, "norm_c_org": norm_c_org}
+    return vecs, norms
+
+
+def setup_batched_numpy(A, C, AL, AU, l, u, params, device, dtype):
+    """setup_batched with its vectors on the host (vectors_numpy), each
+    uploaded as one float64 array and converted on the device: no other
+    float64 vector is ever on the device."""
+    base = LpProblem.from_arrays(A, AL[:, 0], AU[:, 0], l[:, 0], u[:, 0],
+                                 C[:, 0])
+    lp0, maps = build_device_problem(base, dtype=dtype, device=device)
+    tiles = (build_tiles(lp0.A), build_tiles(lp0.AT))
+    A_s, AT_s, row_norm, col_norm = scale_matrix(
+        lp0.A, lp0.AT, params.use_CR_scaling, params.use_Ruiz_scaling,
+        params.use_Pock_Chambolle_scaling)
+    lp0 = attach_tiles(dataclasses.replace(lp0, A=A_s, AT=AT_s), *tiles)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    dense_ok = lp0.m * lp0.n * itemsize <= DENSE_BYTES_LIMIT_BATCHED
+    vecs, norms = vectors_numpy(
+        C, AL, AU, l, u, row_norm.cpu().numpy().astype(np.float64),
+        col_norm.cpu().numpy().astype(np.float64), maps, lp0.m, lp0.n,
+        params.use_bc_scaling)
+    lp = tb.BatchedLpDevice(A=lp0.A, AT=lp0.AT, **{
+        k: torch.as_tensor(v, device=device).to(dtype)
+        for k, v in vecs.items()})
+    return tb.BatchedSetup(lp=lp, lp0=lp0, maps=maps, row_norm=row_norm,
+                           col_norm=col_norm, dense_ok=dense_ok, **norms)
+
+
+def unscale_numpy(x_bar, y_bar, z_bar, b_scale, c_scale, row_norm,
+                  col_norm, maps):
+    """The members' solutions as solve_batched's finish computed them on
+    the host: the state and the norms downloaded and promoted to float64,
+    scaled, gathered by the maps, made column-major."""
+    x_s, y_s, z_s = (np.asarray(v, np.float64) for v in (x_bar, y_bar,
+                                                         z_bar))
+    row_norm = np.asarray(row_norm, np.float64)
+    col_norm = np.asarray(col_norm, np.float64)
+    x = (b_scale[None, :] * x_s / col_norm[:, None])[maps.col_pos, :]
+    y = (c_scale[None, :] * y_s / row_norm[:, None])[maps.row_pos, :]
+    z = (c_scale[None, :] * z_s * col_norm[:, None])[maps.col_pos, :]
+    return tuple(np.asfortranarray(v) for v in (x, y, z))
+
+
+QUIET = ht.Parameters(verbose=False)
+
+
+def test_finish_is_numpys_unscale_bitwise(cuda, monkeypatch):
+    """A whole solve_batched: x, y, z bitwise NumPy's unscale of the same
+    downloaded iterates, float64, (n, B) / (m, B), F-contiguous; n x n = 8100
+    columns and 180 rows, both padded, past the dense probe's minimum."""
+    seen = {}
+    real = tb.unscale_solution
+
+    def spy(state, b_scale, c_scale, row_norm, col_norm, maps):
+        seen["args"] = tuple(v.cpu().numpy() for v in (
+            state.x_bar, state.y_bar, state.z_bar)) + (
+            b_scale.copy(), c_scale.copy(), row_norm.cpu().numpy(),
+            col_norm.cpu().numpy(), maps)
+        return real(state, b_scale, c_scale, row_norm, col_norm, maps)
+
+    monkeypatch.setattr(tb, "unscale_solution", spy)
+    args = _assignment(n=90, B=4)
+    with spans.collect() as recs:
+        res = ht.solve_batched(*args, params=QUIET, device=cuda)
+    assert ht.solve_batched.probe is not None
+    x_bar, y_bar = seen["args"][:2]
+    assert x_bar.dtype == np.float32 and x_bar.shape == (8128, 4)
+    assert y_bar.shape == (192, 4)
+    want = unscale_numpy(*seen["args"])
+    for got, ref, rows in zip((res.x, res.y, res.z), want, (8100, 180, 8100)):
+        assert got.dtype == np.float64 and got.shape == (rows, 4)
+        assert got.flags.f_contiguous
+        np.testing.assert_array_equal(got, ref)
+    fin = next(s for s in recs if s.name == "finish")
+    assert fin.attrs["d2h_bytes"] == 8 * 4 * (2 * 8100 + 180)
+
+
+def test_ingest_transients_gone_before_power(cuda, monkeypatch):
+    """The device-side ingest leaves nothing behind: at the power method's
+    entry the card holds what the NumPy ingest leaves there, to the
+    byte, and the call's peak is no higher than with that ingest."""
+    args = _assignment(n=90, B=4)
+    at_power = []
+    real_power = tb.power_method
+
+    def power(lp0):
+        at_power.append(torch.cuda.memory_allocated(cuda))
+        return real_power(lp0)
+
+    monkeypatch.setattr(tb, "power_method", power)
+
+    def call(setup):
+        monkeypatch.setattr(tb, "setup_batched", setup)
+        gc.collect()
+        torch.cuda.synchronize(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        res = ht.solve_batched(*args, params=QUIET, device=cuda)
+        assert res.status == ["OPTIMAL"] * 4
+        return (at_power[-1] - base,
+                torch.cuda.max_memory_allocated(cuda) - base)
+
+    device_side = tb.setup_batched
+    call(device_side)  # lazy initialisations out of the way
+    held, peak = call(device_side)
+    held_np, peak_np = call(setup_batched_numpy)
+    assert held == held_np
+    assert peak <= peak_np

@@ -233,6 +233,20 @@ def test_solve_batched_span_tree_and_time_fields():
     assert 0.0 <= _unspanned(recs) <= root.seconds
 
 
+def test_solve_batched_spans_carry_the_bytes_moved():
+    """ingest.vectors counts what it uploads (the five (rows, B) float64
+    arrays and the two position maps), finish what it downloads (x, y, z
+    in float64)."""
+    args = _batch()
+    with spans.collect() as recs:
+        ht.solve_batched(*args, params=OFF, device="cpu")
+    by = _by_name(recs)
+    (m, n), B = args[0].shape, 3
+    assert by["ingest.vectors"].attrs == {
+        "h2d_bytes": 8 * B * (3 * n + 2 * m) + 8 * (m + n)}
+    assert by["finish"].attrs == {"d2h_bytes": 8 * B * (2 * n + m)}
+
+
 def test_spans_land_in_the_profilers_trace(tmp_path):
     from torch.profiler import ProfilerActivity, profile
 
