@@ -11,6 +11,7 @@ rank solves what it decided (solve_with_presolve).
 
 from __future__ import annotations
 
+import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -65,13 +66,21 @@ class Model:
 
     @classmethod
     def from_mps(cls, path: str, **kw) -> "Model":
+        """The problem read from an MPS file, in the span "read" (attrs:
+        the file's bytes, m, n, nnz and the reader, "native" or
+        "python")."""
         # The native (C++) reader is the fast path; the pure-Python reader
         # is the golden reference and the fallback without the library.
         from .io import native_mps
 
-        if native_mps.is_available():
-            return cls(native_mps.read_mps_native(path, **kw))
-        return cls(read_mps(path, **kw))
+        native = native_mps.is_available()
+        with spans.span("read",
+                        reader="native" if native else "python") as rd:
+            problem = (native_mps.read_mps_native if native
+                       else read_mps)(path, **kw)
+            rd.attrs.update(bytes=os.path.getsize(path), m=problem.m,
+                            n=problem.n, nnz=problem.nnz)
+        return cls(problem)
 
     def solve(self, parameters: Optional[Parameters] = None, x0=None,
               y0=None, device=None) -> Results:
@@ -96,8 +105,9 @@ def _presolve(ps, problem: LpProblem, budget: float):
     """presolve_problem behind the reference's error boundary: a failure of
     any kind degrades to the unreduced model with a warning.  Returns
     (status, reduced, handle, seconds): the seconds of its span
-    "presolve", which in the giant regime's overlap runs in a worker
-    thread, outside the call's tree."""
+    "presolve" (attrs: the handle's stats(), rows_removed, cols_removed,
+    nnz_removed and rounds, where presolve ran), which in the giant
+    regime's overlap runs in a worker thread, outside the call's tree."""
     with spans.span("presolve") as pre:
         try:
             status, reduced, handle = ps.presolve_problem(problem,
@@ -106,6 +116,8 @@ def _presolve(ps, problem: LpProblem, budget: float):
             print(f"[presolve] failed ({e}); solving the original model",
                   file=sys.stderr)
             status, reduced, handle = "UNAVAILABLE", None, None
+        if handle is not None:
+            pre.attrs.update(handle.stats())
     return status, reduced, handle, pre.seconds
 
 
@@ -115,7 +127,8 @@ def solve_with_presolve(problem: LpProblem,
     """Presolve -> core solve -> postsolve -> original-space KKT validation.
 
     A presolve failure of any kind falls back to solving the unreduced
-    model with a warning.  An original-space warm start (x0, y0) is
+    model with a warning.  Postsolve and the validation run in the spans
+    "postsolve" and "validate".  An original-space warm start (x0, y0) is
     projected onto the reduced problem via the presolver's index maps.
 
     In the giant regime with no warm start, presolve (native, the GIL
@@ -220,9 +233,12 @@ def solve_with_presolve(problem: LpProblem,
         # Fully solved by presolve.
         res = None
         if lead:
-            x, y, z = handle.postsolve(np.zeros(0), np.zeros(0), np.zeros(0))
+            with spans.span("postsolve"):
+                x, y, z = handle.postsolve(np.zeros(0), np.zeros(0),
+                                           np.zeros(0))
             res = Results()
-            metrics = problem.kkt_error(x, y, z)
+            with spans.span("validate"):
+                metrics = problem.kkt_error(x, y, z)
             res.status = ("OPTIMAL" if metrics["kkt"] < params.stop_tol
                           else "ERROR")
             res.x, res.y, res.z = x, y, z
@@ -238,10 +254,12 @@ def solve_with_presolve(problem: LpProblem,
     if res.x is not None:
         post = None
         if lead:
-            x, y, z = handle.postsolve(res.x, res.y, res.z)
-            metrics = ps.validate_original_kkt(problem, x, y, z,
-                                               params.stop_tol,
-                                               verbose=params.verbose)
+            with spans.span("postsolve"):
+                x, y, z = handle.postsolve(res.x, res.y, res.z)
+            with spans.span("validate"):
+                metrics = ps.validate_original_kkt(problem, x, y, z,
+                                                   params.stop_tol,
+                                                   verbose=params.verbose)
             post = (x, y, z, metrics)
         res.x, res.y, res.z, metrics = from_lead(post)
         res.primal_obj = metrics["primal_obj"]

@@ -257,3 +257,71 @@ def test_spans_land_in_the_profilers_trace(tmp_path):
     events = json.loads(path.read_text())["traceEvents"]
     names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     assert {"hprlp::solve", "hprlp::ingest", "hprlp::loop"} <= names
+
+
+NEW_SPANS = {"read", "presolve", "postsolve", "validate"}
+
+
+def _mps(tmp_path, seed=6):
+    from hprlp_tpu_torch.prof.problems import write_mps
+
+    path = str(tmp_path / f"lp{seed}.mps")
+    write_mps(LpProblem.from_arrays(*_lp(seed)), path)
+    return path
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_solve_mps_spans_read_presolve_postsolve_validate(tmp_path, native,
+                                                          monkeypatch):
+    from hprlp_tpu_torch.io import native_mps
+
+    monkeypatch.setattr(native_mps, "is_available", lambda: native)
+    path = _mps(tmp_path)
+    with spans.collect() as recs:
+        res = ht.solve_mps(path, ht.Parameters(verbose=False), device="cpu")
+    assert res.status == "OPTIMAL"
+    by = _by_name(recs)
+    root = by["solve"]
+    assert recs[-1] is root and root.parent is None
+    for name in NEW_SPANS | {"ingest", "loop"}:
+        assert by[name].parent == root.id, name
+    names = [s.name for s in recs if s.parent == root.id]
+    assert names.index("read") < names.index("presolve") < \
+        names.index("ingest") < names.index("loop") < \
+        names.index("postsolve") < names.index("validate")
+    m, n = _lp(6)[0].shape
+    assert by["read"].attrs == {
+        "reader": "native" if native else "python", "m": m, "n": n,
+        "nnz": _lp(6)[0].nnz, "bytes": (tmp_path / "lp6.mps").stat().st_size}
+    assert set(by["presolve"].attrs) == {"rows_removed", "cols_removed",
+                                         "nnz_removed", "rounds"}
+    assert all(isinstance(v, int) and v >= 0
+               for v in by["presolve"].attrs.values())
+    # The Results time fields are read off the spans they were before.
+    assert res.presolve_time == by["presolve"].seconds
+    assert res.setup_time == (by["ingest"].seconds
+                              - by["ingest.scaling"].seconds)
+    assert res.scaling_time == by["ingest.scaling"].seconds
+    assert res.autotune_time == by["autotune"].seconds
+    assert res.power_time == by["power"].seconds
+    assert res.time == by["loop"].seconds
+    assert 0.0 <= _unspanned(recs) <= root.seconds
+
+
+def test_presolve_off_has_none_of_the_front_door_spans(tmp_path):
+    with spans.collect() as recs:
+        ht.solve(*_lp(7), OFF, device="cpu")
+    assert not NEW_SPANS & {s.name for s in recs}
+    with spans.collect() as recs:
+        ht.solve_mps(_mps(tmp_path, 7), OFF, device="cpu")
+    assert NEW_SPANS & {s.name for s in recs} == {"read"}
+
+
+def test_model_from_arrays_with_presolve_has_no_read_span():
+    with spans.collect() as recs:
+        res = ht.Model.from_arrays(*_lp(8)).solve(
+            ht.Parameters(verbose=False), device="cpu")
+    assert res.status == "OPTIMAL"
+    names = [s.name for s in recs]
+    assert "read" not in names
+    assert {"presolve", "postsolve", "validate"} <= set(names)
